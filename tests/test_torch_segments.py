@@ -1,0 +1,134 @@
+"""The port's segment sum against the JAX package's Pallas kernels and XLA.
+
+Every case of ``tests/test_ops.py`` (flat shapes, radix shapes, out-of-range
+ids, 1-D squeeze, int dtype) is run through the port's ``segment_sum`` on the
+CPU (its plain version) and held against ``segment_sum_pallas`` /
+``segment_sum_radix`` in interpret mode and ``jax.ops.segment_sum``.  Ints must
+be exact.  Floats within rtol=1e-5, atol=1e-5 against the Pallas kernels, the
+tolerance ``test_ops.py`` uses (the one-hot contraction sums in another
+order); against the XLA CPU scatter, which adds row by row as the plain
+version does, floats must be bitwise equal.
+
+The CUDA kernel itself is exercised on the card by ``test_torch_cuda.py``
+and ``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cruise_control_tpu.ops.segments import segment_sum_pallas, segment_sum_radix
+from cruise_control_tpu_torch.ops import segments as PS
+
+RTOL = ATOL = 1e-5
+
+
+def _port(vals, seg, S):
+    return PS.segment_sum(torch.from_numpy(vals), torch.from_numpy(seg), S).numpy()
+
+
+def _check(vals, seg, S, kernel):
+    got = _port(vals, seg, S)
+    want_k = np.asarray(kernel(jnp.asarray(vals), jnp.asarray(seg), S, interpret=True))
+    want_x = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), num_segments=S))
+    assert got.shape == want_x.shape and got.dtype == want_x.dtype
+    np.testing.assert_allclose(got, want_k, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got, want_x)
+
+
+@pytest.mark.parametrize("R,B,C", [(37, 5, 4), (512, 128, 1), (1000, 40, 7)])
+def test_flat_shapes_match_pallas_and_xla(R, B, C):
+    rng = np.random.default_rng(R + B + C)
+    vals = rng.normal(size=(R, C)).astype(np.float32)
+    seg = rng.integers(0, B, size=R).astype(np.int32)
+    _check(vals, seg, B, segment_sum_pallas)
+
+
+def test_flat_drops_out_of_range():
+    vals = np.ones((10, 2), np.float32)
+    seg = np.asarray([0, 1, 2, 3, -1, 99, 4, 4, 2, -7], np.int32)
+    _check(vals, seg, 5, segment_sum_pallas)
+
+
+def test_flat_1d_and_int():
+    rng = np.random.default_rng(0)
+    seg = rng.integers(0, 17, size=300).astype(np.int32)
+    _check(np.ones(300, np.float32), seg, 17, segment_sum_pallas)
+    ints = rng.integers(-5, 9, size=300).astype(np.int32)
+    got = _port(ints, seg, 17)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(ints), jnp.asarray(seg), num_segments=17))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("R,B,C", [(64, 2500, 3), (700, 4000, 7), (300, 3000, 1)])
+def test_radix_shapes_match_pallas_and_xla(R, B, C):
+    rng = np.random.default_rng(R + B + C)
+    vals = rng.normal(size=(R, C)).astype(np.float32)
+    seg = rng.integers(0, B, size=R).astype(np.int32)
+    _check(vals, seg, B, segment_sum_radix)
+
+
+def test_radix_drops_out_of_range():
+    vals = np.ones((12, 2), np.float32)
+    seg = np.asarray([0, 1, 2500, 3000, -1, 9999, 4, 4, 2, -7, 2048, 2049], np.int32)
+    _check(vals, seg, 2600, segment_sum_radix)
+
+
+def test_radix_1d_squeeze():
+    rng = np.random.default_rng(3)
+    seg = rng.integers(0, 3001, size=400).astype(np.int32)
+    got = _port(np.ones(400, np.float32), seg, 3001)
+    assert got.shape == (3001,)
+    _check(np.ones(400, np.float32), seg, 3001, segment_sum_radix)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.bool_])
+def test_int_and_bool_keep_their_dtype(dtype):
+    rng = np.random.default_rng(5)
+    seg = rng.integers(-2, 9, size=200).astype(np.int32)
+    vals = rng.integers(0, 2, size=200).astype(dtype)
+    got = _port(vals, seg, 9)
+    assert got.dtype == np.dtype(dtype)
+    counts = np.zeros(9, np.int64)
+    for v, s in zip(vals.astype(np.int64), seg):
+        if 0 <= s < 9:
+            counts[s] += v
+    np.testing.assert_array_equal(got, counts > 0 if dtype is np.bool_ else counts.astype(dtype))
+
+
+def test_rack_count_scale_int_exact():
+    """S = 100,000 with int input, the (partition, rack) count table's size at
+    config #2 (10,000 partitions x 10 racks)."""
+    rng = np.random.default_rng(9)
+    R, S = 30_000, 100_000
+    seg = rng.integers(0, S, size=R).astype(np.int32)
+    ones = np.ones(R, np.int32)
+    got = _port(ones, seg, S)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(ones), jnp.asarray(seg), num_segments=S))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_config2_shapes_float_bitwise_vs_xla():
+    """[30000, 4] f32 over 128 segments (broker loads at config #2): the plain
+    version adds in row order, like the XLA CPU scatter, so the sums agree
+    bit for bit."""
+    rng = np.random.default_rng(13)
+    vals = (rng.exponential(size=(30_000, 4)) * 1000).astype(np.float32)
+    seg = rng.integers(0, 128, size=30_000).astype(np.int32)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), num_segments=128))
+    np.testing.assert_array_equal(_port(vals, seg, 128), want)
+
+
+def test_cpu_path_never_launches_the_kernel():
+    PS.reset_launch_counts()
+    _port(np.ones(50, np.float32), np.zeros(50, np.int32), 3)
+    _port(np.ones(50, np.int32), np.zeros(50, np.int32), 3)
+    assert PS.LAUNCHES == {"segment_sum_f32": 0, "segment_sum_i32": 0}
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError):
+        PS.segment_sum_cuda(torch.ones(4), torch.zeros(4, dtype=torch.int32), 2)

@@ -1,0 +1,100 @@
+"""Shared helpers for the PyTorch port's parity tests (``test_torch_*.py``).
+
+Inputs are built once in numpy (synthetic specs, the gate configs,
+``tests/fixtures.py`` clusters through the JAX ``ClusterModel.to_arrays``) and
+handed to both packages: the JAX objects' fields become numpy arrays and go
+into the port through ``cruise_control_tpu_torch.model.bridge``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from cruise_control_tpu_torch.model.bridge import arrays_from_numpy, context_from_numpy
+
+_STATIC = ("num_racks", "num_topics", "num_hosts")
+
+#: gate config #1 (obs/gate.py: 3 brokers / 20 partitions, skewed)
+CONFIG1 = dict(
+    num_racks=2, num_brokers=3, num_topics=2, num_partitions=20,
+    replication_factor=2, distribution="exponential", skew_brokers=1,
+    mean_cpu=0.25, mean_disk=0.2, mean_nw_in=0.15, mean_nw_out=0.15, seed=3,
+)
+#: a ~20-broker skewed synthetic cluster: every default goal has work
+SMALL20 = dict(
+    num_racks=4, num_brokers=20, num_topics=6, num_partitions=120,
+    replication_factor=3, distribution="exponential", skew_brokers=6,
+    mean_cpu=0.25, mean_disk=0.2, mean_nw_in=0.15, mean_nw_out=0.15, seed=11,
+)
+#: gate config2_small (obs/gate.py: 40 brokers / 2k partitions)
+CONFIG2_SMALL = dict(
+    num_racks=5, num_brokers=40, num_topics=20, num_partitions=2000,
+    replication_factor=3, distribution="exponential", skew_brokers=10,
+    mean_cpu=0.25, mean_disk=0.2, mean_nw_in=0.15, mean_nw_out=0.15, seed=7,
+)
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def port_state(jax_state, device="cpu"):
+    """The port's ClusterArrays built from a JAX ClusterArrays' numpy fields."""
+    fields = {
+        f.name: np.asarray(getattr(jax_state, f.name))
+        for f in dataclasses.fields(jax_state)
+        if f.name not in _STATIC
+    }
+    return arrays_from_numpy(
+        fields, jax_state.num_racks, jax_state.num_topics, jax_state.num_hosts, device
+    )
+
+
+def port_ctx(jax_ctx, device="cpu"):
+    """The port's GoalContext built from a JAX GoalContext's numpy fields."""
+    skip = ("constraint", "top_k", "max_active_brokers")
+    fields = {
+        f.name: np.asarray(getattr(jax_ctx, f.name))
+        for f in dataclasses.fields(jax_ctx)
+        if f.name not in skip
+    }
+    cons = {
+        f.name: np.asarray(getattr(jax_ctx.constraint, f.name))
+        for f in dataclasses.fields(jax_ctx.constraint)
+    }
+    return context_from_numpy(
+        fields, cons, top_k=jax_ctx.top_k,
+        max_active_brokers=jax_ctx.max_active_brokers, device=device,
+    )
+
+
+def assert_same(got, want, name="", rtol=0.0, atol=0.0):
+    """Ints/bools exact; floats within (rtol, atol); shapes equal."""
+    g, w = to_np(got), np.asarray(want)
+    assert g.shape == w.shape, f"{name}: shape {g.shape} != {w.shape}"
+    if np.issubdtype(w.dtype, np.floating):
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=name)
+    else:
+        np.testing.assert_array_equal(g.astype(w.dtype), w, err_msg=name)
+
+
+def assert_fields_same(port_obj, jax_obj, rtol=0.0, atol=0.0, skip=()):
+    """Every tensor field of a port dataclass against the JAX object's field
+    of the same name (both None allowed)."""
+    for f in dataclasses.fields(port_obj):
+        if f.name in skip:
+            continue
+        got = getattr(port_obj, f.name)
+        want = getattr(jax_obj, f.name)
+        if got is None or want is None:
+            assert got is None and want is None, f"{f.name}: {got!r} vs {want!r}"
+            continue
+        if not isinstance(got, torch.Tensor):
+            assert got == (want if not hasattr(want, "shape") else np.asarray(want)), f.name
+            continue
+        assert_same(got, want, f.name, rtol=rtol, atol=atol)
