@@ -7,10 +7,13 @@ Port of ``cruise_control_tpu/analyzer/context.py``, single-device form.
 loads, per-broker loads and counts, rack occupancy, capacity limits, balance
 bands), computed once per optimizer round.
 
-Every replica-axis sum here goes through :func:`ops.segments.segment_sum`, so
-on the card it runs the hand-written segment-sum kernel.  The [B, T] per-topic
-tables are built only when ``enable_heavy`` is set, and the optional groups
-(``NEED_*``) only when the caller's ``needs`` names them.
+Every replica-axis sum here goes through :func:`ops.segments.segment_sums`,
+so on the card it runs the hand-written segment-sum kernels: the broker-keyed
+sums share one call, the (broker, topic) tables another.  The cross-broker
+sums behind the balance bands add in the JAX reference's order
+(:func:`ops.index.xla_sums`).  The [B, T] per-topic tables are built only when
+``enable_heavy`` is set, and the optional groups (``NEED_*``) only when the
+caller's ``needs`` names them.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from cruise_control_tpu_torch.core.device import DeviceLike, resolve_device
 from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
-from cruise_control_tpu_torch.ops.index import segment_max, segment_min
-from cruise_control_tpu_torch.ops.segments import segment_sum as _segment_sum
+from cruise_control_tpu_torch.ops.index import segment_max, segment_min, xla_sums
+from cruise_control_tpu_torch.ops.segments import segment_sums as _segment_sums
 
 I32 = torch.int32
 F32 = torch.float32
@@ -244,29 +247,7 @@ def take_snapshot(
     group = rp * state.num_racks + rack
     on_disk = state.replica_disk >= 0
 
-    bload = _segment_sum(eff, rb, B)
-    replica_counts = _segment_sum(rvalid.to(I32), rb, B)
-    leader_counts = _segment_sum(lead.to(I32), rb, B)
-    pnw = _segment_sum(
-        torch.where(
-            rvalid,
-            state.base_load[:, Resource.NW_OUT] + state.leadership_delta[rp, Resource.NW_OUT],
-            0.0,
-        ),
-        rb, B,
-    )
-    lbi = _segment_sum(torch.where(lead, eff[:, Resource.NW_IN], 0.0), rb, B)
-    rack_counts = _segment_sum(rvalid.to(I32), group, P * state.num_racks)
-    dload = A.disk_load(state)
-    d_counts = _segment_sum(
-        (on_disk & rvalid).to(I32),
-        torch.where(on_disk, state.replica_disk, D),
-        max(D, 1),
-    )[:D]
-    offline_per_broker = _segment_sum(offline.to(F32), rb, B)
-
-    leader_broker = leader_eff = preferred = rack_first2 = None
-    rack_viol_need = broker_set_need = None
+    leader_broker = leader_eff = preferred = rack_first2 = rack_viol = bs_bad = None
     if NEED_LEADER in needs:
         # leaderless partitions read replica row 0, as the JAX package does
         ltarget = torch.clamp(state.partition_leader, min=0)
@@ -276,7 +257,6 @@ def take_snapshot(
         want_set = ctx.broker_set_of_topic[topic]
         have_set = ctx.broker_set_of_broker[rb]
         bs_bad = rvalid & (want_set >= 0) & (have_set != want_set)
-        broker_set_need = _segment_sum(bs_bad.to(F32), rb, B)
     if NEED_PREF in needs:
         pref = segment_min(torch.where(rvalid, gidx, _BIG), rp, P)
         preferred = torch.where(pref < _BIG, pref, -1)
@@ -287,12 +267,44 @@ def take_snapshot(
         # a valid row that is not its (partition, rack) group's first member
         # sits in a group of size > 1: rack-violating, as is every offline row
         rack_viol = (rvalid & (gidx != rack_first2[group] // 2)) | offline
-        rack_viol_need = _segment_sum(rack_viol.to(F32), rb, B)
 
+    # every broker-keyed sum in one call: float columns in row order, the
+    # bool columns counted into int32
+    optional = [x.to(F32) for x in (bs_bad, rack_viol) if x is not None]
+    bload, replica_counts, leader_counts, pnw, lbi, offline_per_broker, *needs_sums = _segment_sums(
+        [
+            eff,
+            rvalid,
+            lead,
+            torch.where(
+                rvalid,
+                state.base_load[:, Resource.NW_OUT] + state.leadership_delta[rp, Resource.NW_OUT],
+                0.0,
+            ),
+            torch.where(lead, eff[:, Resource.NW_IN], 0.0),
+            offline.to(F32),
+            *optional,
+        ],
+        rb, B,
+    )
+    broker_set_need = needs_sums.pop(0) if bs_bad is not None else None
+    rack_viol_need = needs_sums.pop(0) if rack_viol is not None else None
+    (rack_counts,) = _segment_sums([rvalid], group, P * state.num_racks)
+    dload = A.disk_load(state)
+    if D > 0:
+        (d_counts,) = _segment_sums([on_disk & rvalid], state.replica_disk, D)
+    else:
+        d_counts = torch.zeros((0,), dtype=I32, device=dev)
+
+    # cross-broker sums in the JAX reference's (XLA CPU) order: the bands
+    # they set decide which brokers are over or under
     alive = state.broker_alive
     n_alive = torch.clamp(alive.sum(dtype=I32), min=1)
-    total_load = torch.where(alive[:, None], bload, 0.0).sum(dim=0)
-    total_cap = torch.where(alive[:, None], state.broker_capacity, 0.0).sum(dim=0)
+    total_load, total_cap, lbi_total = xla_sums([
+        torch.where(alive[:, None], bload, 0.0),
+        torch.where(alive[:, None], state.broker_capacity, 0.0),
+        torch.where(alive, lbi, 0.0),
+    ])
     avg_pct = total_load / torch.clamp(total_cap, min=1e-9)
 
     c = ctx.constraint
@@ -310,16 +322,16 @@ def take_snapshot(
         leader_counts.sum(dtype=I32).to(F32) / n_alive, c.leader_replica_balance_threshold, tv
     )
 
-    lbi_avg = torch.where(alive, lbi, 0.0).sum() / n_alive
+    lbi_avg = lbi_total / n_alive
     bpm = c.balance_percentage_with_margin(tv)
     lbi_upper = lbi_avg * (1.0 + bpm[Resource.NW_IN])
 
     d_usable = state.disk_alive & (state.disk_capacity > 0.0)
     d_limit = c.resource_capacity_threshold[Resource.DISK] * state.disk_capacity
     if D > 0:
-        per_b_load = _segment_sum(torch.where(d_usable, dload, 0.0), state.disk_broker, B)
-        per_b_cap = _segment_sum(
-            torch.where(d_usable, state.disk_capacity, 0.0), state.disk_broker, B
+        per_b_load, per_b_cap = _segment_sums(
+            [torch.where(d_usable, dload, 0.0), torch.where(d_usable, state.disk_capacity, 0.0)],
+            state.disk_broker, B,
         )
         avg_d_pct = per_b_load / torch.clamp(per_b_cap, min=1e-9)
         bpm_d = bpm[Resource.DISK]
@@ -336,8 +348,9 @@ def take_snapshot(
     if enable_heavy:
         T = state.num_topics
         flat_bt = rb * T + topic
-        topic_counts = _segment_sum(rvalid.to(I32), flat_bt, B * T).reshape(B, T)
-        topic_leader_counts = _segment_sum(lead.to(I32), flat_bt, B * T).reshape(B, T)
+        topic_counts, topic_leader_counts = (
+            x.reshape(B, T) for x in _segment_sums([rvalid, lead], flat_bt, B * T)
+        )
         totals = topic_counts.sum(dim=0, dtype=I32)
         avg_t = totals.to(F32) / n_alive
         mult = c.distribution_threshold_multiplier if tv else 1.0

@@ -1,104 +1,535 @@
-// Segment sum for Hopper (sm_90a): out[s, c] = sum over r with ids[r] == s of values[r, c].
+// Segment sums for Hopper (sm_90a): out[s, c] = sum over r with ids[r] == s of values[r, c].
 //
 // Replaces the JAX package's two Pallas TPU kernels, segment_sum_pallas (flat one-hot
 // MXU contraction, S <= 2048) and segment_sum_radix (two-digit one-hot, S <= 16384),
-// both in cruise_control_tpu/ops/segments.py.  One source serves any S and any C.
-// Ids outside [0, S) are dropped.
+// both in cruise_control_tpu/ops/segments.py.  One source serves any S and any number of
+// columns.  Ids outside [0, S) are dropped.  A call takes several value tensors ("fields",
+// each [R] or [R, k], contiguous) under one id vector; a field is float32, int32 or a byte
+// type (bool, uint8), and integer fields sum into int32.
 //
-// Two paths, both deterministic:
+// Two entry points, both deterministic:
 //
-//  * seg_sum_f32 (float inputs): one warp owns one segment and walks the replica axis
-//    in index order, so every output is the left-to-right f32 sum of its rows -- the
-//    same rounding as a sequential CPU scatter-add, on every run.  The block stages a
-//    tile of ids in shared memory once for its 8 warps; each warp ballots its segment
-//    over 32 ids at a time and lane c adds column c of each hit in order.  Full f32
-//    adds, no tensor cores, no TF32.
+//  * cc_segment_sums, the fixed-order path (any float field).  Every float output is the
+//    left-to-right f32 sum of its rows in row order -- bitwise the sequential CPU
+//    scatter-add, on every launch.  No float atomics, no tensor cores, no FMA.  Three
+//    kernels, enqueued by one host call, make a stable counting sort and then walk it:
+//      group_count: blocks of 8 warps; a warp owns a run of 64 consecutive rows and
+//        takes them 32 at a time in row order.  Lanes with equal ids are found with
+//        ballots (one per id bit: __match_any_sync is slow when many warps of one SM
+//        issue it); the lowest lane of each group adds the group's size to the warp's
+//        counter for that segment in shared memory.  Each block writes its per-segment
+//        and per-warp counts.
+//      group_scatter: each block reads all blocks' counts to find where its rows of each
+//        segment begin (no separate scan kernel) and its warps' counts to give each warp
+//        its cursors, then writes every column of each row to its place:
+//        sorted[c][position], a segment's rows contiguous and in ascending row order.
+//        The kernel is a chain of dependent steps, so every load it can issue early
+//        (ids, values, counts) is issued at its start.
+//      group_walk: one warp per (segment, 32 columns); lane c streams column c of the
+//        segment's sorted rows and adds them in order, the next 64 rows in flight while
+//        it adds the current 64, so the serial add chain overlaps the loads.  Integer
+//        columns add as int32 in the same pass.
+//    Work is O(R * C + S * blocks) instead of the O(R * S / 32) compares of a scan per
+//    segment.  The counters of a pass live in shared memory, which holds 28,672
+//    segments; above that the call takes the segment range in chunks of that size, one
+//    pass of the three kernels each (every pass reads all rows and keeps its chunk's).
+//  * cc_segment_counts, the integer path (integer fields only): exact int32 sums.  Block g
+//    owns a range of segments: it reads every id, adds its own rows' values into a shared
+//    memory histogram with shared atomics (exact in any order) and stores its bins.  Every
+//    output element is written once, so there is no memset and no device-memory atomic.
 //
-//  * seg_sum_i32 (integer and bool inputs, cast to int32 by the wrapper): one int32
-//    atomicAdd per (row, column).  Integer addition is associative, so the result is
-//    exact whatever order the atomics land in.
-//
-// Bound on the card: at the solver's shapes (R = 30,000 rows, C <= 4, S = 128) the
-// kernel reads R*(C+1)*4 B, about 600 KB, and writes S*C*4 B -- well under a
-// microsecond of HBM time.  Launch latency and the serial per-segment walk bound it;
-// the float path trades parallelism for a fixed summation order.  The caller
-// allocates the output; the kernels allocate nothing and launch on the given stream.
+// Bound on the card: at the solver's shapes (R = 30,000 rows, S = 128 brokers, 4 to 11
+// columns) a call reads R * (4 + 4 * C) bytes, about 0.6-1.4 MB, and writes S * C * 4 bytes:
+// under half a microsecond of HBM time, and the adds never bind.  What bounds the
+// fixed-order path is latency: three dependent kernels of a few dependent memory round
+// trips each, the scatter's 4-byte stores to scattered places, and in the walk the
+// longest segment's serial add chain (one segment holding all R rows is R dependent
+// adds).  The caller allocates outputs and scratch; nothing here allocates, and every
+// launch goes to the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 2048;  // ids staged in shared memory per pass (8 KB)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxFields = 16;
+constexpr int kMaxCols = 64;
+constexpr int kGroup = 32;            // columns one walk warp carries
+constexpr int kWalk = 64;             // rows a walk lane has in flight
+constexpr int kGroupThreads = 256;    // the count and scatter blocks: 8 warps
+constexpr int kThreads = 1024;        // the integer blocks
+constexpr int kIdsAhead = 2;          // id loads a grouping warp keeps in flight
+constexpr int kHistCap = 8192;        // (block, segment) counts every scatter block reads
+constexpr int kMoveCols = 8;          // columns a scatter lane has in flight
+constexpr int kSmemBytes = 229376;    // dynamic shared memory a block asks for (224 KB)
+constexpr int kSmemInts = kSmemBytes / 4;
+constexpr int kPassSegments = kSmemInts / 2;  // segments one fixed-order pass holds (28,672)
 
-__global__ void __launch_bounds__(kThreads)
-seg_sum_f32(const float* __restrict__ values, const int* __restrict__ ids,
-            float* __restrict__ out, int rows, int cols, int segments) {
-  __shared__ int tile_ids[kTile];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int seg = blockIdx.x * kWarps + warp;
-  const int col = blockIdx.y * 32 + lane;
-  const bool seg_ok = seg < segments;  // uniform across the warp
-  float acc = 0.0f;
-  for (int base = 0; base < rows; base += kTile) {
-    const int n = min(kTile, rows - base);
-    for (int i = threadIdx.x; i < n; i += kThreads) tile_ids[i] = ids[base + i];
-    __syncthreads();
-    if (seg_ok) {
-      for (int j0 = 0; j0 < n; j0 += 32) {
-        const int j = j0 + lane;
-        unsigned hits = __ballot_sync(0xffffffffu, j < n && tile_ids[j] == seg);
-        while (hits) {
-          const int k = __ffs(hits) - 1;
-          hits &= hits - 1;
-          if (col < cols) acc += values[(size_t)(base + j0 + k) * cols + col];
-        }
-      }
-    }
-    __syncthreads();
+enum FieldType { kF32 = 0, kI32 = 1, kU8 = 2 };
+
+// Kernel parameter (read in place: __grid_constant__): the fields of one call, and
+// their columns flattened.
+struct Fields {
+  const void* src[kMaxFields];
+  void* dst[kMaxFields];
+  int width[kMaxFields];
+  int type[kMaxFields];
+  unsigned char col_field[kMaxCols];
+  unsigned char col_sub[kMaxCols];
+  int ncols;
+};
+
+__device__ __forceinline__ unsigned load_col(const Fields& f, int c, int r) {
+  const int fi = f.col_field[c];
+  const size_t i = (size_t)r * f.width[fi] + f.col_sub[c];
+  switch (f.type[fi]) {
+    case kF32: return __float_as_uint(static_cast<const float*>(f.src[fi])[i]);
+    case kI32: return (unsigned)static_cast<const int*>(f.src[fi])[i];
+    default: return (unsigned)static_cast<const unsigned char*>(f.src[fi])[i];
   }
-  if (seg_ok && col < cols) out[(size_t)seg * cols + col] = acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
-seg_sum_i32(const int* __restrict__ values, const int* __restrict__ ids,
-            int* __restrict__ out, int rows, int cols, int segments) {
-  const long long total = (long long)rows * cols;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const int r = (int)(i / cols);
-    const int c = (int)(i - (long long)r * cols);
-    const int s = ids[r];
-    if (s >= 0 && s < segments) atomicAdd(&out[(size_t)s * cols + c], values[i]);
+__device__ __forceinline__ bool in_range(int s, int segments) {
+  return (unsigned)s < (unsigned)segments;
+}
+
+// Exclusive scan of a[0, n) in place by the whole block; returns the total.  Each thread
+// scans a contiguous run; a shuffle scan over the runs joins them.
+__device__ int block_exclusive_scan(int* a, int n, int* warp_sums) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int first = min(n, tid * per), last = min(n, first + per);
+  int sum = 0;
+  for (int i = first; i < last; ++i) sum += a[i];
+  int x = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
   }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, d);
+      if (lane >= d) w += y;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  int run = (warp > 0 ? warp_sums[warp - 1] : 0) + x - sum;
+  const int total = warp_sums[nwarps - 1];
+  for (int i = first; i < last; ++i) {
+    const int v = a[i];
+    a[i] = run;
+    run += v;
+  }
+  __syncthreads();
+  return total;
+}
+
+// How a pass of a fixed-order call is cut: it sums segments [base, base + segments);
+// `tiles` blocks of `warps` active warps, each warp owning `span` consecutive rows;
+// `kbits` bits distinguish the segments.  Counters live in shared memory ([segment][warp]).
+struct Grouping {
+  int rows, base, segments, tiles, warps, span, kbits;
+};
+
+// Row r's segment relative to the pass (out of range when it is not in the pass's).
+__device__ __forceinline__ int local_id(const int* __restrict__ ids, int r, const Grouping& g) {
+  return (int)((unsigned)ids[r] - (unsigned)g.base);
+}
+
+// Lanes holding the same valid id, without __match_any_sync (slow when many warps of one
+// SM issue it): one ballot of validity and one per id bit.
+__device__ __forceinline__ unsigned peers_of(int s, bool ok, int kbits) {
+  unsigned m = __ballot_sync(kFull, ok);
+  for (int b = 0; b < kbits; ++b) {
+    const bool bit = (s >> b) & 1;
+    const unsigned bb = __ballot_sync(kFull, bit);
+    m &= bit ? bb : ~bb;
+  }
+  return m;
+}
+
+// A warp's pass over its rows, 32 at a time in row order: `visit(s, peers, r)` for every
+// row with an in-range id.  Ids are loaded kIdsAhead steps ahead.
+template <typename Visit>
+__device__ __forceinline__ void warp_rows(const int* __restrict__ ids, const Grouping& g,
+                                          Visit visit) {
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * g.warps + (threadIdx.x >> 5);
+  const int begin = min(g.rows, w * g.span), end = min(g.rows, begin + g.span);
+  for (int base = begin; base < end; base += 32 * kIdsAhead) {
+    int sv[kIdsAhead];
+#pragma unroll
+    for (int k = 0; k < kIdsAhead; ++k) {
+      const int r = base + 32 * k + lane;
+      sv[k] = r < end ? local_id(ids, r, g) : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < kIdsAhead; ++k) {
+      if (base + 32 * k >= end) break;  // warp-uniform
+      const bool ok = in_range(sv[k], g.segments);
+      const unsigned peers = peers_of(ok ? sv[k] : 0, ok, g.kbits);
+      if (ok) visit(sv[k], peers, base + 32 * k + lane);
+      __syncwarp();
+    }
+  }
+}
+
+// Count: hist[t * segments + s] = rows of block t in segment s, and
+// wcnt[(t * warps + w) * segments + s] = rows of its warp w in segment s.
+__global__ void __launch_bounds__(kGroupThreads)
+group_count(const int* __restrict__ ids, const Grouping g, int* __restrict__ hist,
+            int* __restrict__ wcnt) {
+  extern __shared__ int smem[];  // [segment][warp]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = g.segments * g.warps;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = 0;
+  __syncthreads();
+  if (warp < g.warps) {
+    warp_rows(ids, g, [&](int s, unsigned peers, int) {
+      if (lane == __ffs(peers) - 1) smem[s * g.warps + warp] += __popc(peers);
+    });
+  }
+  __syncthreads();
+  int* wc = wcnt + (size_t)blockIdx.x * g.warps * g.segments;
+  for (int s = threadIdx.x; s < g.segments; s += blockDim.x) {
+    int sum = 0;
+    for (int w = 0; w < g.warps; ++w) {
+      const int c = smem[s * g.warps + w];
+      wc[(size_t)w * g.segments + s] = c;
+      sum += c;
+    }
+    hist[(size_t)blockIdx.x * g.segments + s] = sum;
+  }
+}
+
+// Scatter: block t finds where its rows of each segment start (all blocks' counts of
+// the earlier segments plus the earlier blocks' counts of the same segment), gives each
+// warp its cursor, and writes every column of every row to its place in the segment's
+// list: sorted[c * rows + position], each segment's rows in ascending row order.
+// Block 0 also writes seg_start.  The kernel is a chain of dependent steps, so every
+// load it can issue early -- this warp's first ids and values, the count tables -- is
+// issued first.
+__global__ void __launch_bounds__(kGroupThreads)
+group_scatter(const int* __restrict__ ids, const Grouping g, const int* __restrict__ hist,
+              const int* __restrict__ wcnt, int* __restrict__ seg_start,
+              const __grid_constant__ Fields f, unsigned* __restrict__ sorted) {
+  extern __shared__ int smem[];  // cursors [segment][warp], then the segment starts
+  __shared__ int warp_sums[32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x;
+  const int w = t * g.warps + warp;
+  const int begin = min(g.rows, w * g.span), end = min(g.rows, begin + g.span);
+  const bool mover = warp < g.warps;
+  int sv[kIdsAhead];
+  unsigned v[kIdsAhead][kMoveCols];
+  auto load_ids = [&](int base) {
+#pragma unroll
+    for (int k = 0; k < kIdsAhead; ++k) {
+      const int r = base + 32 * k + lane;
+      sv[k] = r < end ? local_id(ids, r, g) : -1;
+    }
+  };
+  auto load_values = [&](int base, int c0) {
+#pragma unroll
+    for (int k = 0; k < kIdsAhead; ++k)
+#pragma unroll
+      for (int u = 0; u < kMoveCols; ++u)
+        if (base + 32 * k + lane < end && c0 + u < f.ncols)
+          v[k][u] = load_col(f, c0 + u, base + 32 * k + lane);
+  };
+  if (mover) {
+    load_ids(begin);
+    load_values(begin, 0);
+  }
+  int* cur = smem;
+  int* start = smem + g.segments * g.warps;
+  // start[s] = rows of segment s in all blocks; cur[s][w] = rows of segment s in the
+  // blocks before this one and in the warps before w of this one.  When there are fewer
+  // segments than threads, `parts` threads share each segment's blocks; their sums meet
+  // in shared memory (exact integer atomics).
+  const int parts = max(1, (int)blockDim.x / g.segments);
+  for (int i = threadIdx.x; i < g.segments * (g.warps + 1); i += blockDim.x) smem[i] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < g.segments * parts; i += blockDim.x) {
+    const int s = i % g.segments, part = i / g.segments;
+    int total = 0, before = 0;
+    for (int u0 = part; u0 < g.tiles; u0 += 32 * parts) {
+      int h[32];
+#pragma unroll
+      for (int u = 0; u < 32; ++u) {
+        const int tile = u0 + u * parts;
+        h[u] = tile < g.tiles ? hist[(size_t)tile * g.segments + s] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 32; ++u) {
+        total += h[u];
+        before += u0 + u * parts < t ? h[u] : 0;
+      }
+    }
+    atomicAdd(&start[s], total);
+    atomicAdd(&cur[s * g.warps], before);
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < g.segments; s += blockDim.x) {
+    const int* wc = wcnt + (size_t)t * g.warps * g.segments + s;
+    int c[kGroupThreads / 32];
+#pragma unroll
+    for (int k = 0; k < kGroupThreads / 32; ++k) c[k] = k < g.warps ? wc[(size_t)k * g.segments] : 0;
+    int run = cur[s * g.warps];
+#pragma unroll
+    for (int k = 0; k < kGroupThreads / 32; ++k) {
+      if (k < g.warps) cur[s * g.warps + k] = run;
+      run += c[k];
+    }
+  }
+  __syncthreads();
+  const int kept = block_exclusive_scan(start, g.segments, warp_sums);
+  if (t == 0) {
+    for (int s = threadIdx.x; s < g.segments; s += blockDim.x) seg_start[s] = start[s];
+    if (threadIdx.x == 0) seg_start[g.segments] = kept;
+  }
+  for (int i = threadIdx.x; i < g.segments * g.warps; i += blockDim.x) cur[i] += start[i / g.warps];
+  __syncthreads();
+  if (!mover) return;
+  // kIdsAhead steps at a time: first every row's position (in row order), then the
+  // columns, kMoveCols at a time with every step's loads in flight together
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = begin; base < end; base += 32 * kIdsAhead) {
+    if (base != begin) load_ids(base);
+    int pos[kIdsAhead];
+#pragma unroll
+    for (int k = 0; k < kIdsAhead; ++k) {
+      const int s = sv[k];
+      const bool ok = in_range(s, g.segments);
+      const unsigned peers = peers_of(ok ? s : 0, ok, g.kbits);
+      pos[k] = -1;
+      if (ok) {
+        int* c = cur + s * g.warps + warp;
+        pos[k] = *c + __popc(peers & below);
+        __syncwarp(peers);
+        if (lane == __ffs(peers) - 1) *c += __popc(peers);
+      }
+      __syncwarp();
+    }
+    for (int c0 = 0; c0 < f.ncols; c0 += kMoveCols) {
+      if (base != begin || c0 != 0) load_values(base, c0);
+#pragma unroll
+      for (int k = 0; k < kIdsAhead; ++k)
+#pragma unroll
+        for (int u = 0; u < kMoveCols; ++u)
+          if (pos[k] >= 0 && c0 + u < f.ncols) sorted[(size_t)(c0 + u) * g.rows + pos[k]] = v[k][u];
+    }
+  }
+}
+
+// Walk: one warp per (segment, group of kGroup columns); lane c streams column c of the
+// segment's sorted rows and adds them in order, the next kWalk rows in flight while it
+// adds the current ones.
+__global__ void __launch_bounds__(32)
+group_walk(const unsigned* __restrict__ sorted, int rows, int base_segment,
+           const int* __restrict__ seg_start, const __grid_constant__ Fields f) {
+  const int lane = threadIdx.x;
+  const int c = blockIdx.y * kGroup + lane;
+  if (lane >= kGroup || c >= f.ncols) return;
+  const int s = blockIdx.x;
+  const int begin = seg_start[s], end = seg_start[s + 1];
+  const unsigned* p = sorted + (size_t)c * rows;
+  const int fi = f.col_field[c];
+  const bool is_float = f.type[fi] == kF32;
+  float facc = 0.0f;
+  int iacc = 0;
+  unsigned a[kWalk], b[kWalk];
+  auto fetch = [&](unsigned(&x)[kWalk], int k0) {
+#pragma unroll
+    for (int j = 0; j < kWalk; ++j) x[j] = k0 + j < end ? p[k0 + j] : 0u;
+  };
+  auto add = [&](const unsigned(&x)[kWalk], int n) {
+    if (is_float) {
+      if (n >= kWalk) {
+#pragma unroll
+        for (int j = 0; j < kWalk; ++j) facc += __uint_as_float(x[j]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kWalk; ++j)
+          if (j < n) facc += __uint_as_float(x[j]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kWalk; ++j) iacc += (int)x[j];  // zero past the end
+    }
+  };
+  fetch(a, begin);
+  for (int base = begin; base < end; base += 2 * kWalk) {
+    fetch(b, base + kWalk);
+    add(a, end - base);
+    if (base + kWalk >= end) break;
+    fetch(a, base + 2 * kWalk);
+    add(b, end - base - kWalk);
+  }
+  const size_t o = (size_t)(base_segment + s) * f.width[fi] + f.col_sub[c];
+  if (is_float) static_cast<float*>(f.dst[fi])[o] = facc;
+  else static_cast<int*>(f.dst[fi])[o] = iacc;
+}
+
+// Integer path: block g owns segments [g * span, (g + 1) * span).  It reads every id,
+// adds the values of its own rows into a shared-memory histogram, and stores its bins:
+// every output element is written once, by one block -- no memset, no device atomics.
+__global__ void __launch_bounds__(kThreads)
+int_sums(const int* __restrict__ ids, int rows, int segments, int span,
+         const __grid_constant__ Fields f) {
+  extern __shared__ int bins[];  // [column][span]
+  const int s0 = blockIdx.x * span;
+  const int s1 = min(segments, s0 + span);
+  const int nb = f.ncols * span;
+  for (int i = threadIdx.x; i < nb; i += kThreads) bins[i] = 0;
+  __syncthreads();
+  constexpr int kUnroll = 8;
+  for (int r0 = threadIdx.x; r0 < rows; r0 += kThreads * kUnroll) {
+    int sv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int r = r0 + u * kThreads;
+      sv[u] = r < rows ? ids[r] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (sv[u] < s0 || sv[u] >= s1) continue;
+      const int r = r0 + u * kThreads;
+      for (int c = 0; c < f.ncols; ++c) {
+        const int v = (int)load_col(f, c, r);
+        if (v) atomicAdd(&bins[c * span + sv[u] - s0], v);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nb; i += kThreads) {
+    const int c = i / span, s = s0 + i - c * span;
+    if (s >= s1) continue;
+    const int fi = f.col_field[c];
+    static_cast<int*>(f.dst[fi])[(size_t)s * f.width[fi] + f.col_sub[c]] = bins[i];
+  }
+}
+
+// spec holds 4 int64 per field: source pointer, output pointer, width, FieldType.
+int read_fields(const long long* spec, int nfields, bool ints_only, Fields* f) {
+  if (nfields <= 0 || nfields > kMaxFields) return (int)cudaErrorInvalidValue;
+  f->ncols = 0;
+  for (int i = 0; i < nfields; ++i) {
+    const long long* q = spec + 4 * i;
+    const int width = (int)q[2], type = (int)q[3];
+    if (width <= 0 || type < kF32 || type > kU8 || (ints_only && type == kF32) ||
+        f->ncols + width > kMaxCols)
+      return (int)cudaErrorInvalidValue;
+    f->src[i] = (const void*)q[0];
+    f->dst[i] = (void*)q[1];
+    f->width[i] = width;
+    f->type[i] = type;
+    for (int c = 0; c < width; ++c) {
+      f->col_field[f->ncols] = (unsigned char)i;
+      f->col_sub[f->ncols] = (unsigned char)c;
+      ++f->ncols;
+    }
+  }
+  return 0;
+}
+
+// The kernels that may ask for more than 48 KB of dynamic shared memory, once per process.
+int allow_large_smem() {
+  static int err = -1;
+  if (err < 0) {
+    err = (int)cudaFuncSetAttribute(group_count, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kSmemBytes);
+    if (!err)
+      err = (int)cudaFuncSetAttribute(group_scatter, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      kSmemBytes);
+    if (!err)
+      err = (int)cudaFuncSetAttribute(int_sums, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      kSmemBytes);
+  }
+  return err;
 }
 
 }  // namespace
 
-// Plain C entry points for ctypes.  Pointers are device pointers; `stream` is a
-// cudaStream_t.  Each returns cudaGetLastError() after its launch (0 on success).
+// Plain C entry points for ctypes.  Each takes one array of int64 arguments (one ctypes
+// argument converts fastest) and returns 0 or the first CUDA error of its launches.
+// Pointers are device pointers; the stream is a cudaStream_t.  Every output element is
+// written (empty segments get 0).  A field is 4 int64: source, output, width, FieldType.
 
-extern "C" int cc_segment_sum_f32(const void* values, const void* ids, void* out,
-                                  int rows, int cols, int segments, void* stream) {
-  if (rows < 0 || cols <= 0 || segments <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((segments + kWarps - 1) / kWarps, (cols + 31) / 32);
-  seg_sum_f32<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)values, (const int*)ids, (float*)out, rows, cols, segments);
-  return (int)cudaGetLastError();
+// Fixed-order sums.  args: ids, rows, segments, stream, scratch, scratch_ints, nfields,
+// fields.  The scratch holds at least
+// rows * columns + max(segments, 8192) + 65536 + segments + 1 int32.
+extern "C" int cc_segment_sums(const long long* args) {
+  const void* ids = (const void*)args[0];
+  const int rows = (int)args[1], segments = (int)args[2];
+  cudaStream_t st = (cudaStream_t)args[3];
+  void* scratch = (void*)args[4];
+  const long long scratch_ints = args[5];
+  if (rows < 0 || segments <= 0) return (int)cudaErrorInvalidValue;
+  Fields f;
+  int err = read_fields(args + 7, (int)args[6], false, &f);
+  if (err || (err = allow_large_smem())) return err;
+  if ((long long)rows * f.ncols + max(segments, kHistCap) + 8 * kHistCap + segments + 1 >
+      scratch_ints)
+    return (int)cudaErrorInvalidValue;
+  unsigned* sorted = static_cast<unsigned*>(scratch);
+  int* hist = reinterpret_cast<int*>(sorted + (size_t)rows * f.ncols);
+  int* wcnt = hist + max(segments, kHistCap);
+  int* seg_start = wcnt + 8 * kHistCap;
+  const int* id = static_cast<const int*>(ids);
+  // one pass per kPassSegments segments; a pass keeps warps + 1 ints per segment in
+  // shared memory
+  for (int base = 0; base < segments; base += kPassSegments) {
+    Grouping g;
+    g.rows = rows;
+    g.base = base;
+    g.segments = min(kPassSegments, segments - base);
+    g.kbits = 0;
+    while (g.kbits < 31 && (g.segments - 1) >> g.kbits) ++g.kbits;
+    g.warps = min(kGroupThreads / 32, kSmemInts / g.segments - 1);
+    // 2 steps a warp (the scatter's stores spread over many SMs), every block reading
+    // at most kHistCap counts
+    const int per_block = g.warps * 64;
+    g.tiles = max(1, min((rows + per_block - 1) / per_block, max(1, kHistCap / g.segments)));
+    g.span = ((rows + g.tiles * g.warps - 1) / (g.tiles * g.warps) + 31) / 32 * 32;
+    const size_t per_segment = (size_t)g.segments * sizeof(int);
+    group_count<<<g.tiles, kGroupThreads, per_segment * g.warps, st>>>(id, g, hist, wcnt);
+    if ((err = (int)cudaGetLastError())) return err;
+    group_scatter<<<g.tiles, kGroupThreads, per_segment * (g.warps + 1), st>>>(
+        id, g, hist, wcnt, seg_start, f, sorted);
+    if ((err = (int)cudaGetLastError())) return err;
+    const dim3 grid(g.segments, (f.ncols + kGroup - 1) / kGroup);
+    group_walk<<<grid, 32, 0, st>>>(sorted, rows, base, seg_start, f);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  return 0;
 }
 
-// `out` must hold zeros on entry (the wrapper passes torch.zeros).
-extern "C" int cc_segment_sum_i32(const void* values, const void* ids, void* out,
-                                  int rows, int cols, int segments, void* stream) {
-  if (rows <= 0 || cols <= 0 || segments <= 0) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)rows * cols;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  seg_sum_i32<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)values, (const int*)ids, (int*)out, rows, cols, segments);
+// Exact integer sums.  args: ids, rows, segments, stream, nfields, fields.
+extern "C" int cc_segment_counts(const long long* args) {
+  const void* ids = (const void*)args[0];
+  const int rows = (int)args[1], segments = (int)args[2];
+  if (rows < 0 || segments <= 0) return (int)cudaErrorInvalidValue;
+  Fields f;
+  int err = read_fields(args + 5, (int)args[4], true, &f);
+  if (err || (err = allow_large_smem())) return err;
+  // about 256 bins a block, at most 132 blocks, as few more as shared memory needs
+  const long long bins = (long long)f.ncols * segments;
+  long long blocks = (bins + 255) / 256;
+  if (blocks > 132) blocks = 132;
+  const long long need = (segments + kSmemInts / f.ncols - 1) / (kSmemInts / f.ncols);
+  if (blocks < need) blocks = need;
+  const int span = (int)((segments + blocks - 1) / blocks);
+  blocks = (segments + span - 1) / span;
+  int_sums<<<(unsigned)blocks, kThreads, (size_t)f.ncols * span * sizeof(int),
+             (cudaStream_t)args[3]>>>(static_cast<const int*>(ids), rows, segments, span, f);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,7 @@ from cruise_control_tpu_torch.core.resources import (
 )
 from cruise_control_tpu_torch.ops.index import scatter_set
 from cruise_control_tpu_torch.ops.segments import segment_sum as _segment_sum
+from cruise_control_tpu_torch.ops.segments import segment_sums as _segment_sums
 
 I32 = torch.int32
 F32 = torch.float32
@@ -147,14 +148,12 @@ def host_load(state: ClusterArrays) -> torch.Tensor:
 
 def broker_replica_counts(state: ClusterArrays) -> torch.Tensor:
     """i32[B]: replicas hosted per broker."""
-    return _segment_sum(
-        state.replica_valid.to(I32), state.replica_broker, state.num_brokers
-    )
+    return _segment_sums([state.replica_valid], state.replica_broker, state.num_brokers)[0]
 
 
 def broker_leader_counts(state: ClusterArrays) -> torch.Tensor:
     """i32[B]: leader replicas per broker."""
-    return _segment_sum(is_leader(state).to(I32), state.replica_broker, state.num_brokers)
+    return _segment_sums([is_leader(state)], state.replica_broker, state.num_brokers)[0]
 
 
 def potential_nw_out(state: ClusterArrays) -> torch.Tensor:
@@ -205,9 +204,7 @@ def topic_replica_counts_by_broker(state: ClusterArrays) -> torch.Tensor:
     """i32[B, T]: replicas of each topic on each broker."""
     topic = state.partition_topic[state.replica_partition]
     flat = state.replica_broker * state.num_topics + topic
-    counts = _segment_sum(
-        state.replica_valid.to(I32), flat, state.num_brokers * state.num_topics
-    )
+    (counts,) = _segment_sums([state.replica_valid], flat, state.num_brokers * state.num_topics)
     return counts.reshape(state.num_brokers, state.num_topics)
 
 
@@ -215,8 +212,8 @@ def replicas_per_rack_per_partition(state: ClusterArrays) -> torch.Tensor:
     """i32[P, num_racks]: replica count of each partition in each rack."""
     rack = state.broker_rack[state.replica_broker]
     flat = state.replica_partition * state.num_racks + rack
-    counts = _segment_sum(
-        state.replica_valid.to(I32), flat, state.num_partitions * state.num_racks
+    (counts,) = _segment_sums(
+        [state.replica_valid], flat, state.num_partitions * state.num_racks
     )
     return counts.reshape(state.num_partitions, state.num_racks)
 

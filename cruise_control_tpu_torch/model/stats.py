@@ -14,18 +14,21 @@ import torch
 from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
+from cruise_control_tpu_torch.ops.index import xla_sums
 
 _F32_MAX = torch.finfo(torch.float32).max
 
 
 def _masked_stats(values: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """avg/max/min/std of ``values`` over ``mask`` (reduced along dim 0)."""
+    """avg/max/min/std of ``values`` over ``mask`` (reduced along dim 0; the
+    sums in the JAX reference's order)."""
     n = torch.clamp(mask.sum(dtype=torch.int32), min=1)
-    masked = torch.where(mask, values, 0.0)
-    avg = masked.sum(dim=0) / n
+    (total,) = xla_sums([torch.where(mask, values, 0.0)])
+    avg = total / n
     mx = torch.where(mask, values, -_F32_MAX).amax(dim=0)
     mn = torch.where(mask, values, _F32_MAX).amin(dim=0)
-    var = torch.where(mask, (values - avg) ** 2, 0.0).sum(dim=0) / n
+    (sq,) = xla_sums([torch.where(mask, (values - avg) ** 2, 0.0)])
+    var = sq / n
     return {"avg": avg, "max": mx, "min": mn, "std": torch.sqrt(var)}
 
 

@@ -14,14 +14,26 @@ sites through the functions here:
   (-inf / INT_MIN, +inf / INT_MAX), as ``jax.ops.segment_max/min`` do;
 * :func:`cumsum` adds in the order of XLA's CPU scan (16-wide blocks, each
   summed left to right, block carries scanned the same way, recursively), so
-  the card, the CPU port and the JAX reference round alike.
+  the card, the CPU port and the JAX reference round alike;
+* :func:`xla_sums` reduces along dim 0 in the order of XLA's CPU reduce: up
+  to 32 rows left to right; above that, the rows padded with zeros (half the
+  padding before them, the rest after) into 32-row windows, each summed left
+  to right, and the window sums reduced the same way, recursively.  Each level
+  is one call of the fixed-order segment sum (a window is a segment), so the
+  card rounds as the CPU does.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import List, Sequence
+
 import torch
 
+from cruise_control_tpu_torch.ops.segments import segment_sums
+
 _BLOCK = 16
+_WINDOW = 32
 
 
 def _identity(dtype: torch.dtype, largest: bool):
@@ -114,3 +126,28 @@ def cumsum(x: torch.Tensor) -> torch.Tensor:
     carry = torch.cat([torch.zeros_like(carry[:1]), carry[:-1]])
     out = local + carry[:, None]
     return out.reshape((m * _BLOCK,) + tuple(x.shape[1:]))[:n]
+
+
+@functools.lru_cache(maxsize=64)
+def _window_ids(n: int, device: torch.device) -> torch.Tensor:
+    """i32[n]: XLA's 32-row window of each of ``n`` rows (all 0 when n <= 32)."""
+    if n <= _WINDOW:
+        return torch.zeros(n, dtype=torch.int32, device=device)
+    pad = -(-n // _WINDOW) * _WINDOW - n
+    return torch.div(
+        torch.arange(n, dtype=torch.int32, device=device) + pad // 2, _WINDOW, rounding_mode="floor"
+    )
+
+
+def xla_sums(columns: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum each float32 ``[n]`` / ``[n, k]`` tensor (one ``n`` for all) over
+    dim 0 in XLA's CPU order (see module docstring): one segment-sum call per
+    level for all of them, ``[]`` / ``[k]`` each."""
+    cols = list(columns)
+    n = cols[0].shape[0]
+    while True:
+        windows = -(-n // _WINDOW)
+        cols = segment_sums(cols, _window_ids(n, cols[0].device), max(windows, 1))
+        if windows <= 1:
+            return [c[0] for c in cols]
+        n = windows

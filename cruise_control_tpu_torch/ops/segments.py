@@ -1,4 +1,4 @@
-"""Segment sums: the hand-written CUDA kernel and its plain PyTorch version.
+"""Segment sums: the hand-written CUDA kernels and their plain PyTorch version.
 
 The solver's hot reductions are per-broker segment sums over the replica axis:
 broker loads, replica/leader counts, potential NW-out, leader bytes-in, the
@@ -6,53 +6,73 @@ broker loads, replica/leader counts, potential NW-out, leader bytes-in, the
 .take_snapshot``, ``model.arrays``).  The JAX package ran them through two
 Pallas TPU kernels, ``segment_sum_pallas`` and ``segment_sum_radix``
 (``cruise_control_tpu/ops/segments.py``), one-hot contractions on the MXU.  On
-Hopper the same function is ``csrc/segment_sum.cu``, one kernel source for any
-segment count and any column count, with two paths:
+Hopper the same function is ``csrc/segment_sum.cu`` (its note gives the design
+and the bound), with two paths, each one host call however many columns it
+carries:
 
-* float32 inputs take a fixed-order path: one warp per segment walks the rows
-  in index order, so each sum is the left-to-right f32 sum -- bitwise the same
-  on every run and the same as the sequential CPU scatter-add of
-  :func:`segment_sum_plain`.  The solver breaks ties by comparing float scores,
-  so an atomic float sum, whose order changes from run to run, could flip a tie.
-* integer and bool inputs take an int32 atomic path, exact in any order.
+* ``segment_sum_f32``, the fixed-order path, for any call with a float32
+  column: a stable counting sort groups the rows by segment, then one warp per
+  segment adds each column's rows in row order.  Every float sum is the
+  left-to-right f32 sum -- bitwise the same on every launch and the same as
+  the sequential CPU scatter-add of :func:`segment_sum_plain`.  The solver
+  breaks ties by comparing float scores, so an atomic float sum, whose order
+  changes from run to run, could flip a tie.
+* ``segment_sum_i32``, for integer and bool columns only: each block owns a
+  range of segments and adds its rows with shared-memory int32 atomics, exact
+  in any order.
 
-What bounds it: at the solver's shapes (30,000 rows, four columns, 128
-segments) the kernel moves about 600 KB, under a microsecond of HBM time; the
-launch and the serial per-segment walk bound it, not bandwidth.  Making it
-fast (more segments per warp, tensor-core one-hots) is later work.
+:func:`segment_sums` takes several value tensors under one id vector, so the
+snapshot's broker-keyed sums cost one call.  A float column sums in float32;
+a bool, uint8 or int32 column sums into int32 (a bool column counts its true
+rows).  :func:`segment_sum` is the one-tensor form with the JAX contract:
+integers keep their dtype and a bool column comes back as "any row".
 
-:func:`segment_sum` takes the plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises.  Each launch adds one to
-:data:`LAUNCHES`.
+CPU tensors take the plain version; CUDA tensors launch a kernel or raise.
+Each host call that launches adds one to :data:`LAUNCHES` for its path, and
+the number of value tensors it carried to :data:`FIELDS`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import struct
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
 from cruise_control_tpu_torch.ops import _build
 
-#: kernel launches since the last :func:`reset_launch_counts`, by kernel path
+#: host calls that launched a kernel path since :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"segment_sum_f32": 0, "segment_sum_i32": 0}
+#: value tensors those calls carried (one call per tensor would make this many)
+FIELDS: Dict[str, int] = {"segment_sum_f32": 0, "segment_sum_i32": 0}
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _INT32_MAX = 2**31 - 1
+_F32, _I32, _U8 = 0, 1, 2          # the kernel's field types
+_FIELD_TYPE = {torch.float32: _F32, torch.int32: _I32, torch.bool: _U8, torch.uint8: _U8}
+_MAX_FIELDS = 16
+_MAX_COLS = 64
+_HIST_CAP = 8192                  # per-(segment, block) counts of the fixed-order path
+_LIB = None
+_PACKERS: Dict[int, Callable[..., bytes]] = {}
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, FIELDS):
+        for k in d:
+            d[k] = 0
 
 
 def _library() -> ctypes.CDLL:
-    lib = _build.load("segment_sum")
-    for fn in (lib.cc_segment_sum_f32, lib.cc_segment_sum_i32):
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("segment_sum")
+        for fn in (lib.cc_segment_sums, lib.cc_segment_counts):
+            fn.argtypes = [ctypes.c_char_p]   # the packed int64 arguments
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
 
 
 def segment_sum_plain(
@@ -81,56 +101,147 @@ def segment_sum_plain(
     return out[:, 0] if squeeze else out
 
 
+def segment_sums_plain(
+    columns: Sequence[torch.Tensor], segment_ids: torch.Tensor, num_segments: int
+) -> List[torch.Tensor]:
+    """The plain version of :func:`segment_sums`, one column at a time."""
+    return [
+        segment_sum_plain(
+            c if c.dtype.is_floating_point else c.to(torch.int32), segment_ids, num_segments
+        )
+        for c in columns
+    ]
+
+
+def segment_sums_cuda(
+    columns: Sequence[torch.Tensor], segment_ids: torch.Tensor, num_segments: int
+) -> List[torch.Tensor]:
+    """The kernels' wrapper: one host call for every column (same contract as
+    :func:`segment_sums`).  The solver's loop is bound by host time, so the
+    wrapper reads each tensor's metadata once, copies nothing that already has
+    the kernel's layout, allocates one output buffer and hands the kernel all
+    its arguments in one packed array."""
+    ids = segment_ids
+    dev = ids.device
+    if dev.type != "cuda" or ids.dim() != 1:
+        raise ValueError(f"segment sums on the card take 1-D CUDA ids, got {tuple(ids.shape)} on {dev}")
+    if ids.dtype != torch.int32:
+        ids = ids.to(torch.int32)
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
+    R, S = ids.shape[0], int(num_segments)
+    if not 0 < len(columns) <= _MAX_FIELDS:
+        raise ValueError(f"a call takes 1 to {_MAX_FIELDS} value tensors, got {len(columns)}")
+    fields, floats, total = [], False, 0
+    for c in columns:
+        kind = _FIELD_TYPE.get(c.dtype)
+        if kind is None:
+            if c.dtype.is_floating_point:
+                raise TypeError(f"the segment-sum kernels take float32 floats, got {c.dtype}")
+            c, kind = c.to(torch.int32), _I32
+        shape = c.shape
+        if c.device != dev or len(shape) not in (1, 2) or shape[0] != R:
+            raise ValueError(f"values {tuple(shape)} on {c.device} do not match ids [{R}] on {dev}")
+        if not c.is_contiguous():
+            c = c.contiguous()
+        w = 1 if len(shape) == 1 else shape[1]
+        fields.append((c, kind, w, len(shape)))
+        floats = floats or kind == _F32
+        total += w
+    if total > _MAX_COLS:
+        raise ValueError(f"a call takes at most {_MAX_COLS} columns, got {total}")
+    if R * total > _INT32_MAX or S * total > _INT32_MAX:
+        raise ValueError(f"segment sums: {R} rows x {total} columns -> {S} exceed int32 indexing")
+    # one output buffer, one contiguous region per field
+    buf = torch.empty(S * total, dtype=torch.float32 if floats else torch.int32, device=dev)
+    parts = [buf] if len(fields) == 1 else buf.split([S * w for _, _, w, _ in fields])
+    outs, spec, addr = [], [], buf.data_ptr()
+    for (c, kind, w, ndim), part in zip(fields, parts):
+        if floats and kind != _F32:
+            part = part.view(torch.int32)
+        outs.append(part if ndim == 1 else part.view(S, w))
+        if w:
+            spec += (c.data_ptr(), addr, w, kind)
+        addr += 4 * S * w
+    if S == 0 or not spec:
+        return outs
+    lib = _library()
+    index = dev.index
+    if index == torch._C._cuda_getDevice():
+        err = _launch(lib, floats, ids, R, S, total, spec, index)
+    else:  # the launch goes to the current device's stream
+        with torch.cuda.device(index):
+            err = _launch(lib, floats, ids, R, S, total, spec, index)
+    if err != 0:
+        raise RuntimeError(f"segment-sum kernel launch failed: CUDA error {err}")
+    path = "segment_sum_f32" if floats else "segment_sum_i32"
+    LAUNCHES[path] += 1
+    FIELDS[path] += len(spec) // 4
+    return outs
+
+
+def _launch(lib, floats, ids, R, S, columns, spec, index) -> int:
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    nfields = len(spec) // 4
+    if not floats:
+        return lib.cc_segment_counts(_pack((ids.data_ptr(), R, S, stream, nfields, *spec)))
+    # every column in segment order, the per-(block, segment) and
+    # per-(warp, segment) counts and each segment's first row
+    n = R * columns + max(S, _HIST_CAP) + 8 * _HIST_CAP + S + 1
+    scratch = _scratch(index, stream, n)
+    return lib.cc_segment_sums(
+        _pack((ids.data_ptr(), R, S, stream, scratch.data_ptr(), scratch.numel(), nfields, *spec))
+    )
+
+
+def _pack(values) -> bytes:
+    """The kernels' argument array: int64 values, packed."""
+    pack = _PACKERS.get(len(values))
+    if pack is None:
+        pack = _PACKERS[len(values)] = struct.Struct(f"{len(values)}q").pack
+    return pack(*values)
+
+
+def _scratch(index: int, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 of scratch for the fixed-order path on this device
+    and stream.  Kernels on one stream run in order, so one buffer serves
+    every call on it; it only grows."""
+    key = (index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _SCRATCH[key] = torch.empty(n, dtype=torch.int32, device=torch.device("cuda", index))
+    return buf
+
+
+def segment_sums(
+    columns: Sequence[torch.Tensor], segment_ids: torch.Tensor, num_segments: int
+) -> List[torch.Tensor]:
+    """Segment sums of several ``[R]`` / ``[R, k]`` tensors under one id
+    vector (ids outside ``[0, num_segments)`` dropped), ``[S]`` / ``[S, k]``
+    each.  float32 columns give float32 sums in row order; bool, uint8 and
+    int32 columns give int32 sums (a bool column counts its true rows).  On
+    the card one host call: the fixed-order path if any column is float, the
+    integer path otherwise."""
+    if segment_ids.device.type == "cpu":
+        return segment_sums_plain(columns, segment_ids, num_segments)
+    if segment_ids.device.type == "cuda":
+        return segment_sums_cuda(columns, segment_ids, num_segments)
+    raise ValueError(f"segment_sums: unsupported device {segment_ids.device}")
+
+
 def segment_sum_cuda(
     values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
-    """The CUDA kernel's wrapper (same contract as :func:`segment_sum_plain`)."""
-    if values.device.type != "cuda" or segment_ids.device != values.device:
+    """One tensor through the kernels, with :func:`segment_sum_plain`'s
+    contract (integers keep their dtype, bool comes back as "any row")."""
+    if values.device.type != "cuda":
         raise ValueError("segment_sum_cuda needs values and ids on one CUDA device")
-    if segment_ids.dim() != 1 or segment_ids.shape[0] != values.shape[0]:
-        raise ValueError(
-            f"ids {tuple(segment_ids.shape)} do not match values {tuple(values.shape)}"
-        )
-    if values.dim() not in (1, 2):
-        raise ValueError(f"values must be [R] or [R, C], got {tuple(values.shape)}")
-    is_float = values.dtype.is_floating_point
-    if is_float and values.dtype != torch.float32:
-        raise TypeError(f"segment_sum_cuda takes float32 floats, got {values.dtype}")
-    squeeze = values.dim() == 1
-    v = values[:, None] if squeeze else values
-    R, C = v.shape
-    S = int(num_segments)
-    if R * C > _INT32_MAX or S * C > _INT32_MAX:
-        raise ValueError(f"segment_sum_cuda: shape {R}x{C} -> {S} exceeds int32 indexing")
-    out_dtype = torch.float32 if is_float else torch.int32
-    if S == 0 or C == 0:
-        out = torch.zeros((S, C), dtype=out_dtype, device=v.device)
-    else:
-        ids = segment_ids.to(torch.int32).contiguous()
-        lib = _library()
-        with torch.cuda.device(v.device):
-            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-            if is_float:
-                src = v.contiguous()
-                out = torch.empty((S, C), dtype=torch.float32, device=v.device)
-                err = lib.cc_segment_sum_f32(
-                    src.data_ptr(), ids.data_ptr(), out.data_ptr(), R, C, S, stream
-                )
-                LAUNCHES["segment_sum_f32"] += 1
-            else:
-                src = v.to(torch.int32).contiguous()
-                out = torch.zeros((S, C), dtype=torch.int32, device=v.device)
-                err = 0
-                if R > 0:
-                    err = lib.cc_segment_sum_i32(
-                        src.data_ptr(), ids.data_ptr(), out.data_ptr(), R, C, S, stream
-                    )
-                    LAUNCHES["segment_sum_i32"] += 1
-        if err != 0:
-            raise RuntimeError(f"segment_sum kernel launch failed: CUDA error {err}")
-    if not is_float:
-        out = out > 0 if values.dtype == torch.bool else out.to(values.dtype)
-    return out[:, 0] if squeeze else out
+    (out,) = segment_sums_cuda([values], segment_ids, num_segments)
+    if values.dtype == torch.bool:
+        return out > 0
+    if not values.dtype.is_floating_point and values.dtype != torch.int32:
+        return out.to(values.dtype)
+    return out
 
 
 def segment_sum(

@@ -10,11 +10,10 @@
   segments, the float scan order).
 
 JAX runs eagerly on the CPU (no Pallas kernel is reached there).  Ints and
-bools must be exact.  Floats within rtol=1e-6, atol=1e-6: per-broker sums and
-the scan add in the JAX CPU order and agree bitwise, but the few
-cross-broker reductions (cluster averages behind the balance bands) go
-through PyTorch's and XLA's own reduction orders, which may differ in the
-last float32 bit.
+bools must be exact.  Floats within rtol=1e-6, atol=1e-6.  The per-broker
+sums, the scan and the cross-broker sums behind the balance bands add in the
+JAX CPU order; ``test_torch_snapshot_bands.py`` holds the snapshot to the
+JAX package's bit for bit.
 """
 
 import types

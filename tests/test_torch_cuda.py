@@ -6,8 +6,10 @@ run it alone, without the repository's JAX test setup:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-The float kernel adds each segment's rows in index order, so it must equal the
-plain version's sequential CPU sum bit for bit, and two launches must agree.
+The fixed-order path adds each segment's rows in index order, so it must
+equal the plain version's sequential CPU sum bit for bit, and two launches
+must agree; the integer path is exact.  Every case is held against the CPU
+plain version bitwise.
 """
 
 import numpy as np
@@ -28,9 +30,24 @@ def _cpu(vals, seg, S):
     return PS.segment_sum_plain(torch.from_numpy(vals), torch.from_numpy(seg), S).numpy()
 
 
+def _card_vs_cpu(cols, seg, S, dev, path):
+    """segment_sums of numpy columns on the card (one host call on ``path``)
+    against the CPU plain version, bitwise."""
+    PS.reset_launch_counts()
+    got = PS.segment_sums([torch.from_numpy(c).to(dev) for c in cols], torch.from_numpy(seg).to(dev), S)
+    torch.cuda.synchronize()
+    assert PS.LAUNCHES[path] == 1 and sum(PS.LAUNCHES.values()) == 1
+    want = PS.segment_sums_plain([torch.from_numpy(c) for c in cols], torch.from_numpy(seg), S)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "R,C,S", [(30_000, 4, 128), (30_000, 1, 2048), (1000, 7, 40), (5, 40, 3), (0, 2, 4)]
+    "R,C,S",
+    [(30_000, 4, 128), (30_000, 1, 2048), (1000, 7, 40), (5, 40, 3), (0, 2, 4),
+     (30_001, 3, 1), (257, 2, 1793), (33, 2, 40_000), (30_000, 1, 100_000)],
 )
 def test_float_kernel_matches_cpu_order_bitwise(cuda_device, R, C, S):
     rng = np.random.default_rng(R + C + S)
@@ -90,3 +107,87 @@ def test_config1_solve_on_the_card_equals_the_cpu_port(cuda_device):
     assert rc.total_moves == rg.total_moves == 16
     assert lc == {"segment_sum_f32": 0, "segment_sum_i32": 0}
     assert lg["segment_sum_f32"] > 0 and lg["segment_sum_i32"] > 0
+
+
+@pytest.mark.cuda
+def test_all_rows_in_one_segment(cuda_device):
+    """The worst case of the fixed order: one segment, 30,000 dependent adds."""
+    rng = np.random.default_rng(7)
+    vals = (rng.exponential(size=(30_000, 4)) * 1000).astype(np.float32)
+    seg = np.full(30_000, 5, np.int32)
+    _card_vs_cpu([vals], seg, 128, cuda_device, "segment_sum_f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["segment_sum_f32", "segment_sum_i32"])
+def test_every_id_out_of_range(cuda_device, path):
+    rng = np.random.default_rng(8)
+    seg = np.concatenate([np.full(500, -1), np.full(500, 64)]).astype(np.int32)
+    vals = rng.normal(size=(1000, 2)).astype(np.float32) if path == "segment_sum_f32" else (
+        rng.integers(0, 5, size=1000).astype(np.int32))
+    _card_vs_cpu([vals], seg, 64, cuda_device, path)
+
+
+@pytest.mark.cuda
+def test_snapshot_column_set_one_call(cuda_device):
+    """The snapshot's broker-keyed call: [R, 4] loads, two bool counts and five
+    float columns under one id vector, bitwise per column."""
+    rng = np.random.default_rng(9)
+    R, S = 30_000, 128
+    seg = rng.integers(-1, S, size=R).astype(np.int32)
+    cols = [
+        (rng.exponential(size=(R, 4)) * 1000).astype(np.float32),
+        rng.random(R) < 0.95,
+        rng.random(R) < 0.33,
+        *[(rng.exponential(size=R) * 100).astype(np.float32) for _ in range(3)],
+        *[(rng.random(R) < 0.05).astype(np.float32) for _ in range(2)],
+    ]
+    _card_vs_cpu(cols, seg, S, cuda_device, "segment_sum_f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.bool_, np.uint8, np.int32])
+def test_int_path_reads_bool_uint8_int32(cuda_device, dtype):
+    rng = np.random.default_rng(10)
+    seg = rng.integers(-3, 12_803, size=30_000).astype(np.int32)
+    a = rng.integers(0, 2 if dtype is np.bool_ else 7, size=30_000).astype(dtype)
+    b = rng.integers(0, 2, size=(30_000, 2)).astype(dtype)
+    _card_vs_cpu([a, b], seg, 12_800, cuda_device, "segment_sum_i32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [28_672, 28_673, 57_345])
+def test_grouping_counters_either_side_of_the_shared_memory_switch(cuda_device, S):
+    """A fixed-order pass keeps its counters in shared memory, which holds
+    28,672 segments; above that the call makes one pass per chunk of the
+    segment range (two and three passes here)."""
+    rng = np.random.default_rng(S)
+    seg = rng.integers(-2, S + 2, size=20_000).astype(np.int32)
+    seg[:3000] = S - 1          # the last segment holds many rows
+    vals = (rng.exponential(size=(20_000, 2)) * 1000).astype(np.float32)
+    _card_vs_cpu([vals, rng.random(20_000) < 0.5], seg, S, cuda_device, "segment_sum_f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,cols", [(100, 64), (12_800, 40), (100_000, 3)])
+def test_int_path_wide_and_large(cuda_device, S, cols):
+    """Blocks own segment ranges sized to fit shared memory: many columns,
+    many segments."""
+    rng = np.random.default_rng(S + cols)
+    seg = rng.integers(-2, S + 2, size=30_000).astype(np.int32)
+    vals = [rng.integers(0, 3, size=(30_000, cols)).astype(np.int32)]
+    _card_vs_cpu(vals, seg, S, cuda_device, "segment_sum_i32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 32, 33, 64, 100, 128, 300, 5000])
+def test_xla_order_sums_on_the_card(cuda_device, B):
+    from cruise_control_tpu_torch.ops.index import xla_sums
+
+    rng = np.random.default_rng(B)
+    x = (rng.exponential(size=(B, 4)) * 1000).astype(np.float32)
+    y = (rng.exponential(size=B) * 1000).astype(np.float32)
+    got = xla_sums([torch.from_numpy(x).to(cuda_device), torch.from_numpy(y).to(cuda_device)])
+    want = xla_sums([torch.from_numpy(x), torch.from_numpy(y)])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

@@ -132,3 +132,73 @@ def test_cpu_path_never_launches_the_kernel():
 def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         PS.segment_sum_cuda(torch.ones(4), torch.zeros(4, dtype=torch.int32), 2)
+
+
+def _mixed_columns(R, seed):
+    rng = np.random.default_rng(seed)
+    return [
+        (rng.exponential(size=(R, 4)) * 1000).astype(np.float32),   # broker loads
+        rng.random(R) < 0.9,                                        # bool: counted
+        rng.normal(size=R).astype(np.float32),
+        rng.integers(0, 3, size=R).astype(np.uint8),
+        rng.integers(-4, 9, size=(R, 2)).astype(np.int32),
+    ]
+
+
+def test_multi_column_plain_equals_per_column_and_xla():
+    """Several tensors under one id vector: each output equals the one-tensor
+    plain sum bit for bit (float columns stay f32, the others sum into int32,
+    a bool column counting its true rows), and the XLA CPU scatter."""
+    R, S = 3000, 128
+    seg = np.random.default_rng(1).integers(-2, S + 2, size=R).astype(np.int32)
+    cols = _mixed_columns(R, 2)
+    got = PS.segment_sums([torch.from_numpy(c) for c in cols], torch.from_numpy(seg), S)
+    for g, c in zip(got, cols):
+        as_int = c if c.dtype == np.float32 else c.astype(np.int32)
+        one = PS.segment_sum_plain(torch.from_numpy(as_int), torch.from_numpy(seg), S)
+        assert g.dtype == one.dtype == (torch.float32 if c.dtype == np.float32 else torch.int32)
+        assert g.shape == one.shape
+        assert torch.equal(g, one)
+        want = jax.ops.segment_sum(jnp.asarray(as_int), jnp.asarray(seg), num_segments=S)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want))
+
+
+def test_segment_sums_int_only_and_empty():
+    seg = torch.tensor([0, 2, 2, 5, -1], dtype=torch.int32)
+    mask = torch.tensor([True, True, False, True, True])
+    (counts,) = PS.segment_sums([mask], seg, 3)
+    assert counts.dtype == torch.int32 and counts.tolist() == [1, 0, 1]
+    (none,) = PS.segment_sums([torch.zeros((0, 2))], torch.zeros(0, dtype=torch.int32), 4)
+    assert none.shape == (4, 2) and not none.any()
+
+
+def test_snapshot_host_calls():
+    """The snapshot's segment sums at one optimizer round of a 40-broker
+    cluster (64 after bucketing), heavy goals on, every optional group: one
+    call for the broker-keyed sums, one for the (partition, rack) counts, one
+    for the (broker, topic) tables and two levels of the XLA-order band sums."""
+    from cruise_control_tpu_torch.analyzer import context as PC
+    from cruise_control_tpu_torch.model import arrays as PA
+    from cruise_control_tpu_torch.ops import index as PI
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+    from tests.torch_port_helpers import CONFIG2_SMALL
+
+    state, _ = generate(SyntheticSpec(**dict(CONFIG2_SMALL, num_partitions=200)), device="cpu")
+    state = PA.pad_brokers(state, PA.broker_bucket(state.num_brokers))
+    ctx = PC.pad_context_brokers(
+        PC.GoalContext.build(state.num_topics, 40, device="cpu"), state.num_brokers
+    )
+    calls = []
+
+    def counting(columns, ids, S):
+        calls.append((len(columns), S))
+        return PS.segment_sums(columns, ids, S)
+
+    real_ctx, real_idx = PC._segment_sums, PI.segment_sums
+    PC._segment_sums = PI.segment_sums = counting
+    try:
+        PC.take_snapshot(state, ctx, True)
+    finally:
+        PC._segment_sums, PI.segment_sums = real_ctx, real_idx
+    B, T, P = state.num_brokers, state.num_topics, state.num_partitions
+    assert calls == [(8, B), (1, P * state.num_racks), (3, 2), (3, 1), (2, B * T)]
