@@ -1,7 +1,7 @@
 """Vectorized per-goal action acceptance.
 
-Port of ``cruise_control_tpu/analyzer/acceptance.py`` for the default goals:
-an action is applied only if every previously optimized goal accepts it
+Port of ``cruise_control_tpu/analyzer/acceptance.py`` for all 24 goals: an
+action is applied only if every previously optimized goal accepts it
 (``Goal.actionAcceptance``, Goal.java:81).  Acceptance comes in three forms,
 all reading the pre-round :class:`Snapshot`:
 
@@ -21,9 +21,17 @@ import numpy as np
 import torch
 
 from cruise_control_tpu_torch.analyzer import goals_base as G
-from cruise_control_tpu_torch.analyzer.context import GoalContext, Snapshot
+from cruise_control_tpu_torch.analyzer.context import (
+    GoalContext,
+    Snapshot,
+    rack_fair_share,
+    topic_leader_upper,
+)
+from cruise_control_tpu_torch.analyzer.kafka_assigner import replica_positions
 from cruise_control_tpu_torch.analyzer.moves import (
+    KIND_INTRA_MOVE,
     KIND_LEADERSHIP,
+    KIND_REPLICA_MOVE,
     KIND_SWAP,
     MoveBatch,
     MoveEffects,
@@ -36,10 +44,6 @@ I32 = torch.int32
 
 def _on(mask: np.ndarray, gid: int) -> bool:
     return bool(mask[gid])
-
-
-def _check_mask(mask: np.ndarray) -> None:
-    G.check_supported([g for g in range(G.NUM_GOALS) if mask[g]])
 
 
 def _rack_ok_one_direction(state, snap, partition, src_broker, dst_broker):
@@ -193,6 +197,136 @@ def accept_leader_bytes_in(state, ctx, snap, moves, eff):
     return ok_dst & ok_src
 
 
+def accept_preferred_leader(state, ctx, snap, moves, eff):
+    """PreferredLeaderElectionGoal: leadership may only transfer to the
+    partition's replica-list head while that head lives on an alive broker."""
+    if moves.kind != KIND_LEADERSHIP:
+        return _ones(moves)
+    pref = snap.preferred_leader[eff.partition]
+    pref_ok = (pref >= 0) & state.broker_alive[state.replica_broker[torch.clamp(pref, min=0)]]
+    return ~pref_ok | (moves.dst_replica == pref)
+
+
+def _rack_dist_ok(state, snap, partition, src_broker, dst_broker):
+    """Moving one replica of ``partition`` src->dst keeps the destination rack
+    at or under its fair share, or under the source rack's count."""
+    fair = rack_fair_share(state, snap, partition)
+    src_rack = state.broker_rack[src_broker]
+    dst_rack = state.broker_rack[dst_broker]
+    occ_dst = snap.rack_counts[partition, dst_rack] - (src_rack == dst_rack).to(I32)
+    occ_src = snap.rack_counts[partition, src_rack]
+    return (occ_dst + 1 <= fair) | (occ_dst + 1 <= occ_src - 1)
+
+
+def accept_rack_aware_dist(state, ctx, snap, moves, eff):
+    """RackAwareDistributionGoal: every rack stays at or under its fair share
+    ceil(RF / alive racks) of the partition; swaps check both directions."""
+    if moves.kind == KIND_LEADERSHIP:
+        return _ones(moves)
+    fwd = _rack_dist_ok(state, snap, eff.partition, eff.src_broker, eff.dst_broker)
+    if moves.kind != KIND_SWAP:
+        return fwd
+    partner = torch.where(moves.dst_replica >= 0, moves.dst_replica, 0)
+    p2 = state.replica_partition[partner]
+    return fwd & _rack_dist_ok(state, snap, p2, eff.dst_broker, eff.src_broker)
+
+
+def accept_broker_set_aware(state, ctx, snap, moves, eff):
+    """BrokerSetAwareGoal: replica moves and swaps stay within the topic's
+    broker set (topics without one are unconstrained)."""
+    if moves.kind == KIND_LEADERSHIP:
+        return _ones(moves)
+    want = ctx.broker_set_of_topic[state.partition_topic[eff.partition]]
+    ok = (want < 0) | (ctx.broker_set_of_broker[eff.dst_broker] == want)
+    if moves.kind != KIND_SWAP:
+        return ok
+    partner = torch.where(moves.dst_replica >= 0, moves.dst_replica, 0)
+    want2 = ctx.broker_set_of_topic[state.partition_topic[state.replica_partition[partner]]]
+    return ok & ((want2 < 0) | (ctx.broker_set_of_broker[eff.src_broker] == want2))
+
+
+def accept_topic_leader_dist(state, ctx, snap, moves, eff):
+    """TopicLeaderReplicaDistributionGoal: whichever endpoint gains a leader of
+    a topic stays within that topic's band or under the other endpoint's count
+    (per topic: a swap of two leaders moves one leader of each topic)."""
+    if not snap.enable_heavy:
+        return _ones(moves)
+    kind = moves.kind
+    r = torch.where(eff.valid, moves.replica, 0)
+    partner = torch.where(moves.dst_replica >= 0, moves.dst_replica, 0)
+    t_out = state.partition_topic[eff.partition]
+    t_in = state.partition_topic[state.replica_partition[partner]]
+    lt = snap.topic_leader_counts
+    lt_up = topic_leader_upper(state, ctx, snap)
+
+    # the destination gains a leader of t_out when the moving replica leads,
+    # and on every leadership transfer
+    dst_gains = _ones(moves) if kind == KIND_LEADERSHIP else snap.is_leader[r]
+    after_dst = lt[eff.dst_broker, t_out] + 1
+    ok_dst = (after_dst <= lt_up[t_out]) | (after_dst <= lt[eff.src_broker, t_out] - 1)
+    ok = ~dst_gains | ok_dst
+    if kind != KIND_SWAP:
+        return ok
+    # the source gains a leader of t_in only when a swap's partner leads
+    src_gains = snap.is_leader[partner] & (moves.dst_replica >= 0)
+    after_src = lt[eff.src_broker, t_in] + 1
+    ok_src = (after_src <= lt_up[t_in]) | (after_src <= lt[eff.dst_broker, t_in] - 1)
+    return ok & (~src_gains | ok_src)
+
+
+def accept_intra_disk_capacity(state, ctx, snap, moves, eff):
+    """IntraBrokerDiskCapacityGoal: an intra-broker logdir move lands under the
+    destination disk's capacity threshold on a usable disk.  Other kinds touch
+    no logdir (an inter-broker move resets it) and pass."""
+    if moves.dst_disk is None or state.num_disks == 0:
+        return _ones(moves)
+    r = torch.where(eff.valid, moves.replica, 0)
+    dd = torch.where(moves.dst_disk >= 0, moves.dst_disk, 0)
+    after = snap.disk_load[dd] + state.base_load[r, Resource.DISK]
+    return (after <= snap.disk_limits[dd]) & snap.disk_usable[dd] | ~eff.valid
+
+
+def accept_intra_disk_dist(state, ctx, snap, moves, eff):
+    """IntraBrokerDiskUsageDistributionGoal: the destination disk stays within
+    its broker's band, or under the source disk's pre-move load."""
+    if moves.dst_disk is None or state.num_disks == 0:
+        return _ones(moves)
+    r = torch.where(eff.valid, moves.replica, 0)
+    dd = torch.where(moves.dst_disk >= 0, moves.dst_disk, 0)
+    sd = torch.clamp(state.replica_disk[r], min=0)
+    after = snap.disk_load[dd] + state.base_load[r, Resource.DISK]
+    return (after <= snap.disk_upper[dd]) | (after <= snap.disk_load[sd]) | ~eff.valid
+
+
+def _assigner_even_state(state):
+    """(per-position counts i32[PC, B], positions clipped to [0, PC)) read by
+    the even-placement terms of every acceptance form."""
+    pc = G.assigner_position_counts(state)
+    pos = torch.clamp(replica_positions(state), 0, G.ASSIGNER_POS_CAP - 1)
+    return pc, pos
+
+
+def accept_assigner_even(state, ctx, snap, moves, eff):
+    """KafkaAssignerEvenRackAwareGoal as a prior goal: rack validity plus
+    even placement -- a replica move lands only where the destination stays
+    strictly below the source's count at the replica's position; leadership
+    transfers and swaps exchange two positions between the endpoints and must
+    hold it both ways (same-position exchanges and logdir moves change no
+    count)."""
+    rack_ok = accept_rack_aware(state, ctx, snap, moves, eff)
+    if moves.kind == KIND_INTRA_MOVE:
+        return rack_ok
+    counts, pos = _assigner_even_state(state)
+    q_out = pos[torch.where(moves.replica >= 0, moves.replica, 0)]
+    src, dst = eff.src_broker, eff.dst_broker
+    fwd = counts[q_out, dst] + 1 <= counts[q_out, src]
+    if moves.kind == KIND_REPLICA_MOVE:
+        return rack_ok & fwd
+    q_in = pos[torch.where(moves.dst_replica >= 0, moves.dst_replica, 0)]
+    bwd = counts[q_in, src] + 1 <= counts[q_in, dst]
+    return rack_ok & ((fwd & bwd) | (q_out == q_in) | (src == dst))
+
+
 _KERNELS = {
     G.RACK_AWARE: accept_rack_aware,
     G.MIN_TOPIC_LEADERS: accept_min_topic_leaders,
@@ -202,6 +336,13 @@ _KERNELS = {
     G.TOPIC_REPLICA_DIST: accept_topic_replica_dist,
     G.LEADER_REPLICA_DIST: accept_leader_count_dist,
     G.LEADER_BYTES_IN_DIST: accept_leader_bytes_in,
+    G.INTRA_DISK_CAPACITY: accept_intra_disk_capacity,
+    G.INTRA_DISK_USAGE_DIST: accept_intra_disk_dist,
+    G.PREFERRED_LEADER_ELECTION: accept_preferred_leader,
+    G.RACK_AWARE_DISTRIBUTION: accept_rack_aware_dist,
+    G.TOPIC_LEADER_DIST: accept_topic_leader_dist,
+    G.BROKER_SET_AWARE: accept_broker_set_aware,
+    G.KAFKA_ASSIGNER_RACK: accept_assigner_even,
 }
 
 
@@ -214,7 +355,6 @@ def accept_all(
     prior_mask: np.ndarray,
 ) -> torch.Tensor:
     """bool[K]: every goal enabled in ``prior_mask`` accepts each slot."""
-    _check_mask(prior_mask)
     ok = eff.valid
     for gid, fn in _KERNELS.items():
         if _on(prior_mask, gid):
@@ -225,6 +365,9 @@ def accept_all(
     for gid, res in G.DIST_RESOURCE.items():
         if _on(prior_mask, gid):
             ok = ok & accept_resource_dist(state, ctx, snap, moves, eff, res)
+    # the kafka-assigner disk goal shares DiskUsageDistributionGoal's acceptance
+    if _on(prior_mask, G.KAFKA_ASSIGNER_DISK):
+        ok = ok & accept_resource_dist(state, ctx, snap, moves, eff, Resource.DISK)
     return ok
 
 
@@ -244,7 +387,6 @@ def move_dst_matrix(
 ) -> torch.Tensor:
     """bool[S, B|M]: would every prior goal accept moving ``cand[s]`` to the
     column's broker?  Each prior goal contributes one broadcast comparison."""
-    _check_mask(prior_mask)
     S = cand.shape[0]
     B = state.num_brokers
     db = dst_brokers
@@ -262,11 +404,33 @@ def move_dst_matrix(
 
     ok = torch.ones((S, ncols), dtype=torch.bool, device=cand.device)
 
-    if _on(prior_mask, G.RACK_AWARE):
+    if _on(prior_mask, G.RACK_AWARE) or _on(prior_mask, G.RACK_AWARE_DISTRIBUTION) or _on(
+        prior_mask, G.KAFKA_ASSIGNER_RACK
+    ):
         dst_rack = gb(state.broker_rack)[None, :]
         src_rack = state.broker_rack[src][:, None]
         occ = snap.rack_counts[p][:, gb(state.broker_rack)] - (src_rack == dst_rack).to(I32)
-        ok &= occ == 0
+        # RackAwareGoal and the kafka-assigner mode: no other replica in the rack
+        if _on(prior_mask, G.RACK_AWARE) or _on(prior_mask, G.KAFKA_ASSIGNER_RACK):
+            ok &= occ == 0
+        # RackAwareDistributionGoal: the rack stays within its fair share
+        if _on(prior_mask, G.RACK_AWARE_DISTRIBUTION):
+            fair = rack_fair_share(state, snap, p)[:, None]
+            occ_src = snap.rack_counts[p, state.broker_rack[src]][:, None]
+            ok &= (occ + 1 <= fair) | (occ + 1 <= occ_src - 1)
+
+    # the kafka-assigner mode's even half: the destination stays strictly
+    # below the source's count at the replica's position
+    if _on(prior_mask, G.KAFKA_ASSIGNER_RACK):
+        pc, pos_all = _assigner_even_state(state)
+        q = pos_all[r]
+        c_dst = pc[q] if db is None else pc[q][:, db]
+        ok &= c_dst + 1 <= pc[q, src][:, None]
+
+    # BrokerSetAwareGoal: the destination is in the topic's broker set
+    if _on(prior_mask, G.BROKER_SET_AWARE):
+        want = ctx.broker_set_of_topic[topic][:, None]
+        ok &= (want < 0) | (gb(ctx.broker_set_of_broker)[None, :] == want)
 
     if snap.enable_heavy and _on(prior_mask, G.MIN_TOPIC_LEADERS):
         protected = ctx.min_leader_topics[topic]
@@ -349,7 +513,6 @@ def leadership_target_ok(
     """bool[R]: would every prior goal accept transferring its partition's
     leadership TO this replica?  Source-side checks use the partition's current
     leader broker (``snap.leader_broker``)."""
-    _check_mask(prior_mask)
     R = state.num_replicas
     p = state.replica_partition
     topic = state.partition_topic[p]
@@ -398,6 +561,28 @@ def leadership_target_ok(
         lbi_after = snap.leader_nw_in[b] + nw_in
         ok &= (lbi_after <= snap.leader_nw_in_upper) | (lbi_after <= snap.leader_nw_in[leader_b])
 
+    # PreferredLeaderElectionGoal: only the replica-list head takes leadership
+    if _on(prior_mask, G.PREFERRED_LEADER_ELECTION):
+        pref = snap.preferred_leader[p]
+        pref_alive = (pref >= 0) & state.broker_alive[state.replica_broker[torch.clamp(pref, min=0)]]
+        ok &= ~pref_alive | (torch.arange(R, dtype=I32, device=b.device) == pref)
+
+    # TopicLeaderReplicaDistributionGoal: the gaining broker stays in its band
+    if snap.enable_heavy and _on(prior_mask, G.TOPIC_LEADER_DIST):
+        lt = snap.topic_leader_counts
+        lt_up = topic_leader_upper(state, ctx, snap)
+        after = lt[b, topic] + 1
+        ok &= (after <= lt_up[topic]) | (after <= lt[leader_b, topic] - 1)
+
+    # the kafka-assigner mode: a transfer exchanges position 0 and the target's
+    # position between the two brokers, so both must keep the gaining broker
+    # strictly below the losing one (same-broker transfers change no count)
+    if _on(prior_mask, G.KAFKA_ASSIGNER_RACK):
+        pc, q = _assigner_even_state(state)
+        ok &= (
+            (pc[0, b] + 1 <= pc[0, leader_b]) & (pc[q, leader_b] + 1 <= pc[q, b])
+        ) | (q == 0) | (b == leader_b)
+
     return ok & state.replica_valid & (cur_leader >= 0)
 
 
@@ -414,7 +599,6 @@ def swap_dst_matrix(
     """bool[S, B]: would every prior goal accept swapping ``cand[s]`` with the
     column broker's ``partner``?  Threshold goals see the swap's net deltas;
     replica counts never change in a swap."""
-    _check_mask(prior_mask)
     S = cand.shape[0]
     B = state.num_brokers
     col_ids = torch.arange(B, dtype=I32, device=cand.device)
@@ -432,13 +616,26 @@ def swap_dst_matrix(
 
     ok = torch.ones((S, B), dtype=torch.bool, device=cand.device)
 
-    if _on(prior_mask, G.RACK_AWARE):
+    if _on(prior_mask, G.RACK_AWARE) or _on(prior_mask, G.KAFKA_ASSIGNER_RACK):
         dst_rack = state.broker_rack[None, :]
         src_rack = state.broker_rack[src][:, None]
         occ_fwd = snap.rack_counts[p_out][:, state.broker_rack] - (src_rack == dst_rack).to(I32)
         # occ_bwd[s, d] = replicas of partner[d]'s partition in slot s's source rack
         occ_bwd = snap.rack_counts[p_in][:, state.broker_rack[src]].T - (dst_rack == src_rack).to(I32)
         ok &= (occ_fwd == 0) & (occ_bwd == 0)
+
+    # the kafka-assigner mode's even half: a swap exchanges the two replicas'
+    # positions between the endpoints; unless the positions match, both
+    # directions keep the gaining broker strictly below the losing one
+    if _on(prior_mask, G.KAFKA_ASSIGNER_RACK):
+        pc, pos_all = _assigner_even_state(state)
+        q_out = pos_all[r]                              # [S]
+        q_in = pos_all[q]                               # [B]
+        fwd = pc[q_out] + 1 <= pc[q_out, src][:, None]  # counts[q_out_s, d] vs counts[q_out_s, src_s]
+        bwd = pc[q_in][:, src].T + 1 <= pc[q_in, col_ids][None, :]
+        same_pos = q_out[:, None] == q_in[None, :]
+        same_broker = src[:, None] == col_ids[None, :]
+        ok &= same_pos | same_broker | (fwd & bwd)
 
     if snap.enable_heavy and _on(prior_mask, G.MIN_TOPIC_LEADERS):
         min_l = ctx.constraint.min_topic_leaders_per_broker

@@ -1,8 +1,9 @@
 """Per-goal round functions: each default goal's ``rebalanceForBroker`` as
 batched tensor rounds.
 
-Port of ``cruise_control_tpu/analyzer/goal_rounds.py`` for goal ids 0-15 plus
-the offline-repair pre-phase.  :data:`GOAL_ROUNDS` maps a goal id to an ordered
+Port of ``cruise_control_tpu/analyzer/goal_rounds.py`` for all 24 goal ids plus
+the offline-repair pre-phase (the kafka-assigner goal's placement itself is
+:mod:`.kafka_assigner`; its rounds here keep the rack rule afterwards).  :data:`GOAL_ROUNDS` maps a goal id to an ordered
 tuple of round functions ``(state, ctx, snap, prior_mask, salt) -> MoveBatch``;
 the optimizer drives each round type to convergence in order (leadership
 before replica moves, as ResourceDistributionGoal.java:380 phases them).
@@ -16,15 +17,20 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from cruise_control_tpu_torch.analyzer import goals_base as G
-from cruise_control_tpu_torch.analyzer.moves import MoveBatch
+from cruise_control_tpu_torch.analyzer.acceptance import leadership_target_ok
+from cruise_control_tpu_torch.analyzer.context import rack_fair_share, topic_leader_upper
+from cruise_control_tpu_torch.analyzer.moves import KIND_LEADERSHIP, MoveBatch
 from cruise_control_tpu_torch.analyzer.proposers import (
     fill_round,
+    intra_disk_round,
     leadership_fill_round,
     leadership_shed_round,
     shed_round,
     swap_round,
+    topk_segment_argmax,
 )
 from cruise_control_tpu_torch.core.resources import Resource
+from cruise_control_tpu_torch.ops.segments import segment_sums
 
 RoundFn = Callable[..., MoveBatch]
 
@@ -510,6 +516,172 @@ def min_topic_leaders_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     )
 
 
+def _count_per_broker(state, mask: torch.Tensor) -> torch.Tensor:
+    """f32[B]: rows of ``mask`` per broker (an exact integer count)."""
+    (n,) = segment_sums([mask], state.replica_broker, state.num_brokers)
+    return n.to(F32)
+
+
+# -- JBOD intra-broker goals --------------------------------------------------------
+
+
+def intra_disk_capacity_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
+    """Drain overfull and unusable (removed or dead) logdirs to sibling disks
+    of the same broker; an unusable disk drains completely (its need counts
+    replicas, not load, so empty replicas move too)."""
+    over = snap.disk_load - snap.disk_limits
+    src_need = torch.where(
+        snap.disk_usable, torch.clamp(over, min=0.0), snap.disk_replica_counts.to(F32)
+    )
+    du = state.base_load[:, Resource.DISK]
+    on_dead_disk = (state.replica_disk >= 0) & ~snap.disk_usable[torch.clamp(state.replica_disk, min=0)]
+
+    def dst_fn(vs, vsnap, cand):
+        cdu = vs.base_load[cand, Resource.DISK]
+        fits = vsnap.disk_load[None, :] + cdu[:, None] <= vsnap.disk_limits[None, :]
+        cap = torch.clamp(vs.disk_capacity, min=1e-9)
+        return fits, _bcast(-(vsnap.disk_load / cap), cand.shape[0])
+
+    return intra_disk_round(
+        state, ctx, snap, prior_mask, salt,
+        src_need=src_need,
+        cand_score=du,
+        cand_ok=snap.movable & ((du > 0) | on_dead_disk),
+        dst_fn=dst_fn,
+    )
+
+
+def intra_disk_dist_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
+    """Balance disk usage across each broker's own logdirs: shed from disks
+    over their broker-relative band toward under-loaded siblings."""
+    src_need = torch.where(snap.disk_usable, snap.disk_load - snap.disk_upper, 0.0)
+    du = state.base_load[:, Resource.DISK]
+    sd = torch.clamp(state.replica_disk, min=0)
+    keeps_src = du <= snap.disk_load[sd] - snap.disk_lower[sd]
+
+    def dst_fn(vs, vsnap, cand):
+        cdu = vs.base_load[cand, Resource.DISK]
+        fits = vsnap.disk_load[None, :] + cdu[:, None] <= vsnap.disk_upper[None, :]
+        cap = torch.clamp(vs.disk_capacity, min=1e-9)
+        return fits, _bcast(-(vsnap.disk_load / cap), cand.shape[0])
+
+    return intra_disk_round(
+        state, ctx, snap, prior_mask, salt,
+        src_need=src_need,
+        cand_score=du,
+        cand_ok=snap.movable & (du > 0) & keeps_src,
+        dst_fn=dst_fn,
+    )
+
+
+# -- optional goals -------------------------------------------------------------------
+
+
+def preferred_leader_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
+    """PreferredLeaderElectionGoal: transfer leadership back to each
+    partition's replica-list head where that head can take it."""
+    B = state.num_brokers
+    dev = state.device
+    k = ctx.top_k
+    pref = snap.preferred_leader
+    pref_of_r = pref[state.replica_partition]
+    target_ok = leadership_target_ok(state, ctx, snap, prior_mask)
+    pref_safe = torch.clamp(pref_of_r, min=0)
+    # the head must be electable: alive, leadership-movable, prior-acceptable
+    pref_usable = (
+        (pref_of_r >= 0)
+        & state.broker_alive[state.replica_broker[pref_safe]]
+        & snap.leader_movable[pref_safe]
+        & target_ok[pref_safe]
+    )
+    idx = torch.arange(state.num_replicas, dtype=I32, device=dev)
+    wrong = snap.is_leader & pref_usable & (pref_of_r != idx) & snap.leader_movable
+    src_need = _count_per_broker(state, wrong)
+    cands = topk_segment_argmax(_zeros_r(state), state.replica_broker, B, wrong, k)
+    cand = cands.reshape(-1)
+    valid = cand >= 0
+    cand_safe = torch.where(valid, cand, 0)
+    dst_rep = pref[state.replica_partition[cand_safe]]
+    dst_rep_safe = torch.clamp(dst_rep, min=0)
+    replica = torch.where(valid & (dst_rep >= 0), cand_safe, -1)
+    src_of_slot = torch.arange(B, dtype=I32, device=dev).repeat(k)
+    return MoveBatch(
+        kind=KIND_LEADERSHIP,
+        replica=replica,
+        dst_broker=torch.where(replica >= 0, state.replica_broker[dst_rep_safe], -1),
+        dst_replica=torch.where(replica >= 0, dst_rep, -1),
+        score=torch.where(replica >= 0, src_need[src_of_slot], 0.0),
+    )
+
+
+def rack_dist_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
+    """RackAwareDistributionGoal: even out each partition's replicas across
+    the alive racks (fair share ceil(RF / alive racks))."""
+    p_of_r = state.replica_partition
+    fair = rack_fair_share(state, snap, torch.arange(state.num_partitions, device=state.device))
+    occ_r = snap.rack_counts[p_of_r, state.broker_rack[state.replica_broker]]
+    viol = state.replica_valid & (occ_r > fair[p_of_r])
+
+    def dst_fn(vs, vsnap, cand):
+        p = vs.replica_partition[cand]
+        src_rack = vs.broker_rack[vs.replica_broker[cand]]
+        dst_rack = vs.broker_rack
+        occ = vsnap.rack_counts[p][:, dst_rack]
+        occ = occ - (src_rack[:, None] == dst_rack[None, :]).to(I32)
+        score = -occ.to(F32) - 1e-3 * _counts_f(vsnap)[None, :]
+        return occ + 1 <= fair[p][:, None], score
+
+    return shed_round(
+        state, ctx, snap, prior_mask, salt,
+        src_need=_count_per_broker(state, viol),
+        cand_score=_zeros_r(state),
+        cand_ok=viol & snap.movable,
+        dst_fn=dst_fn,
+    )
+
+
+def topic_leader_dist_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
+    """TopicLeaderReplicaDistributionGoal: shed per-topic leadership from
+    brokers above the per-topic band onto followers below it."""
+    lt = snap.topic_leader_counts
+    lt_up = topic_leader_upper(state, ctx, snap)
+    topic = state.partition_topic[state.replica_partition]
+    fb = state.replica_broker
+    r_excess = (lt[fb, topic] - lt_up[topic]).to(F32)
+    src_need = torch.where(
+        state.broker_alive, torch.clamp(lt - lt_up[None, :], min=0).amax(dim=1), 0
+    ).to(F32)
+    return leadership_shed_round(
+        state, ctx, snap, prior_mask, salt,
+        src_need=src_need,
+        leader_score=r_excess,
+        leader_ok=snap.movable & (r_excess > 0),
+        follower_score=-lt[fb, topic].to(F32),
+        follower_ok=lt[fb, topic] + 1 <= lt_up[topic],
+    )
+
+
+def broker_set_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
+    """BrokerSetAwareGoal: move replicas back inside their topic's broker set."""
+    topic = state.partition_topic[state.replica_partition]
+    want = ctx.broker_set_of_topic[topic]
+    have = ctx.broker_set_of_broker[state.replica_broker]
+    viol = state.replica_valid & (want >= 0) & (have != want)
+
+    def dst_fn(vs, vsnap, cand):
+        want_c = ctx.broker_set_of_topic[vs.partition_topic[vs.replica_partition[cand]]]
+        elig = ctx.broker_set_of_broker[None, :] == want_c[:, None]
+        return elig, _bcast(-vsnap.util_pct.amax(dim=-1), cand.shape[0])
+
+    return shed_round(
+        state, ctx, snap, prior_mask, salt,
+        src_need=snap.broker_set_need,
+        cand_score=_zeros_r(state),
+        cand_ok=viol & snap.movable,
+        dst_fn=dst_fn,
+    )
+
+
 # -- registry ----------------------------------------------------------------------
 
 GOAL_ROUNDS: Dict[int, Tuple[RoundFn, ...]] = {
@@ -567,4 +739,18 @@ GOAL_ROUNDS: Dict[int, Tuple[RoundFn, ...]] = {
     G.TOPIC_REPLICA_DIST: (topic_dist_round,),
     G.LEADER_REPLICA_DIST: (leader_dist_shed, leader_dist_fill),
     G.LEADER_BYTES_IN_DIST: (leader_bytes_in_round,),
+    G.INTRA_DISK_CAPACITY: (intra_disk_capacity_round,),
+    G.INTRA_DISK_USAGE_DIST: (intra_disk_dist_round,),
+    G.PREFERRED_LEADER_ELECTION: (preferred_leader_round,),
+    G.RACK_AWARE_DISTRIBUTION: (rack_dist_round,),
+    G.TOPIC_LEADER_DIST: (topic_leader_dist_round,),
+    G.BROKER_SET_AWARE: (broker_set_round,),
+    # the kafka-assigner mode after its placement: the strict rack goal runs the
+    # rack round, the disk goal the disk-distribution rounds (swaps included)
+    G.KAFKA_ASSIGNER_RACK: (rack_round,),
+    G.KAFKA_ASSIGNER_DISK: (
+        _dist_shed_round(Resource.DISK),
+        _dist_fill_round(Resource.DISK),
+        _dist_swap_round(Resource.DISK),
+    ),
 }

@@ -4,10 +4,9 @@ Port of ``cruise_control_tpu/analyzer/goals_base.py``: the reference's goal
 classes become integer goal ids, each with a violation counter (here), an
 acceptance kernel (:mod:`.acceptance`) and improvement rounds
 (:mod:`.goal_rounds`).  The full id table is kept so goal ids and names match
-the JAX package; this slice of the port runs the 16 default goals (ids 0-15).
-The optional goals 16-23 (JBOD intra-disk, preferred leader, rack-aware
-distribution, topic-leader distribution, broker sets, kafka assigner) have ids
-and names here but no kernels yet: asking for them raises.
+the JAX package: the 16 default goals (ids 0-15) and the optional goals 16-23
+(JBOD intra-disk, preferred leader, rack-aware distribution, topic-leader
+distribution, broker sets, the kafka-assigner mode).
 """
 
 from __future__ import annotations
@@ -17,9 +16,17 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from cruise_control_tpu_torch.analyzer import context as C
-from cruise_control_tpu_torch.analyzer.context import GoalContext, Snapshot
+from cruise_control_tpu_torch.analyzer.context import (
+    GoalContext,
+    Snapshot,
+    rack_fair_share,
+    topic_leader_upper,
+)
+from cruise_control_tpu_torch.analyzer.kafka_assigner import replica_positions
 from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
+from cruise_control_tpu_torch.ops.index import xla_sums
+from cruise_control_tpu_torch.ops.segments import segment_sums
 
 # -- goal ids (priority-list members) ---------------------------------------------
 
@@ -94,8 +101,9 @@ HARD_GOALS: Tuple[int, ...] = (
 #: Default goal priority order (AnalyzerConfig.java:352-368): the 16 inter-broker goals.
 DEFAULT_GOAL_ORDER: Tuple[int, ...] = tuple(range(16))
 
-#: Goal ids this port supports (the default list).
-SUPPORTED_GOALS = frozenset(DEFAULT_GOAL_ORDER)
+#: Goal list of the REMOVE_DISKS flow: drain marked logdirs to their broker's
+#: remaining disks, then balance across them.
+INTRA_BROKER_GOALS: Tuple[int, ...] = (INTRA_DISK_CAPACITY, INTRA_DISK_USAGE_DIST)
 
 CAPACITY_RESOURCE: Dict[int, int] = {
     DISK_CAPACITY: Resource.DISK,
@@ -136,6 +144,13 @@ def goal_snapshot_needs(gid: int) -> frozenset:
     return frozenset(n)
 
 
+def prior_acceptance_needs(prior_ids) -> frozenset:
+    """Optional snapshot groups the acceptance terms of the prior goals
+    ``prior_ids`` read: PreferredLeaderElectionGoal's leadership term reads
+    the preferred leaders, whatever goal's rounds propose the transfer."""
+    return frozenset({C.NEED_PREF}) if PREFERRED_LEADER_ELECTION in prior_ids else frozenset()
+
+
 def violation_needs(subset) -> frozenset:
     """Optional snapshot groups the :func:`violations_all` rows of ``subset`` read."""
     gids = range(NUM_GOALS) if subset is None else subset
@@ -152,13 +167,11 @@ def violation_needs(subset) -> frozenset:
     return frozenset(n)
 
 
-def check_supported(goal_ids) -> None:
-    """Raise for goal ids this slice of the port does not run yet."""
-    missing = [GOAL_NAMES[g] for g in goal_ids if g not in SUPPORTED_GOALS]
-    if missing:
-        raise NotImplementedError(
-            f"goals not ported yet: {', '.join(missing)} (the port runs the 16 default goals)"
-        )
+def check_goal_ids(goal_ids) -> None:
+    """Raise for ids outside the goal table."""
+    bad = [g for g in goal_ids if not 0 <= g < NUM_GOALS]
+    if bad:
+        raise ValueError(f"unknown goal ids {bad}: goal ids run from 0 to {NUM_GOALS - 1}")
 
 
 # -- rack-awareness helpers --------------------------------------------------------
@@ -256,6 +269,129 @@ def _viol_min_topic_leaders(state, ctx, snap):
     return deficit.sum(dtype=torch.int32).to(torch.float32)
 
 
+def _viol_topic_leader_dist(state, ctx, snap):
+    if not snap.enable_heavy:
+        return _zero(state)
+    lt_up = topic_leader_upper(state, ctx, snap)
+    return _count((snap.topic_leader_counts > lt_up[None, :]) & state.broker_alive[:, None])
+
+
+def _viol_preferred_leader(state, ctx, snap):
+    # partitions not led by their replica-list head while the head sits on an
+    # alive broker
+    pref = snap.preferred_leader
+    pref_ok = (pref >= 0) & state.broker_alive[state.replica_broker[torch.clamp(pref, min=0)]]
+    return _count(pref_ok & (state.partition_leader != pref))
+
+
+def _viol_rack_dist(state, ctx, snap):
+    # a rack holding more than ceil(RF / alive racks) of a partition's replicas
+    rf_p = snap.rack_counts.sum(dim=1, dtype=torch.int32)
+    parts = torch.arange(state.num_partitions, device=state.device)
+    fair = rack_fair_share(state, snap, parts)
+    return _count((snap.rack_counts.amax(dim=1) > fair) & (rf_p > 0))
+
+
+def _viol_broker_set(state, ctx, snap):
+    want = ctx.broker_set_of_topic[state.partition_topic[state.replica_partition]]
+    have = ctx.broker_set_of_broker[state.replica_broker]
+    return _count(state.replica_valid & (want >= 0) & (have != want))
+
+
+def _viol_intra_disk_capacity(state, ctx, snap):
+    if state.num_disks == 0:
+        return _zero(state)
+    usable = snap.disk_usable
+    d_over = (snap.disk_load > snap.disk_limits * (1 + _EPS) + _EPS) & usable
+    # any replica on a dead or removed logdir violates the goal, whatever its size
+    stranded = snap.disk_replica_counts > 0
+    return _count(d_over | (stranded & ~usable))
+
+
+def _viol_intra_disk_dist(state, ctx, snap):
+    if state.num_disks == 0:
+        return _zero(state)
+    d_out = (
+        (snap.disk_load > snap.disk_upper * (1 + _EPS) + _EPS)
+        | (snap.disk_load < snap.disk_lower * (1 - _EPS) - _EPS)
+    ) & snap.disk_usable
+    return _count(d_out)
+
+
+#: positions tracked by the kafka-assigner evenness metric (replicas at higher
+#: positions do not count)
+ASSIGNER_POS_CAP = 8
+
+
+def assigner_position_counts(state: ClusterArrays) -> torch.Tensor:
+    """i32[ASSIGNER_POS_CAP, B]: valid replicas per (position, broker).  One
+    integer segment-sum call: on the card, one launch of the counting kernel."""
+    B = state.num_brokers
+    pos = replica_positions(state)
+    ok = state.replica_valid & (pos >= 0) & (pos < ASSIGNER_POS_CAP)
+    group = torch.where(ok, pos * B + state.replica_broker, -1)
+    (counts,) = segment_sums([ok], group, ASSIGNER_POS_CAP * B)
+    return counts.view(ASSIGNER_POS_CAP, B)
+
+
+def assigner_position_unevenness(
+    state: ClusterArrays,
+    eligible: Optional[torch.Tensor] = None,
+    p0_eligible: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """f32: sum over positions of max(0, max - min - 1) of the per-broker
+    counts over ``eligible`` brokers (default: alive); position 0 carries
+    leadership and is scored over ``p0_eligible`` (default: ``eligible``).
+    0 when every tracked position is as even as integer counts allow."""
+    if eligible is None:
+        eligible = state.broker_alive
+    if p0_eligible is None:
+        p0_eligible = eligible
+    counts = assigner_position_counts(state)
+    el = torch.cat([p0_eligible[None, :], eligible[None, :].expand(ASSIGNER_POS_CAP - 1, -1)])
+    cmax = torch.where(el, counts, -1).amax(dim=1)
+    cmin = torch.where(el, counts, 2**30).amin(dim=1)
+    has_pos = counts.sum(dim=1, dtype=torch.int32) > 0
+    spread = torch.where(has_pos, torch.clamp(cmax - cmin - 1, min=0), 0)
+    return spread.sum(dtype=torch.int32).to(torch.float32)
+
+
+def _viol_assigner_rack(state, ctx, snap):
+    # rack validity of the replicas the mode may move, the even-placement
+    # objective over the brokers it may place on (excluded topics' replicas
+    # still count in the per-position totals), and replicas stranded outside
+    # that destination set
+    eligible = state.broker_alive & ~ctx.excluded_for_replica_move
+    p0_eligible = eligible & ~ctx.excluded_for_leadership
+    topic_excl = ctx.excluded_topics[state.partition_topic[state.replica_partition]]
+    rack_bad = rack_violating_replicas(state, snap) & ~topic_excl
+    stranded = state.replica_valid & ~topic_excl & ~eligible[state.replica_broker]
+    return (
+        _count(rack_bad)
+        + assigner_position_unevenness(state, eligible, p0_eligible)
+        + _count(stranded)
+    )
+
+
+def _viol_assigner_disk(state, ctx, snap):
+    # brokers whose disk utilization leaves [mean (1 - m), mean (1 + m)],
+    # m = (balance threshold - 1) * margin, mean = total load / total capacity
+    # over alive brokers (summed in the JAX reference's order); 0 when disk
+    # is a low-utilization resource, as the goal's own rounds skip it then
+    alive = state.broker_alive
+    cap = state.broker_capacity[:, Resource.DISK]
+    load = snap.broker_load[:, Resource.DISK]
+    total_load, total_cap = xla_sums([torch.where(alive, load, 0.0), torch.where(alive, cap, 0.0)])
+    mean = total_load / torch.clamp(total_cap, min=_EPS)
+    c = ctx.constraint
+    margin = (c.resource_balance_threshold[Resource.DISK] - 1.0) * c.balance_margin
+    util = load / torch.clamp(cap, min=_EPS)
+    outside = (util > mean * (1 + margin) + _EPS) | (
+        util < mean * torch.clamp(1 - margin, min=0.0) - _EPS
+    )
+    return torch.where(snap.low_util[Resource.DISK], 0.0, _count(outside & alive))
+
+
 _VIOLATION_FNS = {
     RACK_AWARE: _viol_rack_aware,
     MIN_TOPIC_LEADERS: _viol_min_topic_leaders,
@@ -273,6 +409,14 @@ _VIOLATION_FNS = {
     TOPIC_REPLICA_DIST: _viol_topic_replica_dist,
     LEADER_REPLICA_DIST: _viol_leader_dist,
     LEADER_BYTES_IN_DIST: _viol_leader_bytes_in,
+    INTRA_DISK_CAPACITY: _viol_intra_disk_capacity,
+    INTRA_DISK_USAGE_DIST: _viol_intra_disk_dist,
+    PREFERRED_LEADER_ELECTION: _viol_preferred_leader,
+    RACK_AWARE_DISTRIBUTION: _viol_rack_dist,
+    TOPIC_LEADER_DIST: _viol_topic_leader_dist,
+    BROKER_SET_AWARE: _viol_broker_set,
+    KAFKA_ASSIGNER_RACK: _viol_assigner_rack,
+    KAFKA_ASSIGNER_DISK: _viol_assigner_disk,
 }
 
 
@@ -280,7 +424,6 @@ def violations_one(
     gid: int, state: ClusterArrays, ctx: GoalContext, snap: Snapshot
 ) -> torch.Tensor:
     """f32: violating-entity count for ONE goal id (0 => satisfied)."""
-    check_supported((gid,))
     return _VIOLATION_FNS[gid](state, ctx, snap)
 
 
@@ -291,10 +434,9 @@ def violations_all(
     subset: Optional[Tuple[int, ...]] = None,
 ) -> torch.Tensor:
     """f32[NUM_GOALS]: violating-entity count per goal id.  Rows outside
-    ``subset`` (default: every supported goal) stay 0; the heavy [B, T] goals
-    report 0 when the snapshot was taken without ``enable_heavy``."""
-    gids = tuple(sorted(SUPPORTED_GOALS)) if subset is None else tuple(subset)
-    check_supported(gids)
+    ``subset`` (default: every goal) stay 0; the heavy [B, T] goals report 0
+    when the snapshot was taken without ``enable_heavy``."""
+    gids = range(NUM_GOALS) if subset is None else subset
     rows = torch.zeros(NUM_GOALS, dtype=torch.float32, device=state.device)
     for gid in sorted(set(gids)):
         rows[gid] = _VIOLATION_FNS[gid](state, ctx, snap)

@@ -9,7 +9,9 @@ and ``AbstractGoal.optimize``, AbstractGoal.java:82-135):
   applies nothing (at most :data:`MAX_GOAL_PASSES` passes);
 * every applied action passed every prior goal's acceptance kernel against
   the pre-round state, so later goals never violate earlier ones;
-* hard-goal failure is recorded per goal plus a provisioning verdict.
+* hard-goal failure is recorded per goal plus a provisioning verdict;
+* KafkaAssignerEvenRackAwareGoal (which must come first) is a constructive
+  full placement (:mod:`.kafka_assigner`), one step instead of rounds.
 
 The JAX package compiles each phase into one ``lax.while_loop``; here the
 loops are host-driven Python with the same stopping rules.  Each round ends
@@ -38,6 +40,7 @@ from cruise_control_tpu_torch.analyzer.goal_rounds import (
     offline_round,
     offline_round_relaxed,
 )
+from cruise_control_tpu_torch.analyzer.kafka_assigner import even_rack_aware_assign
 from cruise_control_tpu_torch.analyzer.moves import admit, apply_moves, move_effects
 from cruise_control_tpu_torch.analyzer.proposals import ExecutionProposal, diff as diff_proposals
 from cruise_control_tpu_torch.core.device import DeviceLike, resolve_device
@@ -45,6 +48,7 @@ from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model import stats as S
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
+from cruise_control_tpu_torch.ops.segments import segment_sums
 
 FAST_MODE_MAX_ROUNDS = 64
 #: cap on phase-cycle repetitions per goal; a pass that applies zero actions
@@ -333,7 +337,7 @@ def _goal_step_fn(
     """One goal: its round-type phases cycled until a pass applies nothing
     (or MAX_GOAL_PASSES), plus its own violation count before and after
     (0-d tensors, left on the device)."""
-    needs = G.goal_snapshot_needs(gid)
+    needs = G.goal_snapshot_needs(gid) | G.prior_acceptance_needs(prior_ids)
     snap0 = take_snapshot(state, ctx, enable_heavy, needs)
     before = G.violations_one(gid, state, ctx, snap0)
     rounds = moves = 0
@@ -355,6 +359,27 @@ def _goal_step_fn(
     snap1 = take_snapshot(state, ctx, enable_heavy, needs)
     after = G.violations_one(gid, state, ctx, snap1)
     return state, rounds, moves, before, after
+
+
+def _assigner_step_fn(state: ClusterArrays, ctx: GoalContext, *, max_rf: int, enable_heavy: bool):
+    """KafkaAssignerEvenRackAwareGoal as one step: the constructive even,
+    rack-aware placement plus the goal's own violations before and after.
+    Returns ``(state, rounds, moves, before, after, unassigned)``, the last
+    four as 0-d tensors; ``unassigned`` counts replica slots no eligible
+    broker could take."""
+    gid = G.KAFKA_ASSIGNER_RACK
+    needs = G.goal_snapshot_needs(gid)
+    before = G.violations_one(gid, state, ctx, take_snapshot(state, ctx, enable_heavy, needs))
+    state, moves, unassigned = even_rack_aware_assign(state, ctx, max_rf=max_rf)
+    after = G.violations_one(gid, state, ctx, take_snapshot(state, ctx, enable_heavy, needs))
+    return state, 1, moves, before, after, unassigned
+
+
+def _max_replication_factor(state: ClusterArrays, syncs: HostSyncs) -> int:
+    """The largest replica count of any partition (at least 1): the number
+    of position passes of the kafka-assigner placement.  One host read."""
+    (rf,) = segment_sums([state.replica_valid], state.replica_partition, state.num_partitions)
+    return max(syncs.tolist(rf.amax()) if rf.numel() else 0, 1)
 
 
 def _violations_fn(state: ClusterArrays, ctx: GoalContext, enable_heavy: bool = False, subset=None):
@@ -387,7 +412,15 @@ class GoalOptimizer:
         self.goal_ids = tuple(
             g for g in goal_ids if enable_heavy_goals or g not in G.HEAVY_GOALS
         )
-        G.check_supported(self.goal_ids)
+        G.check_goal_ids(self.goal_ids)
+        # the kafka-assigner goal is a full placement: anywhere but first it
+        # would discard every earlier goal's work
+        if G.KAFKA_ASSIGNER_RACK in self.goal_ids and self.goal_ids[0] != G.KAFKA_ASSIGNER_RACK:
+            raise ValueError(
+                "KafkaAssignerEvenRackAwareGoal must be the FIRST goal: it is a "
+                "constructive full placement that would clobber prior goals' "
+                f"optimizations (got position {self.goal_ids.index(G.KAFKA_ASSIGNER_RACK)})"
+            )
         self.hard_ids = tuple(hard_ids)
         self.max_rounds_per_phase = max_rounds_per_phase
         #: pad the broker axis to the power-of-two ladder (model.arrays.broker_bucket),
@@ -472,10 +505,23 @@ class GoalOptimizer:
                 degraded = True
                 break
             g0 = time.monotonic()
-            state, rounds, moves, before, after = _goal_step_fn(
-                state, ctx, gid=gid, round_fns=GOAL_ROUNDS[gid], max_rounds=max_rounds,
-                enable_heavy=heavy, prior_ids=prior, admit_ids=prior + (gid,), syncs=syncs,
-            )
+            if gid == G.KAFKA_ASSIGNER_RACK:
+                # a full placement mode, not an improvement loop
+                state, rounds, moves_t, before, after, unassigned_t = _assigner_step_fn(
+                    state, ctx, max_rf=_max_replication_factor(initial, syncs),
+                    enable_heavy=heavy,
+                )
+                moves, unassigned = syncs.tolist(torch.stack([moves_t, unassigned_t]))
+                if raise_on_hard_failure and unassigned > 0:
+                    raise OptimizationFailure(
+                        f"KafkaAssignerEvenRackAwareGoal: {unassigned} replica slot(s) have no "
+                        "eligible broker (fewer eligible alive brokers than the replication factor)"
+                    )
+            else:
+                state, rounds, moves, before, after = _goal_step_fn(
+                    state, ctx, gid=gid, round_fns=GOAL_ROUNDS[gid], max_rounds=max_rounds,
+                    enable_heavy=heavy, prior_ids=prior, admit_ids=prior + (gid,), syncs=syncs,
+                )
             is_hard = gid in self.hard_ids
             after_host = None
             if profile_goals or (raise_on_hard_failure and is_hard):

@@ -1,4 +1,5 @@
-"""Generic batched round proposers: shed, fill, leadership transfer and swap.
+"""Generic batched round proposers: shed, fill, leadership transfer, swap and
+intra-broker logdir moves.
 
 Port of ``cruise_control_tpu/analyzer/proposers.py`` (single device).  One
 round: every source broker nominates its top-k candidate replicas (a
@@ -27,6 +28,7 @@ from cruise_control_tpu_torch.analyzer.acceptance import (
 )
 from cruise_control_tpu_torch.analyzer.context import NEG, GoalContext, Snapshot, segment_argmax
 from cruise_control_tpu_torch.analyzer.moves import (
+    KIND_INTRA_MOVE,
     KIND_LEADERSHIP,
     KIND_REPLICA_MOVE,
     KIND_SWAP,
@@ -458,5 +460,60 @@ def swap_round(
         dst_broker=torch.where(replica >= 0, dst, -1),
         dst_replica=torch.where(replica >= 0, partner[dst_safe], -1),
         score=torch.where(replica >= 0, src_need[src_of_slot], 0.0),
+        windows=windows,
+    )
+
+
+def intra_disk_round(
+    state: ClusterArrays,
+    ctx: GoalContext,
+    snap: Snapshot,
+    prior_mask: np.ndarray,
+    salt: int,
+    src_need: torch.Tensor,    # f32[D] > 0 => logdir must shed
+    cand_score: torch.Tensor,  # f32[R] preference among the disk's replicas
+    cand_ok: torch.Tensor,     # bool[R]
+    dst_fn: DstFn,             # dst_fn(state, snap, cand i32[S]) -> (elig, score) [S, D]
+) -> MoveBatch:
+    """One intra-broker logdir-move round (the IntraBrokerDisk* goals).
+    Sources and destinations are disks and every move stays on the replica's
+    broker, so no broker-level quantity changes and no prior goal's
+    destination matrix applies: eligibility is the goal's own ``dst_fn`` plus
+    the same-broker and usable-disk masks."""
+    D = state.num_disks
+    dev = state.device
+    k = ctx.top_k
+    on_disk = state.replica_disk >= 0
+    seg = torch.where(on_disk, state.replica_disk, D)
+    active = src_need > 0
+    cands = topk_segment_argmax(cand_score, seg, D, cand_ok & on_disk, k)
+    chosen, windows = _cap_sources(src_need, ctx.max_active_brokers, salt)
+    if chosen is None:
+        cand = cands.reshape(-1)                                # slot = j*D + d
+        src_disk_of_slot = torch.arange(D, dtype=I32, device=dev).repeat(k)
+    else:
+        cand = cands[:, chosen].reshape(-1)
+        src_disk_of_slot = chosen.repeat(k)
+    S = cand.shape[0]
+    valid = active[src_disk_of_slot] & (cand >= 0)
+    cand_safe = torch.where(cand >= 0, cand, 0)
+
+    elig, score = dst_fn(state, snap, cand_safe)
+    cols = torch.arange(D, dtype=I32, device=dev)
+    same_broker = state.disk_broker[None, :] == state.replica_broker[cand_safe][:, None]
+    not_self = cols[None, :] != src_disk_of_slot[:, None]
+    elig = elig & same_broker & not_self & snap.disk_usable[None, :] & valid[:, None]
+    score = score + _pair_jitter(cand_safe[:, None], cols[None, :], salt)
+    score = torch.where(elig, score, NEG)
+    dst, found = _argmax_rows(score)
+
+    replica = torch.where(valid & found, cand_safe, -1)
+    return MoveBatch(
+        kind=KIND_INTRA_MOVE,
+        replica=replica,
+        dst_broker=torch.where(replica >= 0, state.replica_broker[cand_safe], -1),
+        dst_replica=torch.full((S,), -1, dtype=I32, device=dev),
+        score=torch.where(replica >= 0, src_need[src_disk_of_slot], 0.0),
+        dst_disk=torch.where(replica >= 0, dst, -1),
         windows=windows,
     )

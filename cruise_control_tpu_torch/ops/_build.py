@@ -18,6 +18,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -72,6 +73,13 @@ def build(name: str) -> Path:
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     BUILD_LOG[name] = (out, seconds, proc.stdout + proc.stderr)
     return out
+
+
+def build_all(names) -> Dict[str, Path]:
+    """Compile several sources at once: one ``nvcc`` each, all started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,150 @@
+"""One position pass of the kafka-assigner placement: the CUDA kernel and its
+plain version.
+
+The kafka-assigner mode (:mod:`cruise_control_tpu_torch.analyzer.kafka_assigner`)
+places replicas position by position.  Within a position it walks the
+partitions in index order and gives each the eligible broker with the fewest
+replicas already placed at that position (ties to the lowest id), barring the
+brokers the partition already holds at earlier positions and their racks; when
+every rack is barred it drops the rack rule but never the broker rule.  The
+JAX package runs each pass as one ``lax.scan`` over partitions
+(``cruise_control_tpu/analyzer/kafka_assigner.py:111``); here a pass is one
+launch of ``csrc/even_assign.cu`` (its note gives the design and the bound).
+
+:func:`even_assign` updates ``counts`` and column ``pos`` of ``chosen`` in
+place.  CPU tensors take :func:`even_assign_plain`, the same greedy as a
+Python loop over partitions; CUDA tensors launch the kernel or raise.  Each
+launch adds one to :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from cruise_control_tpu_torch.ops import _build
+
+#: kernel launches since :func:`reset_launch_counts`
+LAUNCHES: Dict[str, int] = {"even_assign": 0}
+
+_MAX_BROKERS = 64 * 1024
+_LIB = None
+_PACK = struct.Struct("11q").pack
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["even_assign"] = 0
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("even_assign")
+        lib.cc_even_assign.argtypes = [ctypes.c_char_p]
+        lib.cc_even_assign.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(counts, chosen, pos, rf, excluded_part, broker_rack, eligible) -> None:
+    P, max_rf = chosen.shape
+    B = counts.shape[0]
+    for name, t, dtype, shape in (
+        ("counts", counts, torch.int32, (B,)),
+        ("chosen", chosen, torch.int32, (P, max_rf)),
+        ("rf", rf, torch.int32, (P,)),
+        ("excluded_part", excluded_part, torch.bool, (P,)),
+        ("broker_rack", broker_rack, torch.int32, (B,)),
+        ("eligible", eligible, torch.bool, (B,)),
+    ):
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != counts.device:
+            raise ValueError(
+                f"even_assign: {name} must be {dtype} {shape} on {counts.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"even_assign: {name} must be contiguous")
+    if not 0 <= pos < max_rf:
+        raise ValueError(f"even_assign: position {pos} outside [0, {max_rf})")
+    if not 0 < B <= _MAX_BROKERS:
+        raise ValueError(f"even_assign: {B} brokers outside (0, {_MAX_BROKERS}]")
+
+
+def even_assign_plain(
+    counts: torch.Tensor, chosen: torch.Tensor, pos: int, rf: torch.Tensor,
+    excluded_part: torch.Tensor, broker_rack: torch.Tensor, eligible: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version on CPU tensors: the greedy as a Python loop over
+    partitions, in place (numpy views share the tensors' memory)."""
+    cnt, ch = counts.numpy(), chosen.numpy()
+    rack, el = broker_rack.numpy(), eligible.numpy()
+    active = (rf.numpy() > pos) & ~excluded_part.numpy()
+    ids = np.arange(cnt.shape[0])
+    big = np.iinfo(np.int32).max
+    for p in range(ch.shape[0]):
+        if not active[p]:
+            ch[p, pos] = -1
+            continue
+        relaxed = el.copy()
+        rack_free = np.ones_like(el)
+        for b in ch[p, :pos]:
+            relaxed &= ids != b
+            if b >= 0:
+                rack_free &= rack != rack[b]
+        strict = relaxed & rack_free
+        pick = -1
+        for mask in (strict, relaxed):
+            c = np.where(mask, cnt, big)
+            b = int(np.argmin(c))    # the first of the least counts: (count, id) order
+            if c[b] < big:
+                pick = b
+                break
+        if pick >= 0:
+            cnt[pick] += 1
+        ch[p, pos] = pick
+    return counts, chosen
+
+
+def even_assign_cuda(
+    counts: torch.Tensor, chosen: torch.Tensor, pos: int, rf: torch.Tensor,
+    excluded_part: torch.Tensor, broker_rack: torch.Tensor, eligible: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's wrapper: one launch on the current stream, in place."""
+    _check(counts, chosen, pos, rf, excluded_part, broker_rack, eligible)
+    dev = counts.device
+    if dev.type != "cuda":
+        raise ValueError(f"even_assign_cuda takes CUDA tensors, got {dev}")
+    P, max_rf = chosen.shape
+    lib = _library()
+    with torch.cuda.device(dev.index):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cc_even_assign(_PACK(
+            counts.data_ptr(), chosen.data_ptr(), rf.data_ptr(), excluded_part.data_ptr(),
+            broker_rack.data_ptr(), eligible.data_ptr(), P, counts.shape[0], max_rf, pos, stream,
+        ))
+    if err != 0:
+        raise RuntimeError(f"even_assign kernel launch failed: CUDA error {err}")
+    LAUNCHES["even_assign"] += 1
+    return counts, chosen
+
+
+def even_assign(
+    counts: torch.Tensor, chosen: torch.Tensor, pos: int, rf: torch.Tensor,
+    excluded_part: torch.Tensor, broker_rack: torch.Tensor, eligible: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Place position ``pos`` of every partition (see the module docstring).
+
+    counts: i32[B] replicas already at this position per broker (updated);
+    chosen: i32[P, maxRF] brokers picked so far, -1 unassigned (column ``pos``
+    written); rf: i32[P] replicas per partition; excluded_part: bool[P];
+    broker_rack: i32[B]; eligible: bool[B] possible destinations."""
+    if counts.device.type == "cpu":
+        _check(counts, chosen, pos, rf, excluded_part, broker_rack, eligible)
+        return even_assign_plain(counts, chosen, pos, rf, excluded_part, broker_rack, eligible)
+    if counts.device.type == "cuda":
+        return even_assign_cuda(counts, chosen, pos, rf, excluded_part, broker_rack, eligible)
+    raise ValueError(f"even_assign: unsupported device {counts.device}")

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and solver on the card.
+"""The port's CUDA kernels and solver on the card.
 
 Every test here needs an NVIDIA GPU and skips without one (the kernel has no
 CPU mode).  This file imports nothing of JAX, so the machine with the card can
@@ -9,13 +9,15 @@ run it alone, without the repository's JAX test setup:
 The fixed-order path adds each segment's rows in index order, so it must
 equal the plain version's sequential CPU sum bit for bit, and two launches
 must agree; the integer path is exact.  Every case is held against the CPU
-plain version bitwise.
+plain version bitwise.  The kafka-assigner pass (``csrc/even_assign.cu``) is
+integer-only and must equal its plain version exactly.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cruise_control_tpu_torch.ops import assign as PA
 from cruise_control_tpu_torch.ops import segments as PS
 
 
@@ -191,3 +193,84 @@ def test_xla_order_sums_on_the_card(cuda_device, B):
     want = xla_sums([torch.from_numpy(x), torch.from_numpy(y)])
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def _assign_inputs(B, P, max_rf, racks, seed):
+    """Random inputs of the assigner's passes: pre-seeded counts, replica
+    counts 1..max_rf, 5 % of partitions excluded, ``racks`` racks, one
+    broker in ten not eligible (B = 3: only brokers 0 and 1 eligible, so a
+    third replica has nowhere to go)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 3, size=(max_rf, B)).astype(np.int32)
+    rf = rng.integers(1, max_rf + 1, size=P).astype(np.int32)
+    excluded = rng.random(P) < 0.05
+    rack = (np.arange(B) % racks).astype(np.int32)
+    eligible = rng.random(B) >= 0.1 if B > 3 else np.array([True, True, False])
+    return counts, rf, excluded, rack, eligible
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 100, 128, 1000, 2048])
+@pytest.mark.parametrize("racks", [2, 10])
+def test_even_assign_equals_its_plain_version(cuda_device, B, racks):
+    """Every position pass on the card against the CPU loop: counts and picks
+    identical.  Two racks against RF 3 exercise the relaxed (rack-ignoring)
+    choice."""
+    P, max_rf = 3000, 3
+    counts, rf, excluded, rack, eligible = _assign_inputs(B, P, max_rf, racks, B + racks)
+    cpu = [torch.from_numpy(x) for x in (rf, excluded, rack, eligible)]
+    gpu = [x.to(cuda_device) for x in cpu]
+    chosen_c = torch.full((P, max_rf), -1, dtype=torch.int32)
+    chosen_g = chosen_c.to(cuda_device)
+    PA.reset_launch_counts()
+    for pos in range(max_rf):
+        c_cpu = torch.from_numpy(counts[pos].copy())
+        c_gpu = c_cpu.to(cuda_device)
+        PA.even_assign(c_cpu, chosen_c, pos, *cpu)
+        PA.even_assign(c_gpu, chosen_g, pos, *gpu)
+        torch.cuda.synchronize()
+        assert torch.equal(c_gpu.cpu(), c_cpu), pos
+        assert torch.equal(chosen_g.cpu(), chosen_c), pos
+    assert PA.LAUNCHES["even_assign"] == max_rf
+    picks = chosen_c.numpy()
+    assert (picks[excluded] == -1).all()
+    if B == 3:
+        assert ((picks == -1) & (np.arange(max_rf)[None, :] < rf[:, None]) & ~excluded[:, None]).any()
+
+
+@pytest.mark.cuda
+def test_assigner_position_counts_through_the_integer_kernel(cuda_device):
+    """The assigner's per-(position, broker) counts: a bool column of 30,000
+    rows into 8 x 128 segments, one host call on the integer path."""
+    rng = np.random.default_rng(11)
+    ok = rng.random(30_000) < 0.97
+    group = np.where(ok, rng.integers(0, 3, 30_000) * 128 + rng.integers(0, 128, 30_000), -1)
+    _card_vs_cpu([ok], group.astype(np.int32), 8 * 128, cuda_device, "segment_sum_i32")
+
+
+@pytest.mark.cuda
+def test_config2_small_kafka_mode_on_the_card_equals_the_cpu_port(cuda_device):
+    from cruise_control_tpu_torch.analyzer import GoalContext, GoalOptimizer
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+
+    spec = SyntheticSpec(
+        num_racks=5, num_brokers=40, num_topics=20, num_partitions=2000,
+        replication_factor=3, distribution="exponential", skew_brokers=10,
+        mean_cpu=0.25, mean_disk=0.2, mean_nw_in=0.15, mean_nw_out=0.15, seed=7,
+    )
+    out = {}
+    for dev in ("cpu", cuda_device):
+        state, maps = generate(spec, device=dev)
+        ctx = GoalContext.build(state.num_topics, state.num_brokers, device=dev)
+        PA.reset_launch_counts()
+        PS.reset_launch_counts()
+        final, res = GoalOptimizer(goal_ids=(22, 23), hard_ids=(22,), device=dev).optimize(
+            state, ctx, maps=maps
+        )
+        out[str(dev)] = (final.to("cpu"), res, PA.LAUNCHES["even_assign"], PS.LAUNCHES["segment_sum_i32"])
+    (fc, rc, ac, _), (fg, rg, ag, ig) = out["cpu"], out[str(cuda_device)]
+    assert torch.equal(fc.replica_broker, fg.replica_broker)
+    assert torch.equal(fc.partition_leader, fg.partition_leader)
+    assert rc.total_moves == rg.total_moves > 0
+    assert rg.violations_after["KafkaAssignerEvenRackAwareGoal"] == 0
+    assert ac == 0 and ag == 3 and ig > 0

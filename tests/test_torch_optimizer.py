@@ -1,6 +1,7 @@
 """Slice parity: the port's ``GoalOptimizer.optimize`` (16 default goals, heavy
 goals on) against the JAX package's on gate config #1 and ``unbalanced()``,
-plus the optimizer's own options (deadline, fast mode, hard-goal failure).
+plus the optimizer's own options (deadline, fast mode, hard-goal failure,
+goal-list checks).
 
 The remaining ``tests/fixtures.py`` clusters are in
 ``test_torch_optimizer_fixtures.py`` so their cold JAX compiles run on another
@@ -80,6 +81,13 @@ def test_hard_goal_failure_raises_when_asked():
         opt.optimize(port_state(jstate), port_ctx(jctx), raise_on_hard_failure=True)
 
 
-def test_unsupported_goals_raise():
-    with pytest.raises(NotImplementedError, match="IntraBrokerDiskCapacityGoal"):
-        GoalOptimizer(goal_ids=(0, 16), device="cpu")
+def test_kafka_assigner_goal_must_come_first():
+    with pytest.raises(ValueError, match="FIRST"):
+        GoalOptimizer(goal_ids=(0, 22), device="cpu")
+    GoalOptimizer(goal_ids=(22, 0, 16), device="cpu")
+
+
+@pytest.mark.parametrize("bad", [24, -1])
+def test_goal_ids_outside_the_table_raise(bad):
+    with pytest.raises(ValueError, match="unknown goal ids"):
+        GoalOptimizer(goal_ids=(0, bad), device="cpu")

@@ -3,8 +3,9 @@
 test workers: each cold JAX optimize compiles its own programs).
 
 The port must reproduce the JAX run exactly: the same final
-``replica_broker`` / ``partition_leader``, the same proposals, and per goal the
-same violations before/after, rounds and applied moves.
+``replica_broker`` / ``partition_leader`` (and ``replica_disk`` on a JBOD
+cluster), the same proposals, and per goal the same violations before/after,
+rounds and applied moves.
 """
 
 from __future__ import annotations
@@ -61,6 +62,8 @@ def assert_same_solution(jfinal, jres, pfinal, pres):
         to_np(pfinal.partition_leader), np.asarray(jfinal.partition_leader)
     )
     assert pfinal.num_brokers == jfinal.num_brokers
+    if jfinal.num_disks > 0:
+        np.testing.assert_array_equal(to_np(pfinal.replica_disk), np.asarray(jfinal.replica_disk))
     assert _proposal_rows(pres.proposals) == _proposal_rows(jres.proposals)
     got = [
         (r.name, r.is_hard, r.violations_before, r.violations_after, r.rounds, r.moves_applied)
