@@ -10,7 +10,10 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    ``csrc/even_assign.cu``: one ``nvcc`` each, started together) into
    ``build/kernels/``;
 2. kernels: both segment-sum paths against their plain PyTorch version at
-   the solver's shapes (the assigner's 8 x 128 position counts among them),
+   the solver's shapes (among them the assigner's 8 x 128 position counts, the
+   sweep's 64 x 10,000 replication factors and the first level of its float
+   totals, 64 x 938 windows, each as one call and as 64 per-lane calls; the
+   one float call is timed over 3 calls, not 30 or 200),
    the skewed case (all rows in one segment) and the snapshot's multi-column
    calls: every output bitwise equal to the CPU's sequential sum (floats; ints
    exact), two launches bitwise equal.  For the kernel, the plain version and
@@ -37,18 +40,33 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    capacityJBOD.json shape), P3 REMOVE_DISKS (goal 16 alone, hard, the second
    logdir of brokers 0-9 removed from a balanced JBOD cluster with room to
    drain them);
-6. profile: one warm config #2 solve under ``torch.profiler`` -- device busy
+6. sim: the what-if planner and the incremental solves on the JAX sweep
+   harness's cluster (100 brokers, 10,000 partitions, RF 3, light load) at
+   full width -- S1 ``fast_sweep`` of its 64 scenarios cold, warm and warm
+   under ``torch.profiler`` (host calls per lane, the batch-wide integer call
+   at 640,000 segments, the device idle share; every lane must equal the CPU
+   port's sweep of all 64 and lanes s0-s7 its sweep of those 8, and the
+   batch-wide float totals of every lane the CPU port's bitwise), S2 ``deep_sweep`` of s0-s3 (valid
+   placements; lane 0 equal to its direct solve), S3 ``plan_capacity`` at
+   load 1.0, S4 ``evaluate_drift`` and ``incremental_optimize`` on phase 4's
+   solved placement with topics 0-9 scaled, and a 4-lane
+   ``batched_incremental_optimize`` whose every lane must equal its own solve;
+7. profile: one warm config #2 solve under ``torch.profiler`` -- device busy
    time, idle share, kernel launches per round, top kernels by device time;
-7. card vs CPU: the same solve on the CPU port for config1 and config2_small
+8. card vs CPU: the same solve on the CPU port for config1 and config2_small
    (default goals) and for P1-P4 at config2_small (P2 and P3 with two
    logdirs, P4 = goals 19, 21, 20, 18 with two broker sets); placements,
    leaders and logdirs must be identical (P4 capped at 200 rounds a phase);
-8. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
+   then the sim entry points at config2_small (fast sweep of 8, deep sweep of
+   4 in two goal orders, a capacity plan with ``deep_verify``, single and
+   batched incremental solves), identical on card and CPU;
+9. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
    ``launches`` and ``host_calls`` are the wrapper's count of host calls in
-   phase 4's cold solve (phase 5's P1 for ``even_assign``);
-   ``kernel_launches`` are the kernels those calls enqueued in phase 6's
-   solve (the fixed-order path enqueues three per pass), beside that solve's
-   own host calls.
+   phase 4's cold solve (phase 5's P1 for ``even_assign``), ``sim_launches``
+   those of phase 6's cold S1 sweep, ``sim_shape`` phase 2's times at the
+   sweep's shape; ``kernel_launches`` are the kernels
+   those calls enqueued in phase 7's solve (the fixed-order path enqueues
+   three per pass), beside that solve's own host calls.
 
 Config #2 walls of two trees are compared with
 ``python3 -m cruise_control_tpu_torch.bench_walls``, run in each checkout.
@@ -97,6 +115,15 @@ JBOD = dict(
 REMOVE_DISKS_LOAD = dict(skew_brokers=0, mean_disk=0.1)
 DEFAULT_GOALS = tuple(range(16))
 NORTH_STAR = DEFAULT_GOALS + (16, 17)
+#: the JAX package's sweep harness cluster (scripts/bench_sim.py:60-68), full width
+SIM = dict(
+    num_racks=10, num_brokers=100, num_topics=20, num_partitions=10_000,
+    replication_factor=3, seed=7, mean_cpu=0.08, mean_disk=0.08, mean_nw_in=0.08,
+    mean_nw_out=0.06, build_maps=False,
+)
+SIM_SCENARIOS = 64
+#: the round cap of the incremental solves (a controller tick's bound)
+SIM_MAX_ROUNDS = 64
 KERNEL_SOURCES = {
     "segment_sum_f32": "cruise_control_tpu_torch/csrc/segment_sum.cu",
     "segment_sum_i32": "cruise_control_tpu_torch/csrc/segment_sum.cu",
@@ -219,6 +246,8 @@ def device_ms(fns, calls: int = 30):
 
 def _kernel_cases(gen):
     """(label, path, value columns, ids, segments) at the solver's shapes."""
+    from cruise_control_tpu_torch.ops.index import _window_ids
+
     R = 30_000
 
     def ids(S):
@@ -251,7 +280,37 @@ def _kernel_cases(gen):
         ("band sums, first level: [128,4] x2 + [128] -> 4 windows", "segment_sum_f32",
          [f32(128, 4), f32(128, 4), f32(128)],
          torch.arange(128, dtype=torch.int32) // 32, 4),
+        # the sweep's replication factors (JAX sim/batch.py:88): every lane's
+        # replica_valid under ids lane * 10,000 + partition, one call
+        (SWEEP_CASE + " bool", "segment_sum_i32", [torch.ones(SIM_SCENARIOS * R, dtype=torch.bool)],
+         sweep_ids(), SIM_SCENARIOS * 10_000),
+        (SWEEP_CASE + " i32", "segment_sum_i32",
+         [torch.randint(0, 2, (SIM_SCENARIOS * R,), generator=gen, dtype=torch.int32)],
+         sweep_ids(), SIM_SCENARIOS * 10_000),
+        # the first level of the sweep's float totals (sim.batch.sweep_totals):
+        # every lane's must-serve load and offline bytes into XLA's 32-row
+        # windows, each lane's windows after the last lane's, as one call; the
+        # sweep makes it one call a lane (ops.index.LANE_CALL_WINDOWS)
+        (SWEEP_TOTALS_CASE, "segment_sum_f32",
+         [f32(SIM_SCENARIOS * R, 4), f32(SIM_SCENARIOS * R)],
+         _window_ids(R, torch.device("cpu"), SIM_SCENARIOS), SIM_SCENARIOS * SWEEP_WINDOWS),
     ]
+
+
+SWEEP_CASE = "sweep replication factors: [64 x 30000] -> 64 x 10000 = 640000"
+#: XLA's 32-row windows over one lane's 30,000 replicas
+SWEEP_WINDOWS = -(-30_000 // 32)
+SWEEP_TOTALS_CASE = (f"sweep totals, first level: [64 x 30000,4] + [64 x 30000] -> 64 x {SWEEP_WINDOWS} = "
+                     f"{SIM_SCENARIOS * SWEEP_WINDOWS} windows")
+#: the sweep cases and one lane's segments in each
+SWEEP_LANE_SEGMENTS = {SWEEP_CASE: 10_000, SWEEP_TOTALS_CASE: SWEEP_WINDOWS}
+
+
+def sweep_ids():
+    """The sweep's ids at the harness's shape: lane * P + partition, each
+    partition's 3 replicas together, as the synthetic cluster lays them out."""
+    rp = torch.arange(10_000, dtype=torch.int32).repeat_interleave(3)
+    return (torch.arange(SIM_SCENARIOS, dtype=torch.int32)[:, None] * 10_000 + rp).reshape(-1)
 
 
 def phase_kernels(dev):
@@ -293,9 +352,29 @@ def phase_kernels(dev):
             lambda: SEG.segment_sums_plain(cols, ids, S),
             lambda: lib_out.index_add_(0, lib_ids, flat),
         ]
-        dev_ms, phases = device_ms(fns)
-        calls = [call_ms(fn) for fn in fns]
-        lat = latency_ms(fns[0])
+        # the one call for all lanes of the sweep's totals runs ~0.25 s: few reps
+        reps = 3 if label == SWEEP_TOTALS_CASE else None
+        dev_ms, phases = device_ms(fns, calls=reps or 30)
+        calls = [call_ms(fn, calls=reps or 200) for fn in fns]
+        lat = latency_ms(fns[0], reps=reps or 30)
+        per_lane = {}
+        lane_segments = next((n for k, n in SWEEP_LANE_SEGMENTS.items() if label.startswith(k)), None)
+        if lane_segments:
+            # beside it, one call per lane (lane 0's ids are every lane's, less the offset)
+            lane_ids = ids.view(SIM_SCENARIOS, -1)[0]
+            lane_cols = [c.view(SIM_SCENARIOS, -1, *c.shape[1:]) for c in cols]
+
+            def per_lane_fn():
+                return [SEG.segment_sums([c[i] for c in lane_cols], lane_ids, lane_segments)
+                        for i in range(SIM_SCENARIOS)]
+
+            outs = per_lane_fn()
+            check(all(torch.equal(torch.cat([o[j] for o in outs]), x) for j, x in enumerate(a)),
+                  f"{label}: per-lane calls differ")
+            (pl_dev,), _ = device_ms([per_lane_fn], calls=10)
+            per_lane = dict(per_lane_calls=SIM_SCENARIOS, per_lane_device_ms=pl_dev,
+                            per_lane_call_ms=call_ms(per_lane_fn, calls=20),
+                            per_lane_latency_ms=latency_ms(per_lane_fn, reps=10))
         width = flat.shape[1]
         nbytes = (sum(c.element_size() * c.numel() for c in cols) + 4 * ids.numel()
                   + sum(x.element_size() * x.numel() for x in a))
@@ -308,7 +387,7 @@ def phase_kernels(dev):
             plain_device_ms=dev_ms[1], plain_call_ms=calls[1],
             library_device_ms=dev_ms[2], library_call_ms=calls[2],
             bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
-            device_ms_by_kernel=phases,
+            device_ms_by_kernel=phases, **per_lane,
         )
         say("kernels", **rec)
         records.append(rec)
@@ -420,7 +499,7 @@ def phase_config2(dev):
                rounds=sum(r.rounds for r in res.goal_reports),
                balancedness=round(res.balancedness_score, 3))
     check(got == CONFIG2_TOTALS, f"config2: {got} differ from the JAX reference's {CONFIG2_TOTALS}")
-    return launches
+    return launches, final
 
 
 def phase_assign(dev):
@@ -551,6 +630,269 @@ def phase_paths(dev):
     return p1
 
 
+def make_scenarios(n: int, brokers: int = 100):
+    """The JAX sweep harness's scenarios (scripts/bench_sim.py:45-58): broker
+    adds x load scaling x spot failures."""
+    from cruise_control_tpu_torch.sim import Scenario
+
+    return [
+        Scenario(
+            name=f"s{i}", add_brokers=i % 8,
+            kill_brokers=(i % min(5, brokers),) if i % 3 == 0 else (),
+            load_factor=1.0 + 0.02 * i,
+        )
+        for i in range(n)
+    ]
+
+
+def _verdict_rows(sweep):
+    return [[v.name, v.verdict, v.hard_violations, v.balancedness, v.min_brokers_needed,
+             v.offline_moves, (v.movement or {}).get("num_inter_broker_moves"), v.provision_status]
+            for v in sweep.scenarios]
+
+
+def _same_placement(a, b) -> bool:
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in ("replica_broker", "partition_leader", "replica_disk"))
+
+
+def _drift_lanes(final, factors):
+    """Each factor's drift of a solved placement: topics 0-9 scaled by it."""
+    from cruise_control_tpu_torch.sim import Scenario, apply_scenario
+
+    return [apply_scenario(final, Scenario(topic_load_factors=tuple((t, f) for t in range(10))))
+            for f in factors]
+
+
+def _incremental_lanes(opt, lanes, ctx, dev):
+    """Each lane's own incremental solve, then the batched solve of all of
+    them: (singles, batched final, batched result, wall of the batched solve).
+    Fails unless every lane of the batch equals its own solve."""
+    from cruise_control_tpu_torch.model.arrays import index_arrays, stack_arrays
+
+    singles = [opt.incremental_optimize(x, ctx, max_rounds=SIM_MAX_ROUNDS) for x in lanes]
+    t0 = time.monotonic()
+    bfinal, bres = opt.batched_incremental_optimize(stack_arrays(lanes), ctx, max_rounds=SIM_MAX_ROUNDS)
+    _sync(dev)
+    wall = time.monotonic() - t0
+    for i, ((final, res), lane) in enumerate(zip(singles, bres.results)):
+        check(_same_placement(index_arrays(bfinal, i), final), f"batched incremental lane {i} placement differs")
+        check(lane.total_moves == res.total_moves and (lane.violations_after == res.violations_after).all(),
+              f"batched incremental lane {i}: {lane.total_moves} moves against {res.total_moves}")
+    return singles, bfinal, bres, wall
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _profiled(fn):
+    """One call of ``fn`` under ``torch.profiler`` (device activity only: the
+    host-op events of ~10^6 launches would take minutes to post-process):
+    ``(its result, wall s, the device events)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    return out, wall_s, [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def phase_sim(dev, config2_final):
+    """The what-if planner and the incremental solves on the card.
+
+    S1 ``fast_sweep`` of the JAX sweep harness's 64 scenarios on its
+    100-broker, 10,000-partition cluster (bucket 128), cold then warm; S2
+    ``deep_sweep`` of s0-s3 (default goals, heavy goals off); S3
+    ``plan_capacity`` at load 1.0; S4 ``evaluate_drift``,
+    ``incremental_optimize`` and ``batched_incremental_optimize`` on config
+    #2's solved placement with topics 0-9 scaled.  Returns the kernel host
+    calls of S1's cold sweep."""
+    from cruise_control_tpu_torch import sim
+    from cruise_control_tpu_torch.analyzer import GoalContext, GoalOptimizer
+    from cruise_control_tpu_torch.controller import evaluate_drift
+    from cruise_control_tpu_torch.sim import batch as SB
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+
+    base, _ = generate(SyntheticSpec(**SIM), device="cpu")
+    scs = make_scenarios(SIM_SCENARIOS)
+
+    # S1: the fast sweep, cold then warm
+    _reset_counts()
+    t0 = time.monotonic()
+    cold = sim.fast_sweep(base, scs, device=dev)
+    _sync(dev)
+    cold_s = time.monotonic() - t0
+    calls = _counts()
+    t0 = time.monotonic()
+    warm = sim.fast_sweep(base, scs, device=dev)
+    _sync(dev)
+    warm_s = time.monotonic() - t0
+    prof, prof_s, events = _profiled(lambda: sim.fast_sweep(base, scs, device=dev))
+    busy_s = sum(e.device_time_total for e in events) / 1e6
+    # the batch-wide sums alone: one integer call at the sweep shape
+    batch = sim.build_batch(base, scs, device=dev)
+    ctx = GoalContext.build(base.num_topics, batch.bucket[0], device=dev)
+    _reset_counts()
+    SB._sweep_reductions(batch.states, ctx)
+    _sync(dev)
+    batch_calls = _counts()
+    per_lane = {p: (calls[p] - batch_calls[p]) / SIM_SCENARIOS for p in ("segment_sum_f32", "segment_sum_i32")}
+    # the CPU port: every lane's verdict, and the batch-wide totals bitwise
+    t0 = time.monotonic()
+    cpu64 = sim.fast_sweep(base, scs, device="cpu")
+    cpu64_s = time.monotonic() - t0
+    cpu8 = sim.fast_sweep(base, scs[:8], device="cpu")
+    cpu_batch = sim.build_batch(base, scs, device="cpu")
+    totals = [SB.sweep_totals(batch.states, ctx), SB.sweep_totals(cpu_batch.states, ctx.to("cpu"))]
+    same_totals = [torch.equal(x.cpu(), y) for x, y in zip(*totals)]
+    say("sim", step="S1 fast_sweep", scenarios=len(scs), bucket=list(cold.bucket),
+        cold_wall_s=cold_s, warm_wall_s=warm_s, num_host_syncs=warm.num_host_syncs,
+        host_calls=calls, host_calls_batch_wide=batch_calls, host_calls_per_lane=per_lane,
+        profiled_wall_s=prof_s, device_busy_s=busy_s, device_idle_share=1.0 - busy_s / prof_s,
+        kernel_launches=len(events), cpu_port_wall_s=cpu64_s,
+        satisfiable=sum(v.satisfiable for v in warm.scenarios),
+        min_brokers_needed=sorted({v.min_brokers_needed for v in warm.scenarios}),
+        totals_bitwise_vs_cpu=same_totals, verdicts=_verdict_rows(warm)[:8])
+    for other, what in ((warm, "warm sweep"), (prof, "profiled sweep")):
+        check([v.to_dict() for v in other.scenarios] == [v.to_dict() for v in cold.scenarios], f"S1: {what} differs")
+    check([v.to_dict() for v in cold.scenarios] == [v.to_dict() for v in cpu64.scenarios],
+          "S1: lanes differ from the CPU port's sweep of all 64")
+    check([v.to_dict() for v in cold.scenarios[:8]] == [v.to_dict() for v in cpu8.scenarios],
+          "S1: lanes s0-s7 differ from the CPU port's sweep of them")
+    check(all(same_totals), f"S1: batch-wide totals differ from the CPU port's ({same_totals})")
+    check(batch_calls["segment_sum_i32"] == 1 and calls["segment_sum_i32"] > SIM_SCENARIOS,
+          f"S1: the sweep-shape integer call did not launch once ({batch_calls})")
+
+    # S2: the deep sweep of s0-s3; lane 0 against a direct solve on the card
+    t0 = time.monotonic()
+    deep = sim.deep_sweep(base, scs[:4], device=dev)
+    _sync(dev)
+    deep_s = time.monotonic() - t0
+    bucket = deep.bucket[0]
+    t0 = time.monotonic()
+    direct, direct_res = GoalOptimizer(enable_heavy_goals=False, bucket_brokers=False, device=dev).optimize(
+        sim.apply_scenario(base, scs[0], bucket_brokers=bucket),
+        GoalContext.build(base.num_topics, bucket, device=dev),
+    )
+    _sync(dev)
+    say("sim", step="S2 deep_sweep", scenarios=4, wall_s=deep_s, num_host_syncs=deep.num_host_syncs,
+        lane0_direct_wall_s=time.monotonic() - t0, verdicts=_verdict_rows(deep))
+    for v, st in zip(deep.scenarios, deep.states):
+        check(_valid_placement(st), f"S2 {v.name}: invalid placement")
+    check(_same_placement(deep.states[0], direct), "S2: lane 0 differs from its direct solve")
+    check(deep.scenarios[0].balancedness == direct_res.balancedness_score, "S2: lane 0 balancedness differs")
+
+    # S3: the capacity plan at load 1.0
+    t0 = time.monotonic()
+    plan = sim.plan_capacity(base, load_factor=1.0, device=dev)
+    _sync(dev)
+    rec = plan.recommendation
+    say("sim", step="S3 plan_capacity", wall_s=time.monotonic() - t0, probes=len(plan.probes),
+        min_brokers=plan.min_brokers, sweeps=plan.num_host_syncs, num_host_syncs=plan.num_host_syncs,
+        status=rec.status, message=rec.message, bucket=rec.sweep["bucket_brokers"])
+    check(plan.min_brokers is not None and plan.min_brokers <= plan.current_brokers, "S3: no satisfiable count")
+
+    # S4: drift and the incremental solves on config #2's solved placement
+    opt = GoalOptimizer(enable_heavy_goals=True, device=dev)
+    ctx2 = GoalContext.build(config2_final.num_topics, sim.broker_bucket(config2_final.num_brokers), device=dev)
+    solved = sim.apply_scenario(config2_final, sim.Scenario())
+    lanes = _drift_lanes(config2_final, (1.1, 1.2, 1.3, 1.4))
+    at_solve = opt.violations(solved, ctx2).cpu().numpy()
+    now = opt.violations(lanes[2], ctx2).cpu().numpy()
+    drift = evaluate_drift(now, at_solve, opt.goal_ids, opt.hard_ids)
+    _reset_counts()
+    t0 = time.monotonic()
+    inc_final, inc = opt.incremental_optimize(lanes[2], ctx2, max_rounds=SIM_MAX_ROUNDS, violations=now)
+    _sync(dev)
+    inc_s = time.monotonic() - t0
+    inc_calls = _counts()
+    singles, _, bres, batched_s = _incremental_lanes(opt, lanes, ctx2, dev)
+    check(_same_placement(singles[2][0], inc_final), "S4: the probe-fed solve differs from the probing one")
+    say("sim", step="S4 incremental", drift_score=drift.score, drift_hard_score=drift.hard_score,
+        drifted_goals=drift.violated_goals, balancedness_drop=drift.balancedness_drop,
+        goals_run=inc.goals_run, moves=inc.total_moves, rounds=inc.total_rounds,
+        num_host_syncs=inc.num_host_syncs, wall_s=inc_s, host_calls=inc_calls,
+        residual=inc.residual_violations,
+        batched=dict(lanes=4, wall_s=batched_s, goals_run=bres.goals_run, num_host_syncs=bres.num_host_syncs,
+                     moves=[r.total_moves for r in bres.results], rounds=[r.total_rounds for r in bres.results],
+                     lane_goals_run=[r.goals_run for r in bres.results]))
+    check(drift.score > 0 and inc.goals_run, "S4: the drift ran no goal")
+    return calls
+
+
+def _plan_outcome(plan) -> dict:
+    """A capacity plan without its wall and host-sync counts: the card counts
+    one sync per copy of a state to the host, the CPU none, so the counts
+    (and the message that quotes them) differ by device."""
+    d = plan.to_dict()
+    del d["durationS"], d["numHostSyncs"]
+    d["recommendation"]["message"] = d["recommendation"]["message"].split(" scenarios, ")[0]
+    sweep = dict(plan.recommendation.sweep)
+    del sweep["num_host_syncs"]
+    if "deep_verify" in sweep:
+        sweep["deep_verify"] = {k: v for k, v in sweep["deep_verify"].items() if k != "num_host_syncs"}
+    d["sweep"] = sweep
+    return d
+
+
+def phase_sim_card_vs_cpu(dev, small_final):
+    """The what-if planner and the incremental solves at config2_small on the
+    CPU port and on the card: a fast sweep of 8 scenarios, a deep sweep of 4
+    (one in its own goal order: two groups), a capacity plan with the edge
+    verified by the full solver, and single and batched incremental solves of
+    the config2_small solve drifted.  Every verdict, plan and placement must
+    be identical."""
+    from cruise_control_tpu_torch import sim
+    from cruise_control_tpu_torch.analyzer import GoalContext, GoalOptimizer
+    from cruise_control_tpu_torch.analyzer import goals_base as G
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+
+    base, _ = generate(SyntheticSpec(**CONFIG2_SMALL), device="cpu")
+    scs = make_scenarios(8, brokers=base.num_brokers)
+    deep_scs = scs[:3] + [sim.Scenario(name="order", kill_brokers=(2,),
+                                       goal_order=(G.DISK_CAPACITY, G.RACK_AWARE, G.REPLICA_DISTRIBUTION))]
+    lanes = _drift_lanes(small_final, (1.2, 1.5))
+    out = {}
+    for where in (torch.device("cpu"), dev):
+        walls = {}
+        t0 = time.monotonic()
+        fast = sim.fast_sweep(base, scs, device=where)
+        walls["fast_sweep"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        deep = sim.deep_sweep(base, deep_scs, device=where)
+        walls["deep_sweep"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        plan = sim.plan_capacity(base, deep_verify=True, device=where)
+        walls["plan_capacity"] = time.monotonic() - t0
+        opt = GoalOptimizer(enable_heavy_goals=True, device=where)
+        ctx = GoalContext.build(base.num_topics, sim.broker_bucket(base.num_brokers), device=where)
+        t0 = time.monotonic()
+        singles, bfinal, bres, _ = _incremental_lanes(opt, lanes, ctx, where)
+        walls["incremental"] = time.monotonic() - t0
+        out[where.type] = (fast, deep, plan, singles, bfinal, bres, walls)
+    (fc, dc, pc, sc, bc, rc, wc), (fg, dg, pg, sg, bg, rg, wg) = out["cpu"], out[dev.type]
+    plan_c, plan_g = _plan_outcome(pc), _plan_outcome(pg)
+    say("sim_card_vs_cpu", config="config2_small", cpu_walls_s=wc, gpu_walls_s=wg,
+        fast=_verdict_rows(fg), deep=_verdict_rows(dg), plan=plan_g,
+        host_syncs=dict(cpu=pc.num_host_syncs, gpu=pg.num_host_syncs),
+        incremental=[[r.goals_run, r.total_moves, r.total_rounds] for _, r in sg],
+        batched_incremental=[[r.goals_run, r.total_moves, r.total_rounds] for r in rg.results])
+    check([v.to_dict() for v in fg.scenarios] == [v.to_dict() for v in fc.scenarios], "fast_sweep: card differs")
+    check([v.to_dict() for v in dg.scenarios] == [v.to_dict() for v in dc.scenarios], "deep_sweep: card differs")
+    check(all(_same_placement(a, b) for a, b in zip(dg.states, dc.states)), "deep_sweep: card placement differs")
+    check(plan_g == plan_c, f"plan_capacity: card differs: {plan_g} against {plan_c}")
+    check(all(_same_placement(a[0], b[0]) for a, b in zip(sg, sc)), "incremental: card placement differs")
+    check([(r.goals_run, r.total_moves, r.total_rounds) for _, r in sg]
+          == [(r.goals_run, r.total_moves, r.total_rounds) for _, r in sc], "incremental: card result differs")
+    check(_same_placement(bg, bc) and [r.total_rounds for r in rg.results] == [r.total_rounds for r in rc.results],
+          "batched incremental: card differs")
+
+
 def phase_profile(dev):
     """Where a warm config #2 solve spends its time: ``torch.profiler`` over one
     optimize -- device busy time (sum of kernel times on the one stream), the
@@ -558,24 +900,14 @@ def phase_profile(dev):
     kernels by device time.  The profiler slows the host side, so its wall is
     longer than phase 3's warm wall; phase 3's warm wall is the one to divide
     the busy time by."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from cruise_control_tpu_torch.ops import segments as SEG
 
     state, ctx, opt, _ = _solve(CONFIG2, dev, maps=False)
     opt.optimize(state, ctx)
     torch.cuda.synchronize()
     SEG.reset_launch_counts()
-    # device activity only: the host-op events of ~10^6 launches would take
-    # minutes to post-process
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        _, res = opt.optimize(state, ctx)
-        torch.cuda.synchronize()
-        wall_s = time.monotonic() - t0
+    (_, res), wall_s, kernels = _profiled(lambda: opt.optimize(state, ctx))
     host_calls = dict(SEG.LAUNCHES)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in kernels)
     by_name = {}
     for e in kernels:
@@ -602,7 +934,8 @@ def phase_profile(dev):
 
 def phase_card_vs_cpu(dev):
     """The same solve on the CPU port and on the card: identical placements,
-    leaders and logdirs, no hard goal violated on either."""
+    leaders and logdirs, no hard goal violated on either.  Returns the CPU
+    port's config2_small solve."""
     from cruise_control_tpu_torch.analyzer import GoalOptimizer
     from cruise_control_tpu_torch.analyzer import goals_base as G
 
@@ -645,6 +978,9 @@ def phase_card_vs_cpu(dev):
         check(abs(rg.balancedness_score - rc.balancedness_score) <= 1.0, f"{name}: balancedness differs")
         check(differ == 0 and leaders == 0 and disks == 0,
               f"{name}: card placement differs from the CPU port")
+        if name == "config2_small":
+            small_final = fc
+    return small_final
 
 
 def main() -> int:
@@ -671,14 +1007,17 @@ def main() -> int:
 
     records = phase_kernels(dev)
     assign_records = phase_assign(dev)
-    launches = phase_config2(dev)
+    launches, config2_final = phase_config2(dev)
     p1_launches = phase_paths(dev)
+    sim_launches = phase_sim(dev, config2_final)
     profile_calls, profile_kernels = phase_profile(dev)
-    phase_card_vs_cpu(dev)
+    small_final = phase_card_vs_cpu(dev)
+    phase_sim_card_vs_cpu(dev, small_final)
 
     kernels = []
     for path in ("segment_sum_f32", "segment_sum_i32"):
         rec = next(r for r in records if r["path"] == path)   # the main path's shape
+        sweep = next(r for r in records if r["path"] == path and r["case"].startswith("sweep"))
         kernels.append({
             "name": path, "route": "cuda", "source": KERNEL_SOURCES[path], "replaces": REPLACES[path],
             "launches": launches[path], "host_calls": launches[path],
@@ -689,7 +1028,10 @@ def main() -> int:
             "library_ms": rec["library_device_ms"],
             "device_ms": rec["device_ms"], "call_ms": rec["call_ms"], "latency_ms": rec["latency_ms"],
             "plain_call_ms": rec["plain_call_ms"], "library_call_ms": rec["library_call_ms"],
-            "shape": rec["case"],
+            "shape": rec["case"], "sim_launches": sim_launches[path],
+            "sim_shape": {k: sweep[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
+                                                "library_device_ms", "bound_ms", "bound_by", "per_lane_calls",
+                                                "per_lane_device_ms", "per_lane_call_ms")},
         })
     # one kernel per host call; "plain" is the CPU loop (no PyTorch call computes it)
     rec = assign_records[0]                                    # config #2's shape
@@ -704,6 +1046,7 @@ def main() -> int:
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         "device_ms": rec["device_ms"], "call_ms": rec["call_ms"], "latency_ms": rec["latency_ms"],
         "us_per_partition": rec["us_per_partition"], "shape": rec["case"],
+        "sim_launches": sim_launches["even_assign"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

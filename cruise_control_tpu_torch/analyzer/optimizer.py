@@ -48,7 +48,6 @@ from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model import stats as S
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
-from cruise_control_tpu_torch.ops.segments import segment_sums
 
 FAST_MODE_MAX_ROUNDS = 64
 #: cap on phase-cycle repetitions per goal; a pass that applies zero actions
@@ -113,6 +112,9 @@ class ProvisionRecommendation:
     message: str
     num_brokers_to_add: int = 0
     num_brokers_to_remove: int = 0
+    #: capacity-sweep evidence (sim/planner.py): scenario and host-sync counts
+    #: and the measured minimum broker count; None when no sweep backs it
+    sweep: Optional[Dict[str, object]] = None
 
 
 OVERPROVISIONED_MIN_BROKERS = 3
@@ -271,6 +273,52 @@ class OptimizerResult:
         return score
 
 
+@dataclasses.dataclass
+class IncrementalResult:
+    """Outcome of one :meth:`GoalOptimizer.incremental_optimize` pass: only
+    the goals violated in the input ran, each capped at ``max_rounds`` rounds
+    a phase, from the current placement.  The violation vectors are numpy
+    ``[NUM_GOALS]`` arrays indexed by goal id."""
+
+    goals_run: List[str]
+    violations_before: "object"       # np.ndarray [NUM_GOALS]
+    violations_after: "object"        # np.ndarray [NUM_GOALS]
+    total_moves: int
+    total_rounds: int
+    num_host_syncs: int
+    duration_s: float
+
+    @property
+    def residual_violations(self) -> float:
+        return float(self.violations_after.sum())
+
+
+@dataclasses.dataclass
+class BatchedIncrementalResult:
+    """Outcome of one :meth:`GoalOptimizer.batched_incremental_optimize`
+    pass: ``results[i]`` is lane *i*'s own result; ``goals_run`` is the union
+    of drifted goals the walk ran and ``num_host_syncs`` counts the whole
+    batch."""
+
+    results: List[IncrementalResult]
+    goals_run: List[str]
+    batch_size: int
+    num_host_syncs: int
+    duration_s: float
+
+
+@dataclasses.dataclass
+class BatchedResult:
+    """Outcome of one :meth:`GoalOptimizer.batched_optimize` call:
+    ``results[i]`` is lane *i*'s result; ``num_host_syncs`` counts the whole
+    batch, and each lane's result carries the same number."""
+
+    results: List[OptimizerResult]
+    batch_size: int
+    num_host_syncs: int
+    duration_s: float
+
+
 class HostSyncs:
     """Counts the points where the host waits on the device."""
 
@@ -376,15 +424,56 @@ def _assigner_step_fn(state: ClusterArrays, ctx: GoalContext, *, max_rf: int, en
 
 
 def _max_replication_factor(state: ClusterArrays, syncs: HostSyncs) -> int:
-    """The largest replica count of any partition (at least 1): the number
-    of position passes of the kafka-assigner placement.  One host read."""
-    (rf,) = segment_sums([state.replica_valid], state.replica_partition, state.num_partitions)
+    """The largest replica count of any partition of a state, or of any lane
+    of a stack (at least 1): the number of position passes of the
+    kafka-assigner placement.  A batch's passes all run to its largest, as in
+    the JAX package, where the position loop is one static bound for every
+    lane; passes past a lane's own replication factor place nothing.  One host
+    read."""
+    rf = A.replication_factors(state)
     return max(syncs.tolist(rf.amax()) if rf.numel() else 0, 1)
 
 
 def _violations_fn(state: ClusterArrays, ctx: GoalContext, enable_heavy: bool = False, subset=None):
     snap = take_snapshot(state, ctx, enable_heavy, G.violation_needs(subset))
     return G.violations_all(state, ctx, snap, subset=subset)
+
+
+def lane_violations(states: ClusterArrays, ctx: GoalContext, enable_heavy: bool, subset) -> torch.Tensor:
+    """f32[S, NUM_GOALS]: the violation counts of every lane of a stack, lane
+    after lane, left on the device."""
+    return torch.stack([
+        _violations_fn(A.index_arrays(states, i), ctx, enable_heavy, subset)
+        for i in range(A.num_lanes(states))
+    ])
+
+
+def host_fetch(syncs: HostSyncs, values: Sequence) -> list:
+    """Host values of a list of tensors and Python numbers: the numbers as
+    they are, every tensor in ONE host fetch (through float64, which holds
+    int32 and float32 exactly), each back as a numpy array of its own dtype
+    and shape."""
+    tensors = [v for v in values if isinstance(v, torch.Tensor)]
+    if not tensors:
+        return list(values)
+    flat = syncs.tolist(torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]))
+    out, k = [], 0
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            n = v.numel()
+            dtype = np.dtype(str(v.dtype).replace("torch.", ""))
+            out.append(np.asarray(flat[k:k + n], np.float64).astype(dtype).reshape(tuple(v.shape)))
+            k += n
+        else:
+            out.append(v)
+    return out
+
+
+def _host_violations(syncs: HostSyncs, violations) -> np.ndarray:
+    """A caller's violation vector or matrix as numpy (a tensor costs one fetch)."""
+    if isinstance(violations, torch.Tensor):
+        return host_fetch(syncs, [violations])[0]
+    return np.asarray(violations)
 
 
 class GoalOptimizer:
@@ -440,6 +529,52 @@ class GoalOptimizer:
             lambda s: A.unpad_brokers(s, B, hosts),
         )
 
+    def _max_rounds(self, ctx: GoalContext) -> int:
+        """Round cap of every phase: fast mode trades quality for a bounded wall."""
+        if ctx.fast_mode:
+            return min(self.max_rounds_per_phase, FAST_MODE_MAX_ROUNDS)
+        return self.max_rounds_per_phase
+
+    def _offline_repair(
+        self, state: ClusterArrays, ctx: GoalContext, max_rounds: int, syncs: HostSyncs
+    ) -> ClusterArrays:
+        """The pre-phases that relocate offline replicas: the strict pass bounds
+        cumulative admission by the hard goals, the relaxed pass by nothing."""
+        hard_in_list = tuple(g for g in self.hard_ids if g in self.goal_ids)
+        for fn, aids in ((offline_round, hard_in_list), (offline_round_relaxed, ())):
+            state, _, _ = _phase_loop(
+                state, ctx, round_fn=fn, max_rounds=max_rounds,
+                enable_heavy=self.enable_heavy_goals, prior_ids=(), admit_ids=aids,
+                needs=frozenset(), syncs=syncs,
+            )
+        return state
+
+    def _run_goal(
+        self, gid: int, state: ClusterArrays, ctx: GoalContext, *, prior: Tuple[int, ...],
+        max_rounds: int, max_rf: int, syncs: HostSyncs,
+    ):
+        """One goal of a walk, with ``prior`` the goals before it:
+        ``(state, rounds, moves, before, after, unassigned)``.  ``before`` and
+        ``after`` are 0-d device tensors; the kafka-assigner step (a full
+        placement mode, one step, ``max_rf`` position passes) leaves ``moves``
+        and ``unassigned`` on the device too, and ``unassigned`` is None for
+        every other goal."""
+        if gid == G.KAFKA_ASSIGNER_RACK:
+            return _assigner_step_fn(state, ctx, max_rf=max_rf, enable_heavy=self.enable_heavy_goals)
+        state, rounds, moves, before, after = _goal_step_fn(
+            state, ctx, gid=gid, round_fns=GOAL_ROUNDS[gid], max_rounds=max_rounds,
+            enable_heavy=self.enable_heavy_goals, prior_ids=prior, admit_ids=prior + (gid,),
+            syncs=syncs,
+        )
+        return state, rounds, moves, before, after, None
+
+    def violations(self, state: ClusterArrays, ctx: GoalContext) -> torch.Tensor:
+        """f32[NUM_GOALS] violation counts of the configured goal list, left on
+        the device (the drift probe; it can be handed to
+        :meth:`incremental_optimize`)."""
+        state, ctx = state.to(self.device), ctx.to(self.device)
+        return _violations_fn(state, ctx, self.enable_heavy_goals, self.goal_ids)
+
     def optimize(
         self,
         state: ClusterArrays,
@@ -482,19 +617,8 @@ class GoalOptimizer:
         viol0 = _violations_fn(state, ctx, heavy, self.goal_ids)
         stats_before = S.cluster_model_stats(state)
 
-        # fast mode: cap every phase's round count (bounded wall for quality)
-        max_rounds = self.max_rounds_per_phase
-        if ctx.fast_mode:
-            max_rounds = min(max_rounds, FAST_MODE_MAX_ROUNDS)
-
-        # Pre-phase: relocate offline replicas.  The strict pass bounds
-        # cumulative admission by the hard goals; the relaxed pass bounds nothing.
-        hard_in_list = tuple(g for g in self.hard_ids if g in self.goal_ids)
-        for fn, aids in ((offline_round, hard_in_list), (offline_round_relaxed, ())):
-            state, _, _ = _phase_loop(
-                state, ctx, round_fn=fn, max_rounds=max_rounds, enable_heavy=heavy,
-                prior_ids=(), admit_ids=aids, needs=frozenset(), syncs=syncs,
-            )
+        max_rounds = self._max_rounds(ctx)
+        state = self._offline_repair(state, ctx, max_rounds, syncs)
 
         degraded = False
         raw: List[tuple] = []
@@ -505,23 +629,17 @@ class GoalOptimizer:
                 degraded = True
                 break
             g0 = time.monotonic()
-            if gid == G.KAFKA_ASSIGNER_RACK:
-                # a full placement mode, not an improvement loop
-                state, rounds, moves_t, before, after, unassigned_t = _assigner_step_fn(
-                    state, ctx, max_rf=_max_replication_factor(initial, syncs),
-                    enable_heavy=heavy,
-                )
-                moves, unassigned = syncs.tolist(torch.stack([moves_t, unassigned_t]))
+            max_rf = _max_replication_factor(initial, syncs) if gid == G.KAFKA_ASSIGNER_RACK else 1
+            state, rounds, moves, before, after, unassigned_t = self._run_goal(
+                gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
+            )
+            if unassigned_t is not None:
+                moves, unassigned = syncs.tolist(torch.stack([moves, unassigned_t]))
                 if raise_on_hard_failure and unassigned > 0:
                     raise OptimizationFailure(
                         f"KafkaAssignerEvenRackAwareGoal: {unassigned} replica slot(s) have no "
                         "eligible broker (fewer eligible alive brokers than the replication factor)"
                     )
-            else:
-                state, rounds, moves, before, after = _goal_step_fn(
-                    state, ctx, gid=gid, round_fns=GOAL_ROUNDS[gid], max_rounds=max_rounds,
-                    enable_heavy=heavy, prior_ids=prior, admit_ids=prior + (gid,), syncs=syncs,
-                )
             is_hard = gid in self.hard_ids
             after_host = None
             if profile_goals or (raise_on_hard_failure and is_hard):
@@ -587,3 +705,238 @@ class GoalOptimizer:
             degraded=degraded,
         )
         return state, result
+
+    # -- many clusters and bounded re-solves ----------------------------------
+    #
+    # The JAX package lifts each goal step over a stacked scenario axis with
+    # vmap.  The port's rounds are host-driven loops written for one cluster,
+    # so a stack's lanes run one after another through the same steps as
+    # optimize(): each lane is a view of the stack on the device, the final
+    # lanes are restacked, and per-lane scalars stay on the device until one
+    # bulk fetch.  Each lane therefore equals its single-cluster solve.
+
+    def batched_violations(self, states: ClusterArrays, ctx: GoalContext) -> torch.Tensor:
+        """f32[S, NUM_GOALS] violation counts of every lane of a stack
+        (``model.arrays.stack_arrays``), left on the device."""
+        states, ctx = states.to(self.device), ctx.to(self.device)
+        return lane_violations(states, ctx, self.enable_heavy_goals, self.goal_ids)
+
+    def batched_optimize(
+        self, states: ClusterArrays, ctx: GoalContext
+    ) -> Tuple[ClusterArrays, BatchedResult]:
+        """The full goal list on every lane of a stack (leading scenario axis,
+        ``model.arrays.stack_arrays``; one context for all lanes): the offline
+        pre-phases, then the goal walk, lane after lane.  Returns the final
+        lanes restacked on the device and per-lane results.
+
+        As in the JAX package: the unbucketed walk, no proposals, empty
+        ``stats_before/after`` and per-lane ``provision`` and ``movement``;
+        with the kafka-assigner goal every lane runs the batch's largest
+        replication factor of position passes."""
+        t0 = time.monotonic()
+        syncs = HostSyncs()
+        states, ctx = states.to(self.device), ctx.to(self.device)
+        heavy = self.enable_heavy_goals
+        max_rounds = self._max_rounds(ctx)
+        max_rf = (
+            _max_replication_factor(states, syncs) if G.KAFKA_ASSIGNER_RACK in self.goal_ids else 1
+        )
+        finals, lanes = [], []
+        for i in range(A.num_lanes(states)):
+            state = A.index_arrays(states, i)
+            viol0 = _violations_fn(state, ctx, heavy, self.goal_ids)
+            state = self._offline_repair(state, ctx, max_rounds, syncs)
+            raw: List[tuple] = []
+            prior: Tuple[int, ...] = ()
+            for gid in self.goal_ids:
+                g0 = time.monotonic()
+                state, rounds, moves, before, after, _ = self._run_goal(
+                    gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
+                )
+                raw.append((gid, rounds, moves, before, after, time.monotonic() - g0))
+                prior = prior + (gid,)
+            finals.append(state)
+            lanes.append((viol0, _violations_fn(state, ctx, heavy, self.goal_ids), raw))
+        final = A.stack_arrays(finals)
+
+        # one bulk fetch of every lane's scalars, then host copies of both stacks
+        flat = host_fetch(syncs, [
+            x for v0, vN, raw in lanes for x in (v0, vN, *(y for r in raw for y in r[2:5]))
+        ])
+        initial_h, final_h = syncs.state(states), syncs.state(final)
+        duration = time.monotonic() - t0
+        names = G.GOAL_NAMES
+        results: List[OptimizerResult] = []
+        k = 0
+        for i, (_, _, raw) in enumerate(lanes):
+            viol0_h, violN_h = flat[k], flat[k + 1]
+            k += 2
+            reports = []
+            for gid, rounds, _, _, _, wall in raw:
+                moves, before, after = flat[k:k + 3]
+                k += 3
+                reports.append(GoalReport(
+                    goal_id=gid, name=names[gid], is_hard=gid in self.hard_ids,
+                    violations_before=float(before), violations_after=float(after),
+                    rounds=int(rounds), moves_applied=int(moves), duration_s=wall,
+                ))
+            violated_hard = [
+                names[g] for g in self.hard_ids if g in self.goal_ids and float(violN_h[g]) > 0
+            ]
+            final_i = A.index_arrays(final_h, i)
+            results.append(OptimizerResult(
+                goal_reports=reports,
+                violations_before={names[g]: float(viol0_h[g]) for g in self.goal_ids},
+                violations_after={names[g]: float(violN_h[g]) for g in self.goal_ids},
+                stats_before={},
+                stats_after={},
+                proposals=[],
+                provision=provision_verdict(final_i, ctx, violated_hard),
+                total_moves=sum(r.moves_applied for r in reports),
+                duration_s=duration,
+                movement=movement_stats(A.index_arrays(initial_h, i), final_i),
+                num_host_syncs=syncs.count,
+            ))
+        return final, BatchedResult(
+            results=results, batch_size=len(results), num_host_syncs=syncs.count,
+            duration_s=duration,
+        )
+
+    def _incremental_walk(
+        self, state: ClusterArrays, ctx: GoalContext, goals, max_rounds: int, max_rf: int,
+        syncs: HostSyncs,
+    ):
+        """Walk the goal list running only ``goals``, each with its full-walk
+        prior prefix (every goal before it, run or not) and ``max_rounds``
+        rounds a phase.  Returns the state and ``(gid, rounds, moves)`` per
+        goal run (the assigner's moves left on the device)."""
+        raw: List[tuple] = []
+        prior: Tuple[int, ...] = ()
+        for gid in self.goal_ids:
+            if gid in goals:
+                state, rounds, moves, _, _, _ = self._run_goal(
+                    gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
+                )
+                raw.append((gid, rounds, moves))
+            prior = prior + (gid,)
+        return state, raw
+
+    def incremental_optimize(
+        self, state: ClusterArrays, ctx: GoalContext, max_rounds: int, violations=None,
+    ) -> Tuple[ClusterArrays, IncrementalResult]:
+        """Bounded re-optimize from the CURRENT placement (the continuous
+        controller's tick): only goals violated in ``state`` run, each with
+        its full-walk prior prefix -- so it still never violates any earlier
+        goal -- and rounds capped at ``max_rounds`` a phase.  No bucketing,
+        no offline pre-phases, no proposals.  ``violations`` (the caller's
+        probe of ``state``) saves the leading violations probe."""
+        t0 = time.monotonic()
+        syncs = HostSyncs()
+        state, ctx = state.to(self.device), ctx.to(self.device)
+        heavy = self.enable_heavy_goals
+        if violations is None:
+            violations = _violations_fn(state, ctx, heavy, self.goal_ids)
+        viol0 = _host_violations(syncs, violations)
+        drifted = {g for g in self.goal_ids if float(viol0[g]) > 0}
+        max_rf = (
+            _max_replication_factor(state, syncs) if G.KAFKA_ASSIGNER_RACK in drifted else 1
+        )
+        state, raw = self._incremental_walk(state, ctx, drifted, int(max_rounds), max_rf, syncs)
+        violN, *moves = host_fetch(
+            syncs, [_violations_fn(state, ctx, heavy, self.goal_ids)] + [m for _, _, m in raw]
+        )
+        return state, IncrementalResult(
+            goals_run=[G.GOAL_NAMES[g] for g, _, _ in raw],
+            violations_before=viol0,
+            violations_after=violN,
+            total_moves=int(sum(int(m) for m in moves)),
+            total_rounds=int(sum(r for _, r, _ in raw)),
+            num_host_syncs=syncs.count,
+            duration_s=time.monotonic() - t0,
+        )
+
+    def batched_incremental_optimize(
+        self, states: ClusterArrays, ctx: GoalContext, max_rounds: int, violations=None,
+        union_lanes=None,
+    ) -> Tuple[ClusterArrays, BatchedIncrementalResult]:
+        """:meth:`incremental_optimize` over every lane of a stack: the walk
+        runs the UNION of the drifted goals of ``union_lanes`` (default every
+        lane), and every lane goes through every union goal, as the JAX
+        package's one static goal sequence does.  A goal a lane satisfies
+        applies nothing there (a converged state is a fixpoint of its own
+        rounds), but its rounds count, as in the reference.  A lane's
+        ``goals_run`` is the union's goals that lane drifted on.
+        ``violations`` is the caller's ``[S, NUM_GOALS]`` probe."""
+        t0 = time.monotonic()
+        syncs = HostSyncs()
+        states, ctx = states.to(self.device), ctx.to(self.device)
+        heavy = self.enable_heavy_goals
+        if violations is None:
+            violations = self.batched_violations(states, ctx)
+        viol0 = _host_violations(syncs, violations)
+        S = int(viol0.shape[0])
+        lanes = range(S) if union_lanes is None else sorted(int(i) for i in union_lanes)
+        drifted_by_lane = [{g for g in self.goal_ids if float(viol0[i, g]) > 0} for i in range(S)]
+        union: set = set()
+        for i in lanes:
+            union |= drifted_by_lane[i]
+        max_rf = (
+            _max_replication_factor(states, syncs) if G.KAFKA_ASSIGNER_RACK in union else 1
+        )
+        finals, raws, viols = [], [], []
+        for i in range(S):
+            state, raw = self._incremental_walk(
+                A.index_arrays(states, i), ctx, union, int(max_rounds), max_rf, syncs,
+            )
+            finals.append(state)
+            raws.append(raw)
+            viols.append(_violations_fn(state, ctx, heavy, self.goal_ids))
+        final = A.stack_arrays(finals)
+        fetched = host_fetch(syncs, viols + [m for raw in raws for _, _, m in raw])
+        duration = time.monotonic() - t0
+        k = S
+        results: List[IncrementalResult] = []
+        for i, raw in enumerate(raws):
+            moves = fetched[k:k + len(raw)]
+            k += len(raw)
+            results.append(IncrementalResult(
+                goals_run=[G.GOAL_NAMES[g] for g, _, _ in raw if g in drifted_by_lane[i]],
+                violations_before=viol0[i],
+                violations_after=fetched[i],
+                total_moves=int(sum(int(m) for m in moves)),
+                total_rounds=int(sum(r for _, r, _ in raw)),
+                num_host_syncs=syncs.count,
+                duration_s=duration,
+            ))
+        return final, BatchedIncrementalResult(
+            results=results,
+            goals_run=[G.GOAL_NAMES[g] for g in self.goal_ids if g in union],
+            batch_size=S,
+            num_host_syncs=syncs.count,
+            duration_s=duration,
+        )
+
+    def warm_incremental_programs(
+        self, state: ClusterArrays, ctx: GoalContext, max_rounds: int
+    ) -> None:
+        """Make the first tick as fast as later ones.  The JAX package
+        compiles here every program a tick can touch; the port has no compile
+        step, so this builds the CUDA kernels (on the card) and runs one
+        violations probe of ``state``, which it leaves untouched.
+        ``max_rounds`` is accepted for the JAX signature and unused."""
+        self._build_kernels()
+        HostSyncs().tolist(self.violations(state, ctx))
+
+    def warm_batched_incremental_programs(
+        self, states: ClusterArrays, ctx: GoalContext, max_rounds: int
+    ) -> None:
+        """:meth:`warm_incremental_programs` for a stack: builds the CUDA
+        kernels (on the card) and runs one probe of every lane."""
+        self._build_kernels()
+        HostSyncs().tolist(self.batched_violations(states, ctx))
+
+    def _build_kernels(self) -> None:
+        if self.device.type == "cuda":
+            from cruise_control_tpu_torch.ops import _build
+
+            _build.build_all(["segment_sum", "even_assign"])

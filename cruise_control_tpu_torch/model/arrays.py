@@ -100,12 +100,13 @@ class ClusterArrays:
         })
 
     def replica_offline_mask(self) -> torch.Tensor:
-        """bool[R]: valid replicas on a dead broker or a dead JBOD disk."""
-        dead_broker = ~self.broker_alive[self.replica_broker]
-        if self.num_disks > 0:
+        """bool[R] (bool[S, R] of a :func:`stack_arrays` stack): valid replicas
+        on a dead broker or a dead JBOD disk."""
+        dead_broker = ~torch.gather(self.broker_alive, -1, self.replica_broker.long())
+        if self.disk_broker.shape[-1] > 0:
             on_disk = self.replica_disk >= 0
-            disk_idx = torch.where(on_disk, self.replica_disk, 0)
-            dead_disk = on_disk & ~self.disk_alive[disk_idx]
+            disk_idx = torch.where(on_disk, self.replica_disk, 0).long()
+            dead_disk = on_disk & ~torch.gather(self.disk_alive, -1, disk_idx)
         else:
             dead_disk = torch.zeros_like(dead_broker)
         return (dead_broker | dead_disk) & self.replica_valid
@@ -325,12 +326,43 @@ def stack_arrays(
 
 
 def index_arrays(states: ClusterArrays, i: int) -> ClusterArrays:
-    """Select scenario ``i`` out of a :func:`stack_arrays` stack."""
+    """Select scenario ``i`` out of a :func:`stack_arrays` stack (views, no copy)."""
     return states.replace(**{
         f.name: getattr(states, f.name)[i]
         for f in dataclasses.fields(states)
         if isinstance(getattr(states, f.name), torch.Tensor)
     })
+
+
+def num_lanes(states: ClusterArrays) -> int:
+    """Lanes (scenarios) of a :func:`stack_arrays` stack.  The shape
+    properties of ``ClusterArrays`` read a single state's leading axis, so a
+    stack's sizes are read from its trailing axes instead."""
+    return states.replica_valid.shape[0]
+
+
+def lane_ids(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """i32[S * n]: per-lane segment ids ``seg`` [S, n] flattened for one
+    segment sum over a stack -- lane i's segment s becomes
+    ``i * num_segments + s``; ids outside ``[0, num_segments)`` become -1
+    (dropped), never another lane's segment."""
+    lane = torch.arange(seg.shape[0], dtype=I32, device=seg.device)[:, None] * num_segments
+    ok = (seg >= 0) & (seg < num_segments)
+    return torch.where(ok, lane + seg, -1).reshape(-1)
+
+
+def replication_factors(states: ClusterArrays) -> torch.Tensor:
+    """i32[P] of one state, or i32[S, P] of a stack: valid replicas of each
+    partition, one integer segment-sum call (for a stack, every lane's: ids
+    ``lane * P + partition``, ``S * P`` segments)."""
+    if states.replica_valid.dim() == 1:
+        (rf,) = _segment_sums([states.replica_valid], states.replica_partition, states.num_partitions)
+        return rf
+    S, P = states.partition_topic.shape
+    (rf,) = _segment_sums(
+        [states.replica_valid.reshape(-1)], lane_ids(states.replica_partition, P), S * P
+    )
+    return rf.view(S, P)
 
 
 # ---------------------------------------------------------------------------

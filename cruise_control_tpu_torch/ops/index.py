@@ -26,7 +26,7 @@ sites through the functions here:
 from __future__ import annotations
 
 import functools
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -34,6 +34,8 @@ from cruise_control_tpu_torch.ops.segments import segment_sums
 
 _BLOCK = 16
 _WINDOW = 32
+#: windows one lane-batched ``xla_sums`` call carries at most (see there)
+LANE_CALL_WINDOWS = 1024
 
 
 def _identity(dtype: torch.dtype, largest: bool):
@@ -129,25 +131,50 @@ def cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _window_ids(n: int, device: torch.device) -> torch.Tensor:
-    """i32[n]: XLA's 32-row window of each of ``n`` rows (all 0 when n <= 32)."""
+def _window_ids(n: int, device: torch.device, lanes: int = 1) -> torch.Tensor:
+    """i32[lanes * n]: XLA's 32-row window of each of ``n`` rows (all 0 when
+    n <= 32), repeated for each lane with the lane's windows after the last
+    lane's."""
     if n <= _WINDOW:
-        return torch.zeros(n, dtype=torch.int32, device=device)
-    pad = -(-n // _WINDOW) * _WINDOW - n
-    return torch.div(
-        torch.arange(n, dtype=torch.int32, device=device) + pad // 2, _WINDOW, rounding_mode="floor"
-    )
+        ids = torch.zeros(n, dtype=torch.int32, device=device)
+        windows = 1
+    else:
+        pad = -(-n // _WINDOW) * _WINDOW - n
+        ids = torch.div(
+            torch.arange(n, dtype=torch.int32, device=device) + pad // 2, _WINDOW, rounding_mode="floor"
+        )
+        windows = -(-n // _WINDOW)
+    if lanes == 1:
+        return ids
+    lane = torch.arange(lanes, dtype=torch.int32, device=device)[:, None] * windows
+    return (lane + ids[None, :]).reshape(-1)
 
 
-def xla_sums(columns: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def xla_sums(columns: Sequence[torch.Tensor], lanes: Optional[int] = None) -> List[torch.Tensor]:
     """Sum each float32 ``[n]`` / ``[n, k]`` tensor (one ``n`` for all) over
     dim 0 in XLA's CPU order (see module docstring): one segment-sum call per
-    level for all of them, ``[]`` / ``[k]`` each."""
+    level for all of them, ``[]`` / ``[k]`` each.
+
+    With ``lanes``, each tensor is ``lanes`` runs of ``n`` rows, one after
+    another (``[lanes * n]`` / ``[lanes * n, k]``), and each run is summed on
+    its own in that order -- the order of XLA's reduce over the middle axis of
+    ``[lanes, n, k]`` (a ``vmap``-ed sum), which windows each lane alike.  The
+    result is ``[lanes]`` / ``[lanes, k]`` each.  A level's call takes as many
+    lanes as keep it at :data:`LANE_CALL_WINDOWS` windows (at least one lane):
+    the fixed-order kernel spreads a call over 8,192 / segments blocks, so a
+    call of many lanes' windows would run on one block."""
     cols = list(columns)
-    n = cols[0].shape[0]
+    L = 1 if lanes is None else int(lanes)
+    n = cols[0].shape[0] // L
     while True:
-        windows = -(-n // _WINDOW)
-        cols = segment_sums(cols, _window_ids(n, cols[0].device), max(windows, 1))
-        if windows <= 1:
-            return [c[0] for c in cols]
+        windows = max(-(-n // _WINDOW), 1)
+        per_call = max(1, LANE_CALL_WINDOWS // windows)
+        parts = []
+        for l0 in range(0, L, per_call):
+            k = min(per_call, L - l0)
+            part = cols if k == L else [c[l0 * n:(l0 + k) * n] for c in cols]
+            parts.append(segment_sums(part, _window_ids(n, cols[0].device, k), k * windows))
+        cols = parts[0] if len(parts) == 1 else [torch.cat(x) for x in zip(*parts)]
+        if windows == 1:
+            return [c[0] for c in cols] if lanes is None else cols
         n = windows

@@ -274,3 +274,72 @@ def test_config2_small_kafka_mode_on_the_card_equals_the_cpu_port(cuda_device):
     assert rc.total_moves == rg.total_moves > 0
     assert rg.violations_after["KafkaAssignerEvenRackAwareGoal"] == 0
     assert ac == 0 and ag == 3 and ig > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.bool_, np.int32])
+def test_int_kernel_at_the_sweep_shape(cuda_device, dtype):
+    """The sweep's replication factors: 64 lanes x 30,000 replica rows into
+    64 x 10,000 = 640,000 segments (ids lane * P + partition), one host call
+    on the integer path, exact against the plain version."""
+    rng = np.random.default_rng(12)
+    rp = np.repeat(np.arange(10_000, dtype=np.int32), 3)
+    seg = (np.arange(64, dtype=np.int32)[:, None] * 10_000 + rp[None, :]).reshape(-1)
+    vals = rng.random(seg.size) < 0.99 if dtype is np.bool_ else rng.integers(0, 3, seg.size).astype(np.int32)
+    _card_vs_cpu([vals], seg, 640_000, cuda_device, "segment_sum_i32")
+
+
+@pytest.mark.cuda
+def test_float_kernel_at_the_sweep_totals_shape(cuda_device):
+    """The first level of the sweep's float totals: 64 lanes x 30,000 rows
+    of load [.., 4] and offline bytes into XLA's 32-row windows, each lane's
+    938 windows after the last lane's (60,032 segments), one host call on the
+    fixed-order path, bitwise equal to the CPU's sequential sum."""
+    from cruise_control_tpu_torch.ops.index import _window_ids
+
+    rng = np.random.default_rng(13)
+    seg = _window_ids(30_000, torch.device("cpu"), 64).numpy()
+    load = (rng.exponential(size=(seg.size, 4)) * 1000).astype(np.float32)
+    off = np.where(rng.random(seg.size) < 0.1, load[:, 1], 0.0).astype(np.float32)
+    _card_vs_cpu([load, off], seg, 64 * 938, cuda_device, "segment_sum_f32")
+
+
+def _sim_base():
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+
+    spec = SyntheticSpec(
+        num_racks=5, num_brokers=10, num_topics=5, num_partitions=400, replication_factor=3,
+        seed=2, mean_cpu=0.08, mean_disk=0.08, mean_nw_in=0.08, mean_nw_out=0.06,
+    )
+    return generate(spec, device="cpu")[0]
+
+
+@pytest.mark.cuda
+def test_fast_sweep_on_the_card_equals_the_cpu_port(cuda_device):
+    from cruise_control_tpu_torch import sim
+
+    base = _sim_base()
+    scs = [sim.Scenario(name=f"s{i}", add_brokers=i % 4, kill_brokers=(i % 5,) if i % 3 == 0 else (),
+                        load_factor=1.0 + 0.8 * i) for i in range(12)]
+    PS.reset_launch_counts()
+    card = sim.fast_sweep(base, scs, device=cuda_device)
+    assert PS.LAUNCHES["segment_sum_i32"] > 0 and PS.LAUNCHES["segment_sum_f32"] > 0
+    cpu = sim.fast_sweep(base, scs, device="cpu")
+    assert [v.to_dict() for v in card.scenarios] == [v.to_dict() for v in cpu.scenarios]
+    assert len({v.satisfiable for v in card.scenarios}) == 2
+
+
+@pytest.mark.cuda
+def test_deep_sweep_on_the_card_equals_the_cpu_port(cuda_device):
+    from cruise_control_tpu_torch import sim
+
+    base = _sim_base()
+    scs = [sim.Scenario(name="kill", kill_brokers=(1,)), sim.Scenario(name="add", add_brokers=3, load_factor=1.5),
+           sim.Scenario(name="order", drop_rack=2, goal_order=(3, 0, 7))]
+    goals, hard = (0, 3, 7), (0, 3)
+    card = sim.deep_sweep(base, scs, goal_ids=goals, hard_ids=hard, device=cuda_device)
+    cpu = sim.deep_sweep(base, scs, goal_ids=goals, hard_ids=hard, device="cpu")
+    assert [v.to_dict() for v in card.scenarios] == [v.to_dict() for v in cpu.scenarios]
+    for a, b in zip(card.states, cpu.states):
+        assert torch.equal(a.replica_broker.cpu(), b.replica_broker)
+        assert torch.equal(a.partition_leader.cpu(), b.partition_leader)

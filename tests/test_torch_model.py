@@ -164,6 +164,8 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_nothing_from_jax_or_the_jax_package():
     files = sorted(_PKG.rglob("*.py")) + [_PKG.parent / "chip_smoke.py"]
     assert len(files) > 10
+    walked = {p.relative_to(_PKG).parts[0] for p in files if _PKG in p.parents}
+    assert {"analyzer", "controller", "core", "model", "ops", "sim"} <= walked
     bad = []
     for path in files:
         for mod in _imported_roots(path):
