@@ -13,7 +13,10 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    the solver's shapes (among them the assigner's 8 x 128 position counts, the
    sweep's 64 x 10,000 replication factors and the first level of its float
    totals, 64 x 938 windows, each as one call and as 64 per-lane calls; the
-   one float call is timed over 3 calls, not 30 or 200),
+   one float call is timed over 3 calls, not 30 or 200; the per-lane calls
+   beside their plain version and one ``index_add_`` a lane) and a rollout
+   step's calls (16 pairs' replication factors, one lane's totals call, the
+   balancedness of 16 pairs),
    the skewed case (all rows in one segment) and the snapshot's multi-column
    calls: every output bitwise equal to the CPU's sequential sum (floats; ints
    exact), two launches bitwise equal.  For the kernel, the plain version and
@@ -60,11 +63,32 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    then the sim entry points at config2_small (fast sweep of 8, deep sweep of
    4 in two goal orders, a capacity plan with ``deep_verify``, single and
    batched incremental solves), identical on card and CPU;
-9. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
+9. traces: trace rollouts (``traces.rollout``) on the sim cluster at full
+   width -- the JAX traces harness's 4 traces x 4 policies (16 pairs, 64
+   steps: 1,024 lane evaluations, bucket 128) cold, warm and warm under
+   ``torch.profiler``; host calls per step and per lane step, the device
+   idle share, the violation-free pairs and the winners; then
+   ``horizon_requirements`` on the spike trace.  Fails unless a warm rollout
+   makes exactly one host sync and both kernel paths launch;
+10. controller: a ``ContinuousController`` warm-started from phase 4's
+   solved config #2 placement (a port ``ClusterModel`` built from it; the
+   smoke's ``SmokeFacade`` serves the loads), S4's shift (topics 0-9 x 1.3)
+   as one window delta, one drift-triggered tick (drifted goals, rounds, host
+   syncs, proposals, reaction latency); the set is journaled in a temporary
+   directory and a fresh controller's ``recover()`` must give it back;
+11. fleet: four tenants of that cluster with S4's four shifts, one fleet
+   tick; every tenant's standing set must equal its own standalone tick's;
+12. traces/controller card vs CPU: the JAX traces harness's rollout (10
+   brokers), a rollout at config2_small, a tick and a 3-tenant fleet tick of
+   the config2_small solve shifted -- every series, verdict and set
+   identical on card and CPU;
+13. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
    ``launches`` and ``host_calls`` are the wrapper's count of host calls in
    phase 4's cold solve (phase 5's P1 for ``even_assign``), ``sim_launches``
-   those of phase 6's cold S1 sweep, ``sim_shape`` phase 2's times at the
-   sweep's shape; ``kernel_launches`` are the kernels
+   those of phase 6's cold S1 sweep, ``traces_launches`` those of phase 9's
+   warm rollout, ``controller_launches`` those of phase 10's tick;
+   ``sim_shape`` and ``traces_shapes`` are phase 2's times at the sweep's and
+   the rollout's call shapes; ``kernel_launches`` are the kernels
    those calls enqueued in phase 7's solve (the fixed-order path enqueues
    three per pass), beside that solve's own host calls.
 
@@ -76,6 +100,7 @@ Needs the CUDA toolkit's ``nvcc`` and one GPU; imports nothing of JAX.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -122,6 +147,8 @@ SIM = dict(
     mean_nw_out=0.06, build_maps=False,
 )
 SIM_SCENARIOS = 64
+#: (trace, policy) pairs of the traces phase's rollout: the JAX traces harness's 4 x 4
+TRACE_PAIRS = 16
 #: the round cap of the incremental solves (a controller tick's bound)
 SIM_MAX_ROUNDS = 64
 KERNEL_SOURCES = {
@@ -294,6 +321,17 @@ def _kernel_cases(gen):
         (SWEEP_TOTALS_CASE, "segment_sum_f32",
          [f32(SIM_SCENARIOS * R, 4), f32(SIM_SCENARIOS * R)],
          _window_ids(R, torch.device("cpu"), SIM_SCENARIOS), SIM_SCENARIOS * SWEEP_WINDOWS),
+        # a rollout step's calls (traces/rollout.py) at the harness's 16 pairs:
+        # every pair's replication factors, one lane's first level of the
+        # satisfiability totals (each step makes 16), the balancedness over
+        # the 24 goals of every pair
+        (f"rollout replication factors: bool [{TRACE_PAIRS} x 30000] -> {TRACE_PAIRS} x 10000", "segment_sum_i32",
+         [torch.ones(TRACE_PAIRS * R, dtype=torch.bool)], sweep_ids(TRACE_PAIRS), TRACE_PAIRS * 10_000),
+        (f"rollout totals, one lane's call: [30000,4] + [30000] -> {SWEEP_WINDOWS} windows", "segment_sum_f32",
+         [f32(R, 4), f32(R)], _window_ids(R, torch.device("cpu")), SWEEP_WINDOWS),
+        (f"rollout balancedness: f32 [{TRACE_PAIRS} x 24] -> {TRACE_PAIRS}", "segment_sum_f32",
+         [f32(TRACE_PAIRS * 24)], torch.arange(TRACE_PAIRS, dtype=torch.int32).repeat_interleave(24),
+         TRACE_PAIRS),
     ]
 
 
@@ -306,11 +344,11 @@ SWEEP_TOTALS_CASE = (f"sweep totals, first level: [64 x 30000,4] + [64 x 30000] 
 SWEEP_LANE_SEGMENTS = {SWEEP_CASE: 10_000, SWEEP_TOTALS_CASE: SWEEP_WINDOWS}
 
 
-def sweep_ids():
+def sweep_ids(lanes: int = SIM_SCENARIOS):
     """The sweep's ids at the harness's shape: lane * P + partition, each
     partition's 3 replicas together, as the synthetic cluster lays them out."""
     rp = torch.arange(10_000, dtype=torch.int32).repeat_interleave(3)
-    return (torch.arange(SIM_SCENARIOS, dtype=torch.int32)[:, None] * 10_000 + rp).reshape(-1)
+    return (torch.arange(lanes, dtype=torch.int32)[:, None] * 10_000 + rp).reshape(-1)
 
 
 def phase_kernels(dev):
@@ -357,6 +395,7 @@ def phase_kernels(dev):
         dev_ms, phases = device_ms(fns, calls=reps or 30)
         calls = [call_ms(fn, calls=reps or 200) for fn in fns]
         lat = latency_ms(fns[0], reps=reps or 30)
+        width = flat.shape[1]
         per_lane = {}
         lane_segments = next((n for k, n in SWEEP_LANE_SEGMENTS.items() if label.startswith(k)), None)
         if lane_segments:
@@ -368,14 +407,29 @@ def phase_kernels(dev):
                 return [SEG.segment_sums([c[i] for c in lane_cols], lane_ids, lane_segments)
                         for i in range(SIM_SCENARIOS)]
 
+            def per_lane_plain():
+                return [SEG.segment_sums_plain([c[i] for c in lane_cols], lane_ids, lane_segments)
+                        for i in range(SIM_SCENARIOS)]
+
+            lane_flat = flat.view(SIM_SCENARIOS, -1, width)
+            lane_lib_ids = lane_ids.clamp(min=0).long()
+            lane_out = torch.zeros((lane_segments, width), dtype=lib_dtype, device=dev)
+
+            def per_lane_library():
+                for i in range(SIM_SCENARIOS):
+                    lane_out.index_add_(0, lane_lib_ids, lane_flat[i])
+
             outs = per_lane_fn()
             check(all(torch.equal(torch.cat([o[j] for o in outs]), x) for j, x in enumerate(a)),
                   f"{label}: per-lane calls differ")
-            (pl_dev,), _ = device_ms([per_lane_fn], calls=10)
+            (pl_dev, pl_plain, pl_lib), _ = device_ms([per_lane_fn, per_lane_plain, per_lane_library], calls=10)
             per_lane = dict(per_lane_calls=SIM_SCENARIOS, per_lane_device_ms=pl_dev,
                             per_lane_call_ms=call_ms(per_lane_fn, calls=20),
-                            per_lane_latency_ms=latency_ms(per_lane_fn, reps=10))
-        width = flat.shape[1]
+                            per_lane_latency_ms=latency_ms(per_lane_fn, reps=10),
+                            per_lane_plain_device_ms=pl_plain,
+                            per_lane_plain_call_ms=call_ms(per_lane_plain, calls=5),
+                            per_lane_library_device_ms=pl_lib,
+                            per_lane_library_call_ms=call_ms(per_lane_library, calls=20))
         nbytes = (sum(c.element_size() * c.numel() for c in cols) + 4 * ids.numel()
                   + sum(x.element_size() * x.numel() for x in a))
         ops = ids.numel() * width
@@ -983,6 +1037,374 @@ def phase_card_vs_cpu(dev):
     return small_final
 
 
+# -- traces, the continuous controller and the fleet ---------------------------------
+
+#: the JAX traces harness (traces/bench.py:46-60): 4 traces x 4 policies, 64 steps
+TRACE_STEPS = 64
+#: the policies' ceiling and the rollout's broker bucket on the sim cluster
+TRACE_BUCKET = 128
+#: the controller's and the fleet's tick: drift-triggered, 64 rounds a phase at most
+TICK_CFG = dict(tick_interval_s=3_600.0, drift_threshold=1.0, max_rounds_per_tick=SIM_MAX_ROUNDS)
+#: S4's shift of topics 0-9, one factor per fleet tenant (the controller takes the third)
+SHIFT_FACTORS = (1.1, 1.2, 1.3, 1.4)
+
+
+def trace_workload(steps: int = TRACE_STEPS, max_brokers: int = TRACE_BUCKET):
+    """The JAX traces harness's traces and policies (``traces/bench.py:46-60``),
+    the policies' ceiling at ``max_brokers``."""
+    from cruise_control_tpu_torch.traces import AutoscalePolicy, diurnal_trace, ramp_trace, spike_trace
+
+    traces = [
+        diurnal_trace(name="diurnal", num_steps=steps, amplitude=0.4),
+        ramp_trace(name="ramp", num_steps=steps, rate=0.02),
+        spike_trace(name="spike", num_steps=steps, at=16, magnitude=1.5),
+        diurnal_trace(name="noisy", num_steps=steps, amplitude=0.3, sigma=0.05, seed=9),
+    ]
+    policies = [
+        AutoscalePolicy(name=f"p{i}", scale_out_threshold=0.6 + 0.08 * i, scale_in_threshold=0.3,
+                        cooldown_ticks=i, step_brokers=1 + i % 2, max_brokers=max_brokers)
+        for i in range(4)
+    ]
+    return traces, policies
+
+
+def _rollout_rows(res):
+    return [[v.trace, v.policy, v.violation_steps, v.broker_hours, v.scale_ups, v.scale_downs,
+             v.peak_brokers, v.final_brokers, v.min_balancedness] for v in res.verdicts]
+
+
+def _same_rollout(a, b) -> bool:
+    """Every verdict and every per-step series identical (floats bitwise)."""
+    return ([v.to_dict() for v in a.verdicts] == [v.to_dict() for v in b.verdicts]
+            and a.series.keys() == b.series.keys()
+            and all(a.series[k].dtype == b.series[k].dtype and np.array_equal(a.series[k], b.series[k])
+                    for k in a.series))
+
+
+def phase_traces(dev):
+    """Trace rollouts on the card at the sim cluster's full width: the JAX
+    traces harness's 4 traces x 4 policies (16 pairs, 64 steps: 1,024 lane
+    evaluations, bucket 128), cold, warm and warm under ``torch.profiler``;
+    the host calls per step and per lane; then ``horizon_requirements`` on the
+    spike trace.  Fails unless a warm rollout makes one host sync, both
+    kernel paths launch and the three rollouts agree.  Returns the host calls
+    of one warm rollout."""
+    from cruise_control_tpu_torch.analyzer import GoalContext
+    from cruise_control_tpu_torch.analyzer import goals_base as G
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+    from cruise_control_tpu_torch.sim import batch as SB
+    from cruise_control_tpu_torch.traces import horizon_requirements, rollout
+
+    # the package exports a function named ``rollout`` over the module's name
+    R = importlib.import_module("cruise_control_tpu_torch.traces.rollout")
+
+    base, _ = generate(SyntheticSpec(**SIM), device="cpu")
+    traces, policies = trace_workload()
+    _reset_counts()
+    t0 = time.monotonic()
+    cold = rollout(base, traces, policies, bucket_brokers=TRACE_BUCKET, device=dev)
+    _sync(dev)
+    cold_s = time.monotonic() - t0
+    cold_calls = _counts()
+    _reset_counts()
+    t0 = time.monotonic()
+    warm = rollout(base, traces, policies, bucket_brokers=TRACE_BUCKET, device=dev)
+    _sync(dev)
+    warm_s = time.monotonic() - t0
+    calls = _counts()
+    prof, prof_s, events = _profiled(
+        lambda: rollout(base, traces, policies, bucket_brokers=TRACE_BUCKET, device=dev))
+    busy_s = sum(e.device_time_total for e in events) / 1e6
+    # the batch-wide calls of one step: the satisfiability sums and the balancedness
+    full, B_pad = R._full_headroom_state(base, TRACE_BUCKET, TRACE_BUCKET)
+    full = full.to(dev)
+    ctx = GoalContext.build(base.num_topics, B_pad, device=dev)
+    N, T = warm.num_pairs, warm.num_steps
+    n = torch.full((N,), base.num_brokers, dtype=torch.int32, device=dev)
+    states = R._step_cluster(full, base.num_brokers, n, torch.ones(N, device=dev),
+                             torch.ones((N, base.num_topics), device=dev))
+    _reset_counts()
+    SB._sweep_reductions(states, ctx)
+    R._balancedness(torch.zeros((N, G.NUM_GOALS), device=dev), torch.ones(G.NUM_GOALS, device=dev))
+    _sync(dev)
+    step_calls = _counts()
+    per_step = {p: calls[p] / T for p in ("segment_sum_f32", "segment_sum_i32")}
+    per_lane = {p: (calls[p] - T * step_calls[p]) / (N * T) for p in ("segment_sum_f32", "segment_sum_i32")}
+    t0 = time.monotonic()
+    horizon = horizon_requirements(base, traces[2], device=dev)
+    _sync(dev)
+    horizon_s = time.monotonic() - t0
+    say("traces", pairs=N, steps=T, lane_evaluations=N * T, bucket=list(warm.bucket),
+        cold_wall_s=cold_s, warm_wall_s=warm_s, ms_per_lane_step=warm_s / (N * T) * 1e3,
+        num_host_syncs=warm.num_host_syncs, cold_host_calls=cold_calls, host_calls=calls,
+        host_calls_per_step=per_step, host_calls_batch_wide_per_step=step_calls,
+        host_calls_per_lane_step=per_lane, profiled_wall_s=prof_s, device_busy_s=busy_s,
+        device_idle_share=1.0 - busy_s / prof_s, kernel_launches=len(events),
+        violation_free_pairs=sum(v.violation_free for v in warm.verdicts), winners=warm.winners(),
+        verdicts=_rollout_rows(warm),
+        horizon=dict(horizon, wall_s=horizon_s))
+    check(warm.num_host_syncs == 1 and cold.num_host_syncs == 1 and prof.num_host_syncs == 1,
+          f"traces: {warm.num_host_syncs} host syncs in a warm rollout, want 1")
+    check(_same_rollout(cold, warm) and _same_rollout(cold, prof), "traces: rollouts of the same inputs differ")
+    for path in ("segment_sum_f32", "segment_sum_i32"):
+        check(calls[path] >= T, f"traces: kernel path {path} launched {calls[path]} times in {T} steps")
+    check(all(np.isfinite(warm.series["viol"]).ravel()), "traces: non-finite violation counts")
+    check(horizon["horizonSteps"] == TRACE_STEPS and horizon["numHostSyncs"] == 1,
+          f"horizon: {horizon}")
+    return calls
+
+
+class SmokeFacade:
+    """The smoke's stand-in for the service facade a ``ContinuousController``
+    reads: the goal lists, a monitor whose current partition loads the smoke
+    sets, and ``cluster_model()`` built from a solved placement with those
+    loads (the leader's measured load is the partition's, a follower's the
+    follower-equivalent, as the load monitor builds it)."""
+
+    def __init__(self, state, maps, loads, goal_ids=DEFAULT_GOALS) -> None:
+        import types
+
+        from cruise_control_tpu_torch.analyzer import goals_base as G
+        from cruise_control_tpu_torch.model.model_utils import DEFAULT_CPU_WEIGHTS
+
+        self.goal_ids = tuple(goal_ids)
+        self.hard_ids = tuple(g for g in G.HARD_GOALS if g in self.goal_ids)
+        self.enable_heavy_goals = True
+        self.constraint = None
+        self.loads = dict(loads)
+        self.maps = maps
+        self.placement = {k: getattr(state, k).cpu().numpy() for k in (
+            "replica_partition", "replica_broker", "replica_valid", "partition_leader",
+            "broker_rack", "broker_host", "broker_capacity")}
+        self.listeners = []
+        self.monitor = types.SimpleNamespace(
+            current_partition_loads=lambda: dict(self.loads),
+            cpu_weights=DEFAULT_CPU_WEIGHTS,
+            add_window_listener=self.listeners.append,
+        )
+        self.backend = types.SimpleNamespace(describe_cluster=lambda: types.SimpleNamespace(
+            brokers={b: None for b in maps.broker_ids}))
+        self.executor = None
+
+    def cluster_model(self):
+        from cruise_control_tpu_torch.core.resources import Resource
+        from cruise_control_tpu_torch.model.cluster import ClusterModel
+        from cruise_control_tpu_torch.model.model_utils import DEFAULT_CPU_WEIGHTS, follower_cpu_from_leader_load
+
+        s, m = self.placement, self.maps
+        model = ClusterModel()
+        for b, bid in enumerate(m.broker_ids):
+            model.create_broker(m.rack_names[s["broker_rack"][b]], bid,
+                                {r: float(s["broker_capacity"][b, int(r)]) for r in Resource},
+                                host=m.host_names[s["broker_host"][b]])
+        index = {}
+        for r in np.flatnonzero(s["replica_valid"]):
+            p = int(s["replica_partition"][r])
+            tp, bid = m.partitions[p], m.broker_ids[s["replica_broker"][r]]
+            i = index.get(p, 0)
+            index[p] = i + 1
+            leader = int(s["partition_leader"][p]) == r
+            model.create_replica(bid, tp, i, leader)
+            cpu, nw_in, nw_out, disk = self.loads[tp]
+            fcpu = float(follower_cpu_from_leader_load(nw_in, nw_out, cpu, DEFAULT_CPU_WEIGHTS))
+            model.set_replica_load(bid, tp, (cpu, nw_in, nw_out, disk) if leader else (fcpu, nw_in, 0.0, disk))
+        return model
+
+    def deliver(self, window: int) -> None:
+        """One window delta to every listener, stamped now."""
+        from cruise_control_tpu_torch.monitor.loadmonitor import WindowDelta
+
+        delta = WindowDelta(window_id=window, ts_ms=window * 60_000, num_samples=len(self.loads),
+                            new_window=True, ingest_monotonic=time.monotonic())
+        for fn in self.listeners:
+            fn(delta)
+
+
+def partition_loads(state, maps):
+    """Each partition's leader load (base plus leadership delta), by name."""
+    base = state.base_load.cpu().double().numpy()
+    delta = state.leadership_delta.cpu().double().numpy()
+    leader = state.partition_leader.cpu().numpy()
+    return {tp: tuple(float(x) for x in base[leader[p]] + delta[p]) for p, tp in enumerate(maps.partitions)}
+
+
+def shifted(loads, maps, factor):
+    """S4's shift: every load of topics 0-9 times ``factor``."""
+    hot = set(maps.topic_names[:10])
+    return {tp: tuple(x * factor for x in v) if tp[0] in hot else v for tp, v in loads.items()}
+
+
+def _set_key(standing):
+    """A standing set without its wall-clock fields (``created_ms``,
+    ``reaction_s``): what two runs of the same tick must agree on."""
+    from cruise_control_tpu_torch.executor.journal import proposal_to_record
+
+    if standing is None:
+        return None
+    return (standing.version, standing.trigger, standing.drift, standing.epoch,
+            [proposal_to_record(p) for p in standing.proposals])
+
+
+def _controller(facade, dev, journal=None, tenant_cfg=None):
+    from cruise_control_tpu_torch.controller import ContinuousController, ControllerConfig
+
+    c = ContinuousController(facade, journal=journal, config=ControllerConfig(**(tenant_cfg or TICK_CFG)),
+                             device=dev)
+    facade.monitor.add_window_listener(c.on_window_delta)
+    return c
+
+
+def _standalone_tick(state, maps, loads, factor, dev):
+    """One tenant's own controller: warm start, the shift, one tick."""
+    facade = SmokeFacade(state, maps, loads)
+    c = _controller(facade, dev)
+    c.warm_start()
+    facade.loads = shifted(loads, maps, factor)
+    facade.deliver(1)
+    return c.maybe_tick(), c
+
+
+def phase_controller(dev, config2_final, maps):
+    """A ``ContinuousController`` at config #2 width on the card: warm start
+    from config #2's solved placement (a port ``ClusterModel`` built from it,
+    the smoke's facade serving the loads), S4's shift (topics 0-9 x 1.3) as
+    one window delta, one drift-triggered tick; the set journaled in a
+    temporary directory and recovered by a fresh controller, which must give
+    the published set back.  Returns the tick's host calls."""
+    import tempfile
+
+    from cruise_control_tpu_torch.controller import ControllerJournal
+    from cruise_control_tpu_torch.core.journal import Journal
+
+    loads = partition_loads(config2_final, maps)
+    with tempfile.TemporaryDirectory() as jdir:
+        facade = SmokeFacade(config2_final, maps, loads)
+        c = _controller(facade, dev, journal=ControllerJournal(Journal(jdir)))
+        t0 = time.monotonic()
+        c.warm_start()
+        _sync(dev)
+        warm_start_s = time.monotonic() - t0
+        facade.loads = shifted(loads, maps, SHIFT_FACTORS[2])
+        _reset_counts()
+        facade.deliver(1)
+        t0 = time.monotonic()
+        published = c.maybe_tick()
+        _sync(dev)
+        tick_s = time.monotonic() - t0
+        calls = _counts()
+        drift = c._last_drift
+        spans = {s["name"]: s for s in c.last_spans}
+        c2 = _controller(SmokeFacade(config2_final, maps, loads), dev,
+                         journal=ControllerJournal(Journal(jdir)))
+        records = c2.recover()
+        attrs = c._last_tick_attrs or {}
+        say("controller", config="config2", shift=SHIFT_FACTORS[2], warm_start_s=warm_start_s,
+            tick_wall_s=tick_s, reaction_s=published and published.reaction_s,
+            trigger=published and published.trigger, drift_score=drift.score,
+            drifted_goals=drift.violated_goals, balancedness=drift.balancedness,
+            goals_run=attrs.get("goals_run"), moves=attrs.get("moves"),
+            rounds=spans["optimize"]["attrs"]["rounds"] if "optimize" in spans else None,
+            num_host_syncs=sum(s["host_syncs"] for s in c.last_spans),
+            span_s={k: s["seconds"] for k, s in spans.items()},
+            proposals=len(published.proposals) if published else 0, host_calls=calls,
+            journal_records=records, recovered_version=c2.standing and c2.standing.version)
+        check(published is not None and published.trigger == "drift", "controller: the shift published nothing")
+        check(c2.standing == published, "controller: the recovered set differs from the published one")
+        for path in ("segment_sum_f32", "segment_sum_i32"):
+            check(calls[path] > 0, f"controller: kernel path {path} never launched in the tick")
+    return calls
+
+
+def _fleet_tick(state, maps, loads, factors, dev):
+    """A fleet of one tenant per shift factor (the same cluster), warmed,
+    shifted, one tick: ``(fleet, attrs, wall s)``."""
+    from cruise_control_tpu_torch.fleet import FleetConfig, FleetController
+
+    fleet = FleetController(config=FleetConfig(**TICK_CFG), device=dev)
+    facades = []
+    for i, f in enumerate(factors):
+        facade = SmokeFacade(state, maps, loads)
+        fleet.add_tenant(f"t{i}", facade)
+        facades.append(facade)
+    fleet.warm()
+    for f, facade in zip(factors, facades):
+        facade.loads = shifted(loads, maps, f)
+        facade.deliver(1)
+    t0 = time.monotonic()
+    attrs = fleet.maybe_tick()
+    _sync(dev)
+    return fleet, attrs, time.monotonic() - t0
+
+
+def phase_fleet(dev, config2_final, maps):
+    """Four tenants of config #2's solved cluster with S4's four shifts, one
+    fleet tick on the card; each tenant's standing set must equal its own
+    standalone controller's tick."""
+    loads = partition_loads(config2_final, maps)
+    _reset_counts()
+    fleet, attrs, wall = _fleet_tick(config2_final, maps, loads, SHIFT_FACTORS, dev)
+    calls = _counts()
+    t0 = time.monotonic()
+    solos = [_standalone_tick(config2_final, maps, loads, f, dev)[0] for f in SHIFT_FACTORS]
+    _sync(dev)
+    solo_s = time.monotonic() - t0
+    sets = [fleet.tenant(f"t{i}").controller.standing for i in range(len(SHIFT_FACTORS))]
+    say("fleet", config="config2", tenants=len(SHIFT_FACTORS), shifts=list(SHIFT_FACTORS), tick_wall_s=wall,
+        standalone_ticks_wall_s=solo_s, groups=attrs and attrs["groups"],
+        published=attrs and attrs["published"], num_host_syncs=attrs and attrs["num_host_syncs"],
+        span_s={s["name"]: s["seconds"] for s in fleet.last_spans if s["name"] != "publish"},
+        goals_run=[s["attrs"].get("goals_run") for s in fleet.last_spans if s["name"] == "optimize"],
+        proposals=[len(s.proposals) if s else 0 for s in sets], host_calls=calls)
+    check(attrs is not None and attrs["published"] == len(SHIFT_FACTORS), f"fleet: {attrs}")
+    for i, (s, solo) in enumerate(zip(sets, solos)):
+        check(s is not None and _set_key(s) == _set_key(solo),
+              f"fleet: tenant t{i}'s set differs from its standalone tick")
+
+
+def phase_traces_controller_card_vs_cpu(dev, small_final):
+    """The rollout, one controller tick and one fleet tick on the CPU port
+    and on the card: the JAX traces harness's rollout (10 brokers, 16 pairs,
+    64 steps, bucket 16), a rollout at config2_small (the 4 traces x 2
+    policies, 16 steps), and a tick and a 3-tenant fleet tick of the
+    config2_small solve shifted.  Every series, verdict and set identical."""
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+    from cruise_control_tpu_torch.traces import rollout
+
+    harness, _ = generate(SyntheticSpec(num_racks=5, num_brokers=10, num_topics=5, num_partitions=50,
+                                        replication_factor=2, seed=2, mean_cpu=0.08, mean_disk=0.08,
+                                        mean_nw_in=0.08, mean_nw_out=0.06), device="cpu")
+    small, maps = generate(SyntheticSpec(**CONFIG2_SMALL), device="cpu")
+    loads = partition_loads(small_final, maps)
+    out, walls = {}, {}
+    for where in (torch.device("cpu"), dev):
+        w = {}
+        t0 = time.monotonic()
+        h = rollout(harness, *trace_workload(max_brokers=16), bucket_brokers=16, device=where)
+        w["harness_rollout"] = time.monotonic() - t0
+        traces, policies = trace_workload(steps=16, max_brokers=64)
+        t0 = time.monotonic()
+        r = rollout(small, traces, policies[:2], bucket_brokers=64, device=where)
+        w["config2_small_rollout"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        tick, _ = _standalone_tick(small_final, maps, loads, 1.3, where)
+        w["tick"] = time.monotonic() - t0
+        fleet, attrs, w["fleet_tick"] = _fleet_tick(small_final, maps, loads, SHIFT_FACTORS[:3], where)
+        sets = [fleet.tenant(f"t{i}").controller.standing for i in range(3)]
+        out[where.type] = (h, r, tick, sets, attrs)
+        walls[where.type] = w
+    (hc, rc, tc, sc, ac), (hg, rg, tg, sg, ag) = out["cpu"], out[dev.type]
+    say("traces_controller_card_vs_cpu", cpu_walls_s=walls["cpu"], gpu_walls_s=walls[dev.type],
+        harness_winners=hg.winners(), config2_small_winners=rg.winners(),
+        tick_proposals=len(tg.proposals) if tg else 0,
+        fleet_proposals=[len(s.proposals) if s else 0 for s in sg], fleet_groups=ag and ag["groups"])
+    check(_same_rollout(hg, hc), "harness rollout: card differs from the CPU port")
+    check(_same_rollout(rg, rc), "config2_small rollout: card differs from the CPU port")
+    check(tc is not None and _set_key(tg) == _set_key(tc), "controller tick: card differs from the CPU port")
+    check(all(s is not None for s in sg) and [_set_key(s) for s in sg] == [_set_key(s) for s in sc],
+          "fleet tick: card differs from the CPU port")
+    check(ag["published"] == ac["published"] == 3, f"fleet tick: {ag} against {ac}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1013,11 +1435,17 @@ def main() -> int:
     profile_calls, profile_kernels = phase_profile(dev)
     small_final = phase_card_vs_cpu(dev)
     phase_sim_card_vs_cpu(dev, small_final)
+    traces_launches = phase_traces(dev)
+    config2_maps = _case(CONFIG2, "cpu")[2]
+    controller_launches = phase_controller(dev, config2_final, config2_maps)
+    phase_fleet(dev, config2_final, config2_maps)
+    phase_traces_controller_card_vs_cpu(dev, small_final)
 
     kernels = []
     for path in ("segment_sum_f32", "segment_sum_i32"):
         rec = next(r for r in records if r["path"] == path)   # the main path's shape
         sweep = next(r for r in records if r["path"] == path and r["case"].startswith("sweep"))
+        at_rollout = [r for r in records if r["path"] == path and r["case"].startswith("rollout")]
         kernels.append({
             "name": path, "route": "cuda", "source": KERNEL_SOURCES[path], "replaces": REPLACES[path],
             "launches": launches[path], "host_calls": launches[path],
@@ -1029,9 +1457,14 @@ def main() -> int:
             "device_ms": rec["device_ms"], "call_ms": rec["call_ms"], "latency_ms": rec["latency_ms"],
             "plain_call_ms": rec["plain_call_ms"], "library_call_ms": rec["library_call_ms"],
             "shape": rec["case"], "sim_launches": sim_launches[path],
+            "traces_launches": traces_launches[path], "controller_launches": controller_launches[path],
+            "traces_shapes": [{k: r[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
+                                                 "library_device_ms", "library_call_ms", "bound_ms", "bound_by")}
+                              for r in at_rollout],
             "sim_shape": {k: sweep[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
                                                 "library_device_ms", "bound_ms", "bound_by", "per_lane_calls",
-                                                "per_lane_device_ms", "per_lane_call_ms")},
+                                                "per_lane_device_ms", "per_lane_call_ms",
+                                                "per_lane_plain_device_ms", "per_lane_library_device_ms")},
         })
     # one kernel per host call; "plain" is the CPU loop (no PyTorch call computes it)
     rec = assign_records[0]                                    # config #2's shape
@@ -1046,7 +1479,8 @@ def main() -> int:
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         "device_ms": rec["device_ms"], "call_ms": rec["call_ms"], "latency_ms": rec["latency_ms"],
         "us_per_partition": rec["us_per_partition"], "shape": rec["case"],
-        "sim_launches": sim_launches["even_assign"],
+        "sim_launches": sim_launches["even_assign"], "traces_launches": traces_launches["even_assign"],
+        "controller_launches": controller_launches["even_assign"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -343,3 +343,61 @@ def test_deep_sweep_on_the_card_equals_the_cpu_port(cuda_device):
     for a, b in zip(card.states, cpu.states):
         assert torch.equal(a.replica_broker.cpu(), b.replica_broker)
         assert torch.equal(a.partition_leader.cpu(), b.partition_leader)
+
+
+# -- trace rollouts, the controller and the fleet ---------------------------------
+
+
+def _config1():
+    import chip_smoke as SM
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+
+    return generate(SyntheticSpec(**SM.CONFIG1), device="cpu")
+
+
+@pytest.mark.cuda
+def test_rollout_on_the_card_equals_the_cpu_port(cuda_device):
+    """The JAX traces harness (10 brokers, 4 traces x 4 policies, 64 steps):
+    every per-step series bitwise and every verdict, one host sync."""
+    import chip_smoke as SM
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+    from cruise_control_tpu_torch.traces import rollout
+
+    base, _ = generate(SyntheticSpec(num_racks=5, num_brokers=10, num_topics=5, num_partitions=50,
+                                     replication_factor=2, seed=2, mean_cpu=0.08, mean_disk=0.08,
+                                     mean_nw_in=0.08, mean_nw_out=0.06), device="cpu")
+    traces, policies = SM.trace_workload(max_brokers=16)
+    PS.reset_launch_counts()
+    card = rollout(base, traces, policies, bucket_brokers=16, device=cuda_device)
+    assert PS.LAUNCHES["segment_sum_f32"] > 0 and PS.LAUNCHES["segment_sum_i32"] >= 64
+    cpu = rollout(base, traces, policies, bucket_brokers=16, device="cpu")
+    assert card.num_host_syncs == 1
+    assert SM._same_rollout(card, cpu)
+
+
+@pytest.mark.cuda
+def test_controller_tick_on_the_card_equals_the_cpu_port(cuda_device):
+    import chip_smoke as SM
+
+    state, maps = _config1()
+    loads = SM.partition_loads(state, maps)
+    PS.reset_launch_counts()
+    card, ctl = SM._standalone_tick(state, maps, loads, 1.3, cuda_device)
+    assert PS.LAUNCHES["segment_sum_f32"] > 0 and PS.LAUNCHES["segment_sum_i32"] > 0
+    cpu, _ = SM._standalone_tick(state, maps, loads, 1.3, torch.device("cpu"))
+    assert card is not None and SM._set_key(card) == SM._set_key(cpu)
+    assert ctl._state.device.type == "cuda" and ctl._state_host.device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_fleet_tick_on_the_card_equals_the_cpu_port(cuda_device):
+    import chip_smoke as SM
+
+    state, maps = _config1()
+    loads = SM.partition_loads(state, maps)
+    sets = {}
+    for where in (cuda_device, torch.device("cpu")):
+        fleet, attrs, _ = SM._fleet_tick(state, maps, loads, (1.1, 1.2, 1.3), where)
+        assert attrs["groups"] == 1 and attrs["published"] == 3
+        sets[where.type] = [SM._set_key(fleet.tenant(f"t{i}").controller.standing) for i in range(3)]
+    assert sets["cuda"] == sets["cpu"]

@@ -98,3 +98,39 @@ def assert_fields_same(port_obj, jax_obj, rtol=0.0, atol=0.0, skip=()):
             assert got == (want if not hasattr(want, "shape") else np.asarray(want)), f.name
             continue
         assert_same(got, want, f.name, rtol=rtol, atol=atol)
+
+
+def port_cluster_model(jmodel):
+    """The port's ``ClusterModel`` replaying a JAX ``ClusterModel`` through
+    the public methods: racks, brokers (capacity, host, logdirs, state, dead
+    and removed logdirs), replicas in the JAX model's order with their index,
+    leadership, logdir and original flag, and their measured loads."""
+    from cruise_control_tpu_torch.core.resources import Resource as PResource
+    from cruise_control_tpu_torch.model.cluster import ClusterModel as PClusterModel
+    from cruise_control_tpu_torch.model.model_utils import CpuModelWeights
+
+    w = jmodel._cpu_weights
+    model = PClusterModel(cpu_weights=CpuModelWeights(
+        leader_bytes_in=w.leader_bytes_in, leader_bytes_out=w.leader_bytes_out,
+        follower_bytes_in=w.follower_bytes_in,
+    ))
+    for rack in jmodel._racks:
+        model.create_rack(rack)
+    for broker_id, b in jmodel._brokers.items():
+        model.create_broker(
+            b.rack, broker_id, {r: float(b.capacity[int(r)]) for r in PResource},
+            host=b.host, logdirs=dict(b.logdirs),
+        )
+    for (tp, broker_id), r in jmodel._replicas.items():
+        model.create_replica(broker_id, tp, r.index, r.is_leader, logdir=r.logdir,
+                             is_original=r.is_original)
+        if r.load is not None:
+            model.set_replica_load(broker_id, tp, r.load)
+    for broker_id, b in jmodel._brokers.items():
+        model.set_broker_state(broker_id, b.state)
+        for d in sorted(b.dead_logdirs):
+            model.mark_disk_dead(broker_id, d)
+        for d in sorted(b.removed_logdirs):
+            model.mark_disk_removed(broker_id, d)
+        model.set_broker_state(broker_id, b.state)
+    return model
