@@ -82,11 +82,27 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    brokers), a rollout at config2_small, a tick and a 3-tenant fleet tick of
    the config2_small solve shifted -- every series, verdict and set
    identical on card and CPU;
-13. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
+13. facade: the service's own path at config #2 width -- a
+   ``FakeClusterBackend`` seeded with config #2's topology and leader loads,
+   a ``LoadMonitor`` whose windows ``sample_once`` fills on a window-aligned
+   clock, ``CruiseControl(device="cuda").rebalance(dryrun=True)`` cold and
+   warm, then ``rebalance(dryrun=False)`` through the ``Executor``: the
+   sampling, model-build, optimize and execution walls, host syncs, rounds,
+   proposals, tasks by state, the kernel builds of the warm rebalance and
+   the peak device memory.  Fails unless the solve leaves no hard violation,
+   the warm proposals equal the cold ones, the warm rebalance builds no
+   kernel, the execution succeeds, the backend's replica lists and leaders
+   equal the proposals' targets, a fresh model after the execution has no
+   hard violation on the card, and both segment-sum paths launched;
+14. facade card vs CPU: the executed rebalance at config2_small on the CPU
+   port and on the card; the proposals, the backend's admin log and final
+   placement and the flight records' kinds and attribute names identical;
+15. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
    ``launches`` and ``host_calls`` are the wrapper's count of host calls in
    phase 4's cold solve (phase 5's P1 for ``even_assign``), ``sim_launches``
    those of phase 6's cold S1 sweep, ``traces_launches`` those of phase 9's
-   warm rollout, ``controller_launches`` those of phase 10's tick;
+   warm rollout, ``controller_launches`` those of phase 10's tick,
+   ``facade_launches`` those of phase 13's three rebalances;
    ``sim_shape`` and ``traces_shapes`` are phase 2's times at the sweep's and
    the rollout's call shapes; ``kernel_launches`` are the kernels
    those calls enqueued in phase 7's solve (the fixed-order path enqueues
@@ -883,13 +899,13 @@ def _plan_outcome(plan) -> dict:
     """A capacity plan without its wall and host-sync counts: the card counts
     one sync per copy of a state to the host, the CPU none, so the counts
     (and the message that quotes them) differ by device."""
+    counts = ("num_host_syncs", "num_dispatches")   # the port's key and the JAX one, one count
     d = plan.to_dict()
-    del d["durationS"], d["numHostSyncs"]
+    del d["durationS"], d["numHostSyncs"], d["numDispatches"]
     d["recommendation"]["message"] = d["recommendation"]["message"].split(" scenarios, ")[0]
-    sweep = dict(plan.recommendation.sweep)
-    del sweep["num_host_syncs"]
+    sweep = {k: v for k, v in plan.recommendation.sweep.items() if k not in counts}
     if "deep_verify" in sweep:
-        sweep["deep_verify"] = {k: v for k, v in sweep["deep_verify"].items() if k != "num_host_syncs"}
+        sweep["deep_verify"] = {k: v for k, v in sweep["deep_verify"].items() if k not in counts}
     d["sweep"] = sweep
     return d
 
@@ -1405,6 +1421,169 @@ def phase_traces_controller_card_vs_cpu(dev, small_final):
     check(ag["published"] == ac["published"] == 3, f"fleet tick: {ag} against {ac}")
 
 
+#: the facade phases' metric windows: window-aligned, one metric interval a
+#: window, two valid windows after the newest (current) one
+FACADE_WINDOW_MS = 60_000
+FACADE_WINDOWS = 2
+#: the executor's wait between progress checks (the fake backend finishes a
+#: reassignment at its next poll)
+FACADE_CHECK_INTERVAL_S = 0.001
+
+
+def seed_fake_backend(backend, state, maps, num_racks):
+    """Load a ``FakeClusterBackend`` (of either package) with a synthetic
+    cluster's topology and leader loads: broker ``b`` on rack ``b % num_racks``,
+    each partition's replicas in placement order (the leader first) and its
+    leader-replica load ``[CPU, NW_IN, NW_OUT, DISK]``, the leader row's base
+    load plus the partition's leadership delta."""
+    rb = state.replica_broker.cpu().numpy()
+    rp = state.replica_partition.cpu().numpy()
+    leader = state.partition_leader.cpu().numpy()
+    load = state.base_load.cpu().numpy()[leader] + state.leadership_delta.cpu().numpy()
+    for b in range(state.num_brokers):
+        backend.add_broker(b, rack=str(b % num_racks))
+    replicas = [[] for _ in range(state.num_partitions)]
+    for p, b in zip(rp.tolist(), rb.tolist()):
+        replicas[p].append(b)
+    for p, tp in enumerate(maps.partitions):
+        backend.create_partition(tp, replicas[p], load=load[p].tolist())
+    return backend
+
+
+def build_facade(spec, device, goal_ids=DEFAULT_GOALS):
+    """The port's service stack on a synthetic spec: a ``FakeClusterBackend``
+    seeded with it, a ``LoadMonitor`` whose windows ``sample_once`` fills on a
+    window-aligned clock, an ``Executor`` that pauses sampling while replicas
+    move, and ``CruiseControl`` on ``device``.  ``(facade, sampling wall s)``."""
+    from cruise_control_tpu_torch.backend import FakeClusterBackend
+    from cruise_control_tpu_torch.core.resources import Resource
+    from cruise_control_tpu_torch.executor import Executor
+    from cruise_control_tpu_torch.facade import CruiseControl
+    from cruise_control_tpu_torch.monitor import BackendMetricSampler, LoadMonitor, StaticCapacityResolver
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+    from cruise_control_tpu_torch.analyzer import goals_base as G
+
+    syn = SyntheticSpec(**spec)
+    state, maps = generate(syn, device="cpu")
+    backend = seed_fake_backend(FakeClusterBackend(metric_interval_ms=FACADE_WINDOW_MS), state, maps,
+                                syn.num_racks)
+    capacity = {Resource.CPU: syn.capacity_cpu, Resource.NW_IN: syn.capacity_nw_in,
+                Resource.NW_OUT: syn.capacity_nw_out, Resource.DISK: syn.capacity_disk}
+    monitor = LoadMonitor(backend, BackendMetricSampler(backend), StaticCapacityResolver(capacity),
+                          num_windows=FACADE_WINDOWS, window_ms=FACADE_WINDOW_MS)
+    executor = Executor(backend, progress_check_interval_s=FACADE_CHECK_INTERVAL_S,
+                        pause_sampling=monitor.pause_sampling, resume_sampling=monitor.resume_sampling)
+    cc = CruiseControl(backend, monitor, executor, goal_ids=goal_ids,
+                       hard_ids=tuple(g for g in goal_ids if g in G.HARD_GOALS), device=device)
+    cc.start()
+    t0 = time.monotonic()
+    start = 1_700_000_000_000 // FACADE_WINDOW_MS * FACADE_WINDOW_MS
+    for w in range(FACADE_WINDOWS + 2):
+        monitor.sample_once(now_ms=start + w * FACADE_WINDOW_MS)
+    return cc, time.monotonic() - t0
+
+
+def backend_placement(backend) -> dict:
+    """tp -> (replica list, leader) as the backend reports it."""
+    return {i.tp: (i.replicas, i.leader) for infos in backend.describe_topics().values() for i in infos}
+
+
+def _timed_rebalance(cc, dev, dryrun):
+    t0 = time.monotonic()
+    out = cc.rebalance(dryrun=dryrun)
+    _sync(dev)
+    return out, time.monotonic() - t0
+
+
+def _record_shape(records) -> list:
+    """Flight records as (kind, attribute names, spans' (kind, name, attribute names))."""
+    return [(r.kind, sorted(r.attrs), [(s.kind, s.name, sorted(s.attrs)) for s in r.spans]) for r in records]
+
+
+def phase_facade(dev):
+    """The service's own path on the card at config #2 width: the facade's
+    dry-run rebalance cold and warm, then an executed one, through the fake
+    backend, the load monitor, the solver and the executor.  Returns the
+    kernel host calls of the three rebalances."""
+    from cruise_control_tpu_torch.analyzer import GoalContext, GoalOptimizer
+    from cruise_control_tpu_torch.analyzer import goals_base as G
+    from cruise_control_tpu_torch.obs import PROFILER, RECORDER
+    from cruise_control_tpu_torch.obs.recorder import compile_events_since, compile_mark
+
+    RECORDER.clear()
+    torch.cuda.reset_peak_memory_stats()
+    cc, sample_s = build_facade(CONFIG2, dev)
+    _reset_counts()
+    cold, cold_s = _timed_rebalance(cc, dev, True)
+    mark = compile_mark()
+    warm, warm_s = _timed_rebalance(cc, dev, True)
+    warm_builds = compile_events_since(mark)
+    done, exec_s = _timed_rebalance(cc, dev, False)
+    launches = _counts()
+    placement = backend_placement(cc.backend)
+    wrong = [p.tp for p in done.optimizer_result.proposals
+             if placement[p.tp] != (p.new_replicas, p.new_replicas[0])]
+    t0 = time.monotonic()
+    after = cc.cluster_model()
+    state, _ = after.to_arrays(device=dev)
+    viol = GoalOptimizer(device=dev).violations(state, GoalContext.build(state.num_topics, state.num_brokers,
+                                                                          device=dev))
+    after_hard = float(sum(viol[g] for g in G.HARD_GOALS).item())
+    after_s = time.monotonic() - t0
+    res, summary = cold.optimizer_result, done.execution
+    walls = {kind: [r.duration_s for r in reversed(RECORDER.recent(RECORDER.capacity, kind=kind))]
+             for kind in ("model", "optimize", "execution")}
+    say(
+        "facade", brokers=CONFIG2["num_brokers"], partitions=CONFIG2["num_partitions"],
+        sampling_wall_s=sample_s, model_walls_s=walls["model"], optimize_walls_s=walls["optimize"],
+        cold_rebalance_s=cold_s, warm_rebalance_s=warm_s,
+        num_host_syncs=res.num_host_syncs, rounds=sum(r.rounds for r in res.goal_reports),
+        proposals=len(res.proposals), total_moves=res.total_moves,
+        inter_broker_moves=res.movement.num_inter_broker_moves,
+        leadership_moves=res.movement.num_leadership_moves,
+        residual_hard_violations=res.residual_hard_violations, balancedness=res.balancedness_score,
+        execution_rebalance_s=exec_s, execution_walls_s=walls["execution"],
+        tasks=summary and dict(completed=summary.completed, dead=summary.dead, aborted=summary.aborted,
+                               failed=summary.failed),
+        warm_kernel_builds=warm_builds,
+        after_model_hard_violations=after_hard, after_model_wall_s=after_s,
+        peak_device_memory_bytes=PROFILER.memory_peak_bytes(), host_calls=launches,
+    )
+    check(res.residual_hard_violations == 0, f"facade: hard goals violated {res.violated_hard_goals}")
+    check(warm.optimizer_result.proposals == res.proposals, "facade: the warm rebalance differs from the cold one")
+    check(not warm_builds, f"facade: kernels built in the warm rebalance: {warm_builds}")
+    check(summary is not None and summary.succeeded, f"facade: the execution did not succeed: {summary}")
+    check(done.optimizer_result.proposals == res.proposals, "facade: the executed proposals differ")
+    check(not wrong, f"facade: {len(wrong)} partitions off their proposed replicas/leader, e.g. {wrong[:3]}")
+    check(after_hard == 0, f"facade: the model taken after the execution has {after_hard} hard violations")
+    for path in ("segment_sum_f32", "segment_sum_i32"):
+        check(launches[path] > 0, f"facade: kernel path {path} never launched on the facade's path")
+    return launches
+
+
+def phase_facade_card_vs_cpu(dev):
+    """The same path at config2_small on the CPU port and on the card: an
+    executed rebalance each.  The proposals, the backend's admin log and its
+    final placement, and the flight records' kinds and attribute names must
+    be identical."""
+    from cruise_control_tpu_torch.obs import RECORDER
+
+    out = {}
+    for where in (torch.device("cpu"), dev):
+        RECORDER.clear()
+        cc, _ = build_facade(CONFIG2_SMALL, where)
+        done, wall = _timed_rebalance(cc, where, False)
+        out[where.type] = (done, cc.backend, _record_shape(reversed(RECORDER.recent(RECORDER.capacity))), wall)
+    (dc, bc, rc, wc), (dg, bg, rg, wg) = out["cpu"], out[dev.type]
+    say("facade_card_vs_cpu", cpu_wall_s=wc, gpu_wall_s=wg, proposals=len(dg.optimizer_result.proposals),
+        record_kinds=[k for k, _, _ in rg], completed=dg.execution and dg.execution.completed)
+    check(dg.optimizer_result.proposals == dc.optimizer_result.proposals, "facade: card proposals differ from the CPU port's")
+    check(bg.admin_log == bc.admin_log, "facade: the card's execution ran other admin calls than the CPU port's")
+    check(backend_placement(bg) == backend_placement(bc), "facade: executed placements differ")
+    check(rg == rc, f"facade: flight records differ: {rg} against {rc}")
+    check(dg.execution is not None and dg.execution.succeeded, "facade: the card's execution did not succeed")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1440,6 +1619,8 @@ def main() -> int:
     controller_launches = phase_controller(dev, config2_final, config2_maps)
     phase_fleet(dev, config2_final, config2_maps)
     phase_traces_controller_card_vs_cpu(dev, small_final)
+    facade_launches = phase_facade(dev)
+    phase_facade_card_vs_cpu(dev)
 
     kernels = []
     for path in ("segment_sum_f32", "segment_sum_i32"):
@@ -1458,6 +1639,7 @@ def main() -> int:
             "plain_call_ms": rec["plain_call_ms"], "library_call_ms": rec["library_call_ms"],
             "shape": rec["case"], "sim_launches": sim_launches[path],
             "traces_launches": traces_launches[path], "controller_launches": controller_launches[path],
+            "facade_launches": facade_launches[path],
             "traces_shapes": [{k: r[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
                                                  "library_device_ms", "library_call_ms", "bound_ms", "bound_by")}
                               for r in at_rollout],
@@ -1481,6 +1663,7 @@ def main() -> int:
         "us_per_partition": rec["us_per_partition"], "shape": rec["case"],
         "sim_launches": sim_launches["even_assign"], "traces_launches": traces_launches["even_assign"],
         "controller_launches": controller_launches["even_assign"],
+        "facade_launches": facade_launches["even_assign"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

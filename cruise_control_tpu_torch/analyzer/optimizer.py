@@ -22,6 +22,7 @@ fetched together); the result reports the total as ``num_host_syncs``.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -491,7 +492,7 @@ class GoalOptimizer:
         hard_ids: Sequence[int] = G.HARD_GOALS,
         max_rounds_per_phase: int = 2000,
         enable_heavy_goals: bool = True,
-        bucket_brokers: bool = True,
+        bucket_brokers: Optional[bool] = None,
         deadline_s: Optional[float] = None,
         device: DeviceLike = None,
     ) -> None:
@@ -512,9 +513,23 @@ class GoalOptimizer:
             )
         self.hard_ids = tuple(hard_ids)
         self.max_rounds_per_phase = max_rounds_per_phase
-        #: pad the broker axis to the power-of-two ladder (model.arrays.broker_bucket),
-        #: the JAX package's default; padding is inert, results are identical
-        self.bucket_brokers = bucket_brokers
+        # None = read CC_TPU_BUCKET_BROKERS at first use, never at construction
+        self._bucket_brokers = None if bucket_brokers is None else bool(bucket_brokers)
+
+    @property
+    def bucket_brokers(self) -> bool:
+        """Pad the broker axis to the power-of-two ladder
+        (``model.arrays.broker_bucket``); padding is inert and results are
+        identical.  On unless the constructor said otherwise or
+        ``CC_TPU_BUCKET_BROKERS`` is ``0``, ``false`` or empty."""
+        if self._bucket_brokers is None:
+            env = os.environ.get("CC_TPU_BUCKET_BROKERS")
+            self._bucket_brokers = env not in ("0", "false", "") if env is not None else True
+        return self._bucket_brokers
+
+    @bucket_brokers.setter
+    def bucket_brokers(self, value: bool) -> None:
+        self._bucket_brokers = bool(value)
 
     def _bucketed(self, state: ClusterArrays, ctx: GoalContext):
         """(padded state, padded ctx, restore fn) for the bucketed main path."""
@@ -609,7 +624,15 @@ class GoalOptimizer:
         ``on_goal_done(name, rounds, moves, violations_after, duration_s)`` is
         called after each goal when ``profile_goals`` is set;
         ``raise_on_hard_failure`` raises :class:`OptimizationFailure` at the
-        first unsatisfied hard goal."""
+        first unsatisfied hard goal.
+
+        Every run, an aborted one too, leaves an ``"optimize"`` flight record
+        (``obs.recorder``): a ``setup`` span, one span per goal and a
+        ``finalize`` span, whose host-sync counts sum to ``num_host_syncs``."""
+        from cruise_control_tpu_torch.core.sensors import PROPOSAL_COMPUTATION_TIMER, REGISTRY
+        from cruise_control_tpu_torch.obs import recorder as obs
+
+        trace_token = obs.start_trace("optimize")
         t0 = time.monotonic()
         syncs = HostSyncs()
         heavy = self.enable_heavy_goals
@@ -619,44 +642,65 @@ class GoalOptimizer:
 
         max_rounds = self._max_rounds(ctx)
         state = self._offline_repair(state, ctx, max_rounds, syncs)
+        # flight-record accounting: the syncs before the goal loop are the
+        # "setup" span, each goal's delta its own span
+        setup_syncs = syncs.count
+        setup_s = time.monotonic() - t0
 
         degraded = False
         raw: List[tuple] = []
         prior: Tuple[int, ...] = ()
-        for gid in self.goal_ids:
-            if self.deadline_s is not None and time.monotonic() - t0 >= self.deadline_s:
-                # stop the walk; goals already walked keep their reports
-                degraded = True
-                break
-            g0 = time.monotonic()
-            max_rf = _max_replication_factor(initial, syncs) if gid == G.KAFKA_ASSIGNER_RACK else 1
-            state, rounds, moves, before, after, unassigned_t = self._run_goal(
-                gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
-            )
-            if unassigned_t is not None:
-                moves, unassigned = syncs.tolist(torch.stack([moves, unassigned_t]))
-                if raise_on_hard_failure and unassigned > 0:
-                    raise OptimizationFailure(
-                        f"KafkaAssignerEvenRackAwareGoal: {unassigned} replica slot(s) have no "
-                        "eligible broker (fewer eligible alive brokers than the replication factor)"
-                    )
-            is_hard = gid in self.hard_ids
-            after_host = None
-            if profile_goals or (raise_on_hard_failure and is_hard):
-                after_host = syncs.tolist(after)
-            if raise_on_hard_failure and is_hard and after_host > 0:
-                raise OptimizationFailure(
-                    f"{G.GOAL_NAMES[gid]} unsatisfied: {after_host:.0f} violations remain"
+        try:
+            for gid in self.goal_ids:
+                if self.deadline_s is not None and time.monotonic() - t0 >= self.deadline_s:
+                    # stop the walk; goals already walked keep their reports
+                    degraded = True
+                    break
+                g0 = time.monotonic()
+                s0 = syncs.count
+                max_rf = _max_replication_factor(initial, syncs) if gid == G.KAFKA_ASSIGNER_RACK else 1
+                state, rounds, moves, before, after, unassigned_t = self._run_goal(
+                    gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
                 )
-            dur = time.monotonic() - g0
-            raw.append((gid, before, after, rounds, moves, dur))
-            if profile_goals and on_goal_done is not None:
-                on_goal_done(G.GOAL_NAMES[gid], rounds, moves, after_host, dur)
-            prior = prior + (gid,)
+                if unassigned_t is not None:
+                    moves, unassigned = syncs.tolist(torch.stack([moves, unassigned_t]))
+                    if raise_on_hard_failure and unassigned > 0:
+                        raise OptimizationFailure(
+                            f"KafkaAssignerEvenRackAwareGoal: {unassigned} replica slot(s) have no "
+                            "eligible broker (fewer eligible alive brokers than the replication factor)"
+                        )
+                is_hard = gid in self.hard_ids
+                after_host = None
+                if profile_goals or (raise_on_hard_failure and is_hard):
+                    after_host = syncs.tolist(after)
+                if raise_on_hard_failure and is_hard and after_host > 0:
+                    raise OptimizationFailure(
+                        f"{G.GOAL_NAMES[gid]} unsatisfied: {after_host:.0f} violations remain"
+                    )
+                dur = time.monotonic() - g0
+                raw.append((gid, before, after, rounds, moves, dur, syncs.count - s0))
+                if profile_goals and on_goal_done is not None:
+                    on_goal_done(G.GOAL_NAMES[gid], rounds, moves, after_host, dur)
+                prior = prior + (gid,)
+        except OptimizationFailure as e:
+            # the spans walked so far plus the refusing goal, so the span
+            # syncs still sum to the reported total
+            obs.finish_trace(
+                trace_token,
+                spans=[obs.Span("setup", "setup", setup_s, setup_syncs)]
+                + [obs.Span(G.GOAL_NAMES[g], "goal", d, n) for g, _, _, _, _, d, n in raw]
+                + [obs.Span(
+                    G.GOAL_NAMES[gid], "aborted", time.monotonic() - g0, syncs.count - s0,
+                    attrs={"error": str(e)},
+                )],
+                attrs={"error": str(e), "num_dispatches": syncs.count, "num_host_syncs": syncs.count},
+                device=self.device,
+            )
+            raise
 
         violN = _violations_fn(state, ctx, heavy, self.goal_ids)
         # one bulk fetch of every per-goal scalar
-        scalars = [viol0, violN] + [torch.stack([b, a]) for _, b, a, _, _, _ in raw]
+        scalars = [viol0, violN] + [torch.stack([b, a]) for _, b, a, _, _, _, _ in raw]
         fetched = syncs.tolist(torch.cat(scalars))
         viol0_h = fetched[: G.NUM_GOALS]
         violN_h = fetched[G.NUM_GOALS: 2 * G.NUM_GOALS]
@@ -664,7 +708,7 @@ class GoalOptimizer:
 
         reports: List[GoalReport] = []
         total_moves = 0
-        for i, (gid, _, _, rounds, moves, dur) in enumerate(raw):
+        for i, (gid, _, _, rounds, moves, dur, _) in enumerate(raw):
             reports.append(
                 GoalReport(
                     goal_id=gid,
@@ -704,7 +748,71 @@ class GoalOptimizer:
             num_host_syncs=syncs.count,
             degraded=degraded,
         )
+        REGISTRY.timer(PROPOSAL_COMPUTATION_TIMER).update(result.duration_s)
+        self._record_optimize(trace_token, result, raw, setup_s, setup_syncs, ctx, state)
         return state, result
+
+    def _record_optimize(
+        self, token: dict, result: OptimizerResult, raw: List[tuple], setup_s: float,
+        setup_syncs: int, ctx: GoalContext, state: ClusterArrays,
+    ) -> None:
+        """Close the ``"optimize"`` flight record with the JAX package's
+        attribute names; ``num_dispatches`` and the spans' ``dispatches``
+        carry host syncs."""
+        from cruise_control_tpu_torch.obs import recorder as obs
+        from cruise_control_tpu_torch.obs.profiler import PROFILER
+
+        spans = [obs.Span("setup", "setup", setup_s, setup_syncs)]
+        for rep, (*_, goal_syncs) in zip(result.goal_reports, raw):
+            spans.append(obs.Span(
+                rep.name, "goal", rep.duration_s, goal_syncs,
+                attrs={
+                    "violations_before": rep.violations_before,
+                    "violations_after": rep.violations_after,
+                    "moves": rep.moves_applied,
+                    "rounds": rep.rounds,
+                    "hard": rep.is_hard,
+                },
+            ))
+        goal_syncs = sum(t[6] for t in raw)
+        spans.append(obs.Span(
+            "finalize", "finalize",
+            max(result.duration_s - setup_s - sum(t[5] for t in raw), 0.0),
+            result.num_host_syncs - setup_syncs - goal_syncs,
+        ))
+        obs.finish_trace(
+            token,
+            spans=spans,
+            attrs={
+                "num_goals": len(result.goal_reports),
+                "num_dispatches": result.num_host_syncs,
+                "num_host_syncs": result.num_host_syncs,
+                "total_moves": result.total_moves,
+                "violated_hard_goals": result.violated_hard_goals,
+                "residual_hard_violations": result.residual_hard_violations,
+                "residual_soft_violations": result.residual_soft_violations,
+                "balancedness": result.balancedness_score,
+                "provision_status": result.provision.status,
+                "degraded": result.degraded,
+                # the JAX package's dispatch layout flags: the port's goal
+                # steps are host-driven loops with no device-side stamps
+                "fused_dispatch": False,
+                "fast_mode": bool(ctx.fast_mode),
+                "stamps_supported": False,
+                "num_brokers": state.num_brokers,
+                "num_partitions": state.num_partitions,
+                "num_replicas": state.num_replicas,
+                "movement": dataclasses.asdict(result.movement),
+                # the JAX block's keys: XLA's FLOPs/bytes have no counterpart
+                # on an eager path (None), the memory watermark does
+                "cost": {
+                    "flops": None, "bytes_accessed": None, "profiled_calls": 0,
+                    "unanalyzed_calls": 0, "memory_peak_bytes": PROFILER.memory_peak_bytes(),
+                },
+                **obs.mesh_metadata(self.device),
+            },
+            device=self.device,
+        )
 
     # -- many clusters and bounded re-solves ----------------------------------
     #

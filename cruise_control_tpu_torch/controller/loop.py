@@ -788,6 +788,7 @@ class ContinuousController:
             "moves": inc.total_moves,
             "num_proposals": len(proposals),
             "num_host_syncs": 1 + inc.num_host_syncs,   # drift + optimize
+            "num_dispatches": 1 + inc.num_host_syncs,
             "standing_version": self.standing.version if self.standing else None,
             "reaction_s": reaction_s,
             "drained": drained,

@@ -1,4 +1,56 @@
-"""Monitor layer (port of ``cruise_control_tpu.monitor``): so far only what
-the continuous controller reads -- the completeness requirements and the
-window-delta event.  The load monitor itself (sampling, aggregation, model
-construction) is not ported yet."""
+"""Monitor layer: sampling, aggregation, and cluster-model construction.
+
+Port of ``cruise_control_tpu/monitor`` (the counterpart of the reference's
+``monitor/``).  The model is built on the host in numpy; only
+``ClusterModel.to_arrays(device=)`` moves it to the device.  The fetcher, the
+wire format, the reporter, the Prometheus sampler and the container
+capacity resolver are not ported yet.
+"""
+
+from cruise_control_tpu_torch.monitor.capacity import (
+    BrokerCapacityInfo,
+    BrokerCapacityResolver,
+    FileCapacityResolver,
+    StaticCapacityResolver,
+)
+from cruise_control_tpu_torch.monitor.completeness import (
+    ModelCompletenessRequirements,
+    NotEnoughValidSnapshotsError,
+)
+from cruise_control_tpu_torch.monitor.loadmonitor import LoadMonitor, LoadMonitorState, MonitorState
+from cruise_control_tpu_torch.monitor.processor import MetricsProcessor
+from cruise_control_tpu_torch.monitor.samples import (
+    BackendMetricSampler,
+    BrokerMetricSample,
+    MetricSampler,
+    NoopSampler,
+    PartitionMetricSample,
+    SampleBatch,
+)
+from cruise_control_tpu_torch.monitor.samplestore import (
+    FileSampleStore,
+    NoopSampleStore,
+    SampleStore,
+)
+
+__all__ = [
+    "BackendMetricSampler",
+    "BrokerCapacityInfo",
+    "BrokerCapacityResolver",
+    "BrokerMetricSample",
+    "FileCapacityResolver",
+    "FileSampleStore",
+    "LoadMonitor",
+    "LoadMonitorState",
+    "MetricSampler",
+    "MetricsProcessor",
+    "ModelCompletenessRequirements",
+    "MonitorState",
+    "NoopSampleStore",
+    "NoopSampler",
+    "NotEnoughValidSnapshotsError",
+    "PartitionMetricSample",
+    "SampleBatch",
+    "SampleStore",
+    "StaticCapacityResolver",
+]

@@ -72,6 +72,10 @@ def build(name: str) -> Path:
         )
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     BUILD_LOG[name] = (out, seconds, proc.stdout + proc.stderr)
+    # the flight records' compile events: one per nvcc build
+    from cruise_control_tpu_torch.obs.recorder import record_compile_event
+
+    record_compile_event(f"nvcc/{name}", seconds)
     return out
 
 

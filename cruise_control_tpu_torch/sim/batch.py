@@ -201,6 +201,7 @@ class SweepResult:
                 "size": self.sweep_size,
                 "bucketBrokers": self.bucket[0],
                 "numHostSyncs": self.num_host_syncs,
+                "numDispatches": self.num_host_syncs,
                 "bucketHit": self.bucket_hit,
                 "durationS": round(self.duration_s, 4),
                 "deep": self.deep,
@@ -258,12 +259,16 @@ def fast_sweep(
     enable_heavy: bool = False,
     bucket_brokers: Optional[int] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> SweepResult:
     """Evaluate every scenario's cluster AS-IS on ``device`` (``cuda`` unless
     ``device="cpu"``): per-scenario violation counts (those of each mutated
     cluster evaluated on its own), balancedness, hard-goal satisfiability,
     the implied minimum broker count and the offline-movement floor.  One
-    host fetch at the end."""
+    host fetch at the end.  ``mesh`` is the JAX signature's scenario-axis
+    sharding; the port has no device mesh yet and takes only ``None``."""
+    if mesh is not None:
+        raise NotImplementedError("fast_sweep(mesh=...): the port has no device mesh yet")
     t0 = time.monotonic()
     goal_ids = tuple(goal_ids)
     hard_ids = tuple(hard_ids)

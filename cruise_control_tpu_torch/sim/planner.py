@@ -61,6 +61,7 @@ class CapacityPlan:
             "currentBrokers": self.current_brokers,
             "loadFactor": self.load_factor,
             "numHostSyncs": self.num_host_syncs,
+            "numDispatches": self.num_host_syncs,
             "durationS": round(self.duration_s, 4),
             "probes": [dataclasses.asdict(p) for p in self.probes],
             "recommendation": {
@@ -212,6 +213,7 @@ def plan_capacity(
             "counts": deep_counts,
             "deep_min_brokers": deep_min,
             "num_host_syncs": deep_syncs,
+            "num_dispatches": deep_syncs,
             "confirmed": deep_min == min_brokers,
         }
         if deep_min is not None and deep_min > min_brokers:
@@ -225,6 +227,7 @@ def plan_capacity(
     sweep_meta = {
         "scenarios_evaluated": len(probes),
         "num_host_syncs": syncs,
+        "num_dispatches": syncs,
         "load_factor": load_factor,
         "min_brokers": min_brokers,
         "current_brokers": B0,

@@ -219,6 +219,7 @@ class RolloutResult:
                 "numSteps": self.num_steps,
                 "bucketBrokers": self.bucket[0],
                 "numHostSyncs": self.num_host_syncs,
+                "numDispatches": self.num_host_syncs,
                 "bucketHit": self.bucket_hit,
                 "durationS": round(self.duration_s, 4),
             },
@@ -423,4 +424,5 @@ def horizon_requirements(
         "brokersToAdd": max(int(needed.max()) - B, 0),
         "violationSteps": v.violation_steps,
         "numHostSyncs": result.num_host_syncs,
+        "numDispatches": result.num_host_syncs,
     }

@@ -42,7 +42,7 @@ from cruise_control_tpu_torch.core.sensors import REGISTRY
 from cruise_control_tpu_torch.model.cluster import BrokerState
 from tests import fixtures
 from tests import torch_controller_parity as H
-from tests.torch_port_helpers import port_cluster_model
+from tests.torch_port_helpers import assert_keys_superset, port_cluster_model
 
 
 # -- ClusterModel.to_arrays -------------------------------------------------------
@@ -381,6 +381,9 @@ def test_shift_ticks_supersede_and_pause_match_jax(tmp_path, _jax_warm):
     attrs = pair.ctl["port"]._last_tick_attrs
     assert attrs["goals_run"] == pair.ctl["jax"]._last_tick_attrs["goals_run"]
     assert attrs["moves"] == pair.ctl["jax"]._last_tick_attrs["moves"]
+    # the JAX tick's keys (num_dispatches, which the replay harness reads) beside the port's
+    assert_keys_superset(attrs, pair.ctl["jax"]._last_tick_attrs)
+    assert attrs["num_dispatches"] == attrs["num_host_syncs"]
     assert [s["name"] for s in pair.ctl["port"].last_spans] == ["ingest", "drift", "optimize", "publish"]
 
     # an idle wake: same loads, a fresh delta; drift against the residual is 0

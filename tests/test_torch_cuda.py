@@ -401,3 +401,48 @@ def test_fleet_tick_on_the_card_equals_the_cpu_port(cuda_device):
         assert attrs["groups"] == 1 and attrs["published"] == 3
         sets[where.type] = [SM._set_key(fleet.tenant(f"t{i}").controller.standing) for i in range(3)]
     assert sets["cuda"] == sets["cpu"]
+
+
+#: a 20-broker skewed cluster for the facade's path (every default goal has work)
+FACADE_SPEC = dict(
+    num_racks=4, num_brokers=20, num_topics=6, num_partitions=120,
+    replication_factor=3, distribution="exponential", skew_brokers=6,
+    mean_cpu=0.25, mean_disk=0.2, mean_nw_in=0.15, mean_nw_out=0.15, seed=11,
+)
+
+
+@pytest.mark.cuda
+def test_facade_rebalance_on_the_card_equals_the_cpu_port(cuda_device):
+    """Monitor, solve and execution through ``CruiseControl`` on the card and
+    on the CPU port: the same proposals, admin calls and final placement."""
+    import chip_smoke as SM
+
+    out = {}
+    for where in (cuda_device, torch.device("cpu")):
+        PS.reset_launch_counts()
+        cc, _ = SM.build_facade(FACADE_SPEC, where)
+        done = cc.rebalance(dryrun=False)
+        if where.type == "cuda":
+            assert PS.LAUNCHES["segment_sum_f32"] > 0 and PS.LAUNCHES["segment_sum_i32"] > 0
+        assert done.execution.succeeded and done.optimizer_result.residual_hard_violations == 0
+        out[where.type] = (done.optimizer_result.proposals, cc.backend.admin_log,
+                           SM.backend_placement(cc.backend))
+    assert out["cuda"] == out["cpu"]
+    placement = out["cuda"][2]
+    assert all(placement[p.tp] == (p.new_replicas, p.new_replicas[0]) for p in out["cuda"][0])
+
+
+@pytest.mark.cuda
+def test_facade_defaults_to_the_card_and_records_it(cuda_device):
+    import chip_smoke as SM
+    from cruise_control_tpu_torch.facade import CruiseControl
+    from cruise_control_tpu_torch.obs import RECORDER
+
+    cc, _ = SM.build_facade(FACADE_SPEC, cuda_device)
+    assert CruiseControl(cc.backend, cc.monitor, cc.executor).device.type == "cuda"
+    RECORDER.clear()
+    res = cc.rebalance(dryrun=True).optimizer_result
+    trace = RECORDER.recent(1, kind="optimize")[0]
+    assert trace.platform == "cuda" and trace.attrs["device_count"] >= 1
+    assert trace.total_dispatches == trace.attrs["num_dispatches"] == res.num_host_syncs
+    assert trace.attrs["cost"]["memory_peak_bytes"] > 0

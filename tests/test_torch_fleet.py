@@ -31,6 +31,7 @@ from cruise_control_tpu_torch.fleet import (
 )
 from cruise_control_tpu_torch.model import arrays as A
 from tests import torch_controller_parity as H
+from tests.torch_port_helpers import assert_keys_superset
 
 N = 3
 ALT_GOALS = (JG.RACK_AWARE, JG.REPLICA_CAPACITY, JG.DISK_CAPACITY)
@@ -82,6 +83,7 @@ class Trio:
 
     def tick(self):
         ja, pa = self.jfleet.maybe_tick(), self.pfleet.maybe_tick()
+        assert_keys_superset(pa, ja)
         for s in self.solos.values():
             s.maybe_tick()
         for key in ("tenants", "active", "groups", "probe_dispatches", "triggered", "published", "skipped"):

@@ -1,0 +1,316 @@
+"""The port's flight recorder and device-memory profiler against the JAX package.
+
+The cases of ``tests/test_obs.py`` (``TestRecorder``, ``TestOptimizeTrace``,
+``TestSubsystemTraces::test_executor_trace``) run against the port, where a
+span's ``dispatches`` and the ``num_dispatches`` attribute count host syncs.
+The compile log holds one event per ``nvcc`` build (``ops/_build.py``), so
+its trim case drives :func:`record_compile_event` and a fake compiler.  A
+sink written by either package reads back in the other, and the executor's
+record has the JAX record's attribute and span names.  The recorder's ring
+and the compile log are process-wide: each test that reads them clears the
+ring first.
+"""
+
+import os
+import stat
+
+import numpy as np
+import pytest
+import torch
+
+from cruise_control_tpu.obs import recorder as JR
+from cruise_control_tpu_torch.obs import recorder as R
+from cruise_control_tpu_torch.obs.profiler import DeviceProfiler
+from cruise_control_tpu_torch.obs.recorder import (
+    RECORDER,
+    FlightRecorder,
+    Span,
+    TraceRecord,
+    read_jsonl,
+)
+from tests.torch_port_helpers import port_state
+
+
+def _sample_trace(kind="optimize", n_spans=3):
+    return TraceRecord(
+        kind=kind,
+        trace_id=f"{kind}-test-1",
+        started_at=1_700_000_000.0,
+        duration_s=1.5,
+        platform="cpu",
+        attrs={"num_dispatches": n_spans, "balancedness": 98.5},
+        spans=[Span(f"goal{i}", "goal", 0.5, 1, attrs={"moves": i}) for i in range(n_spans)],
+        compile_events=[{"event": "nvcc/segment_sum", "duration_s": 0.25}],
+    )
+
+
+class TestRecorder:
+    def test_ring_capacity_and_recent_order(self):
+        rec = FlightRecorder(capacity=3)
+        for i in range(5):
+            t = _sample_trace()
+            t.trace_id = f"t{i}"
+            rec.record(t)
+        assert [t.trace_id for t in rec.recent(10)] == ["t4", "t3", "t2"]
+        assert rec.snapshot()["size"] == 3
+        assert rec.snapshot()["dropped"] == 2
+
+    def test_kind_filter(self):
+        rec = FlightRecorder()
+        rec.record(_sample_trace(kind="optimize"))
+        rec.record(_sample_trace(kind="execution"))
+        assert [t.kind for t in rec.recent(10, kind="execution")] == ["execution"]
+
+    def test_multi_record_trim_counts_every_drop(self):
+        rec = FlightRecorder(capacity=10)
+        for _ in range(10):
+            rec.record(_sample_trace())
+        rec.capacity = 4
+        rec.record(_sample_trace())
+        snap = rec.snapshot()
+        assert snap["size"] == 4
+        assert snap["dropped"] == 7
+
+    def test_read_jsonl_tolerates_truncated_trailing_line(self, tmp_path):
+        path = str(tmp_path / "flight.jsonl")
+        rec = FlightRecorder(jsonl_path=path)
+        rec.record(_sample_trace())
+        rec.record(_sample_trace(kind="execution"))
+        whole = open(path).read()
+        open(path, "w").write(whole[: len(whole) - 40].rstrip("\n") + "\n")
+        loaded = read_jsonl(path)
+        assert len(loaded) == 1 and loaded[0].kind == "optimize"
+        assert loaded.skipped == 1
+
+    def test_read_jsonl_clean_sink_reports_zero_skipped(self, tmp_path):
+        path = str(tmp_path / "flight.jsonl")
+        rec = FlightRecorder(jsonl_path=path)
+        rec.record(_sample_trace())
+        loaded = read_jsonl(path)
+        assert len(loaded) == 1 and loaded.skipped == 0
+
+    def test_jsonl_round_trip(self, tmp_path):
+        path = str(tmp_path / "flight.jsonl")
+        rec = FlightRecorder(jsonl_path=path)
+        orig = _sample_trace()
+        rec.record(orig)
+        rec.record(_sample_trace(kind="execution", n_spans=1))
+        loaded = read_jsonl(path)
+        assert len(loaded) == 2
+        assert loaded[0].to_dict() == orig.to_dict()
+        assert loaded[0].total_dispatches == orig.total_dispatches
+        assert loaded[0].compile_s == pytest.approx(0.25)
+
+    @pytest.mark.parametrize("writer", ["jax", "port"])
+    def test_sinks_read_back_in_the_other_package(self, tmp_path, writer):
+        path = str(tmp_path / "flight.jsonl")
+        mod = JR if writer == "jax" else R
+        rec = mod.FlightRecorder(jsonl_path=path)
+        rec.record(mod.TraceRecord.from_dict(_sample_trace().to_dict()))
+        for reader in (JR, R):
+            (got,) = reader.read_jsonl(path)
+            assert got.to_dict() == _sample_trace().to_dict()
+
+    def test_sink_append_only(self, tmp_path):
+        path = str(tmp_path / "flight.jsonl")
+        rec = FlightRecorder(jsonl_path=path)
+        rec.record(_sample_trace())
+        first = open(path).read()
+        rec.record(_sample_trace(kind="detector"))
+        assert open(path).read().startswith(first)
+
+    def test_compile_marks_survive_log_trim(self, monkeypatch):
+        monkeypatch.setattr(R, "_COMPILE_LOG", [])
+        monkeypatch.setattr(R, "_COMPILE_BASE", 0)
+        monkeypatch.setattr(R, "_COMPILE_LOG_CAP", 4)
+        for i in range(3):
+            R.record_compile_event(f"nvcc/pre{i}", 0.1)
+        mark = R.compile_mark()
+        for i in range(6):   # crosses the cap: pre* and early mine* trimmed
+            R.record_compile_event(f"nvcc/mine{i}", 0.1)
+        events = [e["event"].rsplit("/", 1)[-1] for e in R.compile_events_since(mark)]
+        assert events == ["mine2", "mine3", "mine4", "mine5"]
+
+    def test_finish_trace_never_raises(self, monkeypatch):
+        token = R.start_trace("optimize")
+        monkeypatch.setattr(
+            R.RECORDER, "record", lambda trace: (_ for _ in ()).throw(RuntimeError("sink down"))
+        )
+        assert R.finish_trace(token, attrs={"x": 1}) is None
+
+    def test_sensors_registered(self):
+        from cruise_control_tpu_torch.core.sensors import (
+            FLIGHT_RING_GAUGE,
+            FLIGHT_TRACES_COUNTER,
+            REGISTRY,
+        )
+
+        rec = FlightRecorder()
+        before = REGISTRY.counter(FLIGHT_TRACES_COUNTER).snapshot()
+        rec.record(_sample_trace())
+        assert REGISTRY.counter(FLIGHT_TRACES_COUNTER).snapshot() == before + 1
+        assert REGISTRY.gauge(FLIGHT_RING_GAUGE).snapshot() >= 1
+
+
+def test_a_kernel_build_is_one_compile_event_of_the_trace_around_it(tmp_path, monkeypatch):
+    """``ops._build.build`` records one event per ``nvcc`` run, and a trace
+    open around the build carries it; a cached library records none."""
+    from cruise_control_tpu_torch.ops import _build
+
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n: > "$2"\n')
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "BUILD_LOG", {})
+    token = R.start_trace("optimize")
+    path = _build.build("segment_sum")
+    assert path.exists() and path.parent == tmp_path / "kernels"
+    _build.build("segment_sum")   # up to date: no compiler run
+    RECORDER.clear()
+    trace = R.finish_trace(token)
+    assert [e["event"] for e in trace.compile_events] == ["nvcc/segment_sum"]
+    assert trace.compile_s >= 0.0
+
+
+def test_platform_and_device_fields_name_the_torch_device(monkeypatch):
+    assert R.mesh_metadata("cpu") == {"platform": "cpu", "device_count": 1, "process_count": 1}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert R._platform() == "cpu"
+    RECORDER.clear()
+    assert R.finish_trace(R.start_trace("model"), device=torch.device("cpu")).platform == "cpu"
+
+
+def test_memory_sample_is_empty_on_the_cpu_and_when_disabled(monkeypatch):
+    prof = DeviceProfiler()
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    assert prof.sample_memory() == [] and prof.memory_peak_bytes() is None
+    assert prof.snapshot() == {"enabled": True, "memory": []}
+    monkeypatch.setenv("CC_TPU_PROFILER", "0")
+    assert DeviceProfiler().enabled is False and DeviceProfiler().sample_memory() == []
+
+
+# -- the optimize record (TestOptimizeTrace) ----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def traced_run(tmp_path_factory):
+    from cruise_control_tpu_torch.analyzer import GoalContext, GoalOptimizer
+    from cruise_control_tpu_torch.analyzer import goals_base as G
+    from tests.fixtures import service_test_goals, unbalanced2
+
+    path = str(tmp_path_factory.mktemp("obs") / "flight.jsonl")
+    old_path = RECORDER.jsonl_path
+    RECORDER.configure(path)
+    try:
+        jstate, maps = unbalanced2().to_arrays()
+        state = port_state(jstate)
+        ctx = GoalContext.build(state.num_topics, state.num_brokers, device="cpu")
+        goals = service_test_goals()
+        opt = GoalOptimizer(goal_ids=goals, hard_ids=tuple(g for g in goals if g in G.HARD_GOALS),
+                            enable_heavy_goals=False, device="cpu")
+        _, result = opt.optimize(state, ctx, maps=maps)
+    finally:
+        RECORDER.configure(old_path)
+    return result, path, len(goals)
+
+
+class TestOptimizeTrace:
+    def test_goal_spans_match_goal_list(self, traced_run):
+        result, path, n_goals = traced_run
+        trace = read_jsonl(path)[-1]
+        goal_spans = [s for s in trace.spans if s.kind == "goal"]
+        assert len(goal_spans) == n_goals == len(result.goal_reports)
+        assert [s.name for s in goal_spans] == [r.name for r in result.goal_reports]
+        assert [s.kind for s in trace.spans] == ["setup"] + ["goal"] * n_goals + ["finalize"]
+
+    def test_span_dispatches_sum_to_num_dispatches(self, traced_run):
+        result, path, _ = traced_run
+        trace = read_jsonl(path)[-1]
+        assert trace.total_dispatches == result.num_host_syncs
+        assert trace.attrs["num_dispatches"] == trace.attrs["num_host_syncs"] == result.num_host_syncs
+        assert all(s.dispatches >= 0 for s in trace.spans)
+
+    def test_span_attrs_mirror_goal_reports(self, traced_run):
+        result, path, _ = traced_run
+        trace = read_jsonl(path)[-1]
+        goal_spans = [s for s in trace.spans if s.kind == "goal"]
+        for span, rep in zip(goal_spans, result.goal_reports):
+            assert span.attrs["moves"] == rep.moves_applied
+            assert span.attrs["rounds"] == rep.rounds
+            assert span.attrs["violations_after"] == rep.violations_after
+
+    def test_trace_metadata(self, traced_run):
+        result, path, _ = traced_run
+        trace = read_jsonl(path)[-1]
+        assert trace.kind == "optimize"
+        assert trace.platform == "cpu"
+        assert trace.attrs["device_count"] >= 1
+        assert trace.attrs["balancedness"] == pytest.approx(result.balancedness_score)
+        assert trace.attrs["cost"]["memory_peak_bytes"] is None and trace.attrs["cost"]["flops"] is None
+
+    def test_aborted_optimize_keeps_dispatch_invariant(self):
+        from cruise_control_tpu_torch.analyzer import GoalContext, GoalOptimizer
+        from cruise_control_tpu_torch.analyzer import goals_base as G
+        from cruise_control_tpu_torch.analyzer.optimizer import OptimizationFailure
+        from tests.test_kafka_assigner import _piled_but_rack_aware
+
+        jstate, _ = _piled_but_rack_aware()
+        state = port_state(jstate)
+        alive = state.broker_alive.clone()
+        alive[2:] = False
+        state = state.replace(broker_alive=alive)
+        ctx = GoalContext.build(state.num_topics, state.num_brokers,
+                                excluded_brokers_for_replica_move=(1,), device="cpu")
+        opt = GoalOptimizer(goal_ids=(G.KAFKA_ASSIGNER_RACK,), hard_ids=(G.KAFKA_ASSIGNER_RACK,), device="cpu")
+        RECORDER.clear()
+        with pytest.raises(OptimizationFailure):
+            opt.optimize(state, ctx, raise_on_hard_failure=True)
+        trace = RECORDER.recent(1, kind="optimize")[0]
+        assert "error" in trace.attrs
+        aborted = [s for s in trace.spans if s.kind == "aborted"]
+        assert [s.name for s in aborted] == [G.GOAL_NAMES[G.KAFKA_ASSIGNER_RACK]]
+        assert trace.total_dispatches == trace.attrs["num_dispatches"] > 0
+
+
+# -- the executor record ------------------------------------------------------------
+
+
+def _execute(pkg):
+    import importlib
+
+    backend_mod = importlib.import_module(f"{pkg}.backend")
+    executor_mod = importlib.import_module(f"{pkg}.executor")
+    proposals = importlib.import_module(f"{pkg}.analyzer.proposals")
+    recorder = importlib.import_module(f"{pkg}.obs.recorder")
+    backend = backend_mod.FakeClusterBackend()
+    for b in range(3):
+        backend.add_broker(b, rack=str(b))
+    backend.create_partition(("T", 0), [0, 1], load=[1.0, 1.0, 1.0, 1.0])
+    recorder.RECORDER.clear()
+    summary = executor_mod.Executor(backend).execute_proposals([
+        proposals.ExecutionProposal(tp=("T", 0), partition_size=1.0, old_leader=0,
+                                    old_replicas=(0, 1), new_replicas=(0, 2)),
+    ])
+    return summary, recorder.RECORDER.recent(5, kind="execution")
+
+
+def test_executor_trace():
+    summary, traces = _execute("cruise_control_tpu_torch")
+    assert traces, "executor emitted no flight record"
+    t = traces[0]
+    assert t.attrs["completed"] == summary.completed == 1
+    assert {s.name for s in t.spans} == {"inter_broker", "intra_broker", "leadership"}
+    _, jtraces = _execute("cruise_control_tpu")
+    j = jtraces[0]
+    assert sorted(t.attrs) == sorted(j.attrs) and t.attrs["completed"] == j.attrs["completed"]
+    assert [(s.name, s.kind, s.attrs) for s in t.spans] == [(s.name, s.kind, s.attrs) for s in j.spans]
+
+
+def test_no_recorder_state_leaks_between_the_packages():
+    JR.RECORDER.clear()
+    RECORDER.clear()
+    _execute("cruise_control_tpu_torch")
+    assert JR.RECORDER.recent(5) == [] and len(RECORDER.recent(5)) == 1
+    assert np.isfinite(RECORDER.recent(1)[0].duration_s)
+    assert os.getpid() == int(RECORDER.recent(1)[0].trace_id.rsplit("-", 1)[1])

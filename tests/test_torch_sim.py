@@ -35,7 +35,7 @@ from cruise_control_tpu_torch.ops import index as IX
 from cruise_control_tpu_torch.ops.index import segment_max
 from cruise_control_tpu_torch.ops.segments import segment_sum_plain
 from cruise_control_tpu_torch.sim import batch as PB
-from tests.torch_port_helpers import port_ctx, port_state
+from tests.torch_port_helpers import assert_keys_superset, port_ctx, port_state
 
 LIGHT = dict(mean_cpu=0.08, mean_disk=0.08, mean_nw_in=0.08, mean_nw_out=0.06)
 SUBSET = tuple(JG.DEFAULT_GOAL_ORDER)
@@ -181,6 +181,9 @@ def test_fast_sweep_matches_jax(lanes):
     assert pr.sweep_size == jr.sweep_size == lanes and pr.bucket == jr.bucket
     assert [v.to_dict() for v in pr.scenarios] == [v.to_dict() for v in jr.scenarios]
     assert pr.num_host_syncs == 1
+    # the JAX wire keys (numDispatches, which the API schemas require) beside the port's
+    assert_keys_superset(pr.to_dict(), jr.to_dict())
+    assert pr.to_dict()["sweep"]["numDispatches"] == pr.num_host_syncs
     assert len({v.satisfiable for v in pr.scenarios}) == (1 if lanes == 1 else 2)
 
 
@@ -306,9 +309,11 @@ def test_plan_capacity_matches_jax(load_factor):
     )
     assert _message_shape(prec.message) == _message_shape(jrec.message)
     jmeta = {k: v for k, v in jrec.sweep.items() if k != "num_dispatches"}
-    pmeta = {k: v for k, v in prec.sweep.items() if k != "num_host_syncs"}
+    pmeta = {k: v for k, v in prec.sweep.items() if k not in ("num_host_syncs", "num_dispatches")}
     assert pmeta == jmeta
-    assert prec.sweep["num_host_syncs"] == pp.num_host_syncs >= 1
+    assert prec.sweep["num_host_syncs"] == prec.sweep["num_dispatches"] == pp.num_host_syncs >= 1
+    assert_keys_superset(prec.sweep, jrec.sweep)
+    assert_keys_superset(pp.to_dict(), jp.to_dict())
     if load_factor == 40.0:
         assert pp.min_brokers is None and prec.status == "UNDER_PROVISIONED"
 

@@ -37,7 +37,7 @@ from cruise_control_tpu_torch.sim import batch as PB
 from cruise_control_tpu_torch.traces import policy as PP
 from cruise_control_tpu_torch.traces import trace as PT
 from tests import fixtures
-from tests.torch_port_helpers import port_state
+from tests.torch_port_helpers import assert_keys_superset, port_state
 
 # the packages export a function named ``rollout`` over the module's name
 JR = importlib.import_module("cruise_control_tpu.traces.rollout")
@@ -72,6 +72,8 @@ def both(state, traces, policies, **kw):
     assert p.winners() == j.winners()
     assert (p.num_pairs, p.num_steps, p.bucket) == (j.num_pairs, j.num_steps, j.bucket)
     assert p.num_host_syncs == 1
+    # the JAX wire keys (numDispatches, which the API schemas require) beside the port's
+    assert_keys_superset(p.to_dict(), j.to_dict())
     return j, p
 
 
@@ -290,7 +292,9 @@ def test_horizon_requirements():
     tr = JT.spike_trace(num_steps=8, at=4, magnitude=4.0, decay=0.5)
     want = JR.horizon_requirements(state, tr)
     got = PR.horizon_requirements(port_state(state), p_trace(tr), device="cpu")
+    assert_keys_superset(got, want)
     assert got.pop("numHostSyncs") == 1 and want.pop("numDispatches") == 1
+    assert got.pop("numDispatches") == 1
     assert got == want
     assert got["brokersToAdd"] == max(got["peakBrokersNeeded"] - state.num_brokers, 0)
 

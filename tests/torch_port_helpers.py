@@ -134,3 +134,18 @@ def port_cluster_model(jmodel):
             model.mark_disk_removed(broker_id, d)
         model.set_broker_state(broker_id, b.state)
     return model
+
+
+def assert_keys_superset(port, jax, path="$"):
+    """Every key of the JAX wire dict is in the port's, recursively (the port
+    may add keys of its own, as the API schemas allow)."""
+    if isinstance(jax, dict):
+        assert isinstance(port, dict), f"{path}: {type(port).__name__} is not a dict"
+        missing = set(jax) - set(port)
+        assert not missing, f"{path}: the port lacks the JAX keys {sorted(missing)}"
+        for k, v in jax.items():
+            assert_keys_superset(port[k], v, f"{path}.{k}")
+    elif isinstance(jax, list) and jax and isinstance(jax[0], dict):
+        assert len(port) == len(jax), path
+        for i, (p, j) in enumerate(zip(port, jax)):
+            assert_keys_superset(p, j, f"{path}[{i}]")
