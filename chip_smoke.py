@@ -97,12 +97,36 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
 14. facade card vs CPU: the executed rebalance at config2_small on the CPU
    port and on the card; the proposals, the backend's admin log and final
    placement and the flight records' kinds and attribute names identical;
-15. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
+15. detector: the self-healing plane at config #2 width through
+   ``build_facade``, driven synchronously (``manager.run_detector_once``,
+   ``manager.handle_anomaly``, a ``SelfHealingNotifier`` on a fake clock):
+   the goal violations of the skewed start and their fix (an executed
+   rebalance; a re-detection must find fewer violated goals), a killed
+   broker (CHECK inside the grace period, FIXED after it: no replica left on
+   it, 0 hard violations in a fresh model on the card), and broker 5's only
+   logdir taken offline (FIXED; the replicas on it before and after are
+   reported: the goals refill the broker as the JAX package does).  Every
+   fix must execute, and the backend must equal its proposals.  Then a
+   threaded pass at config2_small: ``start_detection`` with the
+   broker-failure and goal-violation detectors on their own threads must
+   drain a killed broker within 120 s.  Both segment-sum paths must launch;
+16. detector card vs CPU: the synchronous drive at config2_small on the CPU
+   port and on the card; anomalies, actions, fixes' proposals, admin log,
+   final placement and record shapes identical;
+17. replay and harnesses: ``traces.run_replay`` on the JAX replay tests'
+   drift storm and quiet trace on the card and the CPU port (every step
+   identical but for the host-sync counts), then the controller, fleet and
+   traces bench harnesses once each at their pinned sizes; the controller
+   harness's warm-tick host syncs are printed beside the JAX dispatch
+   budget, not held to it;
+18. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
    ``launches`` and ``host_calls`` are the wrapper's count of host calls in
    phase 4's cold solve (phase 5's P1 for ``even_assign``), ``sim_launches``
    those of phase 6's cold S1 sweep, ``traces_launches`` those of phase 9's
    warm rollout, ``controller_launches`` those of phase 10's tick,
-   ``facade_launches`` those of phase 13's three rebalances;
+   ``facade_launches`` those of phase 13's three rebalances,
+   ``detector_launches`` those of phase 15 (detections, fixes and the
+   threaded pass), ``replay_launches`` those of phase 17's card runs;
    ``sim_shape`` and ``traces_shapes`` are phase 2's times at the sweep's and
    the rollout's call shapes; ``kernel_launches`` are the kernels
    those calls enqueued in phase 7's solve (the fixed-order path enqueues
@@ -1309,7 +1333,7 @@ def phase_controller(dev, config2_final, maps):
         tick_s = time.monotonic() - t0
         calls = _counts()
         drift = c._last_drift
-        spans = {s["name"]: s for s in c.last_spans}
+        spans = {s.name: s for s in c.last_spans}
         c2 = _controller(SmokeFacade(config2_final, maps, loads), dev,
                          journal=ControllerJournal(Journal(jdir)))
         records = c2.recover()
@@ -1319,9 +1343,9 @@ def phase_controller(dev, config2_final, maps):
             trigger=published and published.trigger, drift_score=drift.score,
             drifted_goals=drift.violated_goals, balancedness=drift.balancedness,
             goals_run=attrs.get("goals_run"), moves=attrs.get("moves"),
-            rounds=spans["optimize"]["attrs"]["rounds"] if "optimize" in spans else None,
-            num_host_syncs=sum(s["host_syncs"] for s in c.last_spans),
-            span_s={k: s["seconds"] for k, s in spans.items()},
+            rounds=spans["optimize"].attrs["rounds"] if "optimize" in spans else None,
+            num_host_syncs=sum(s.dispatches for s in c.last_spans),
+            span_s={k: s.duration_s for k, s in spans.items()},
             proposals=len(published.proposals) if published else 0, host_calls=calls,
             journal_records=records, recovered_version=c2.standing and c2.standing.version)
         check(published is not None and published.trigger == "drift", "controller: the shift published nothing")
@@ -1368,8 +1392,8 @@ def phase_fleet(dev, config2_final, maps):
     say("fleet", config="config2", tenants=len(SHIFT_FACTORS), shifts=list(SHIFT_FACTORS), tick_wall_s=wall,
         standalone_ticks_wall_s=solo_s, groups=attrs and attrs["groups"],
         published=attrs and attrs["published"], num_host_syncs=attrs and attrs["num_host_syncs"],
-        span_s={s["name"]: s["seconds"] for s in fleet.last_spans if s["name"] != "publish"},
-        goals_run=[s["attrs"].get("goals_run") for s in fleet.last_spans if s["name"] == "optimize"],
+        span_s={s.name: s.duration_s for s in fleet.last_spans if s.name != "publish"},
+        goals_run=[s.attrs.get("goals_run") for s in fleet.last_spans if s.name == "optimize"],
         proposals=[len(s.proposals) if s else 0 for s in sets], host_calls=calls)
     check(attrs is not None and attrs["published"] == len(SHIFT_FACTORS), f"fleet: {attrs}")
     for i, (s, solo) in enumerate(zip(sets, solos)):
@@ -1584,6 +1608,310 @@ def phase_facade_card_vs_cpu(dev):
     check(dg.execution is not None and dg.execution.succeeded, "facade: the card's execution did not succeed")
 
 
+#: the self-healing notifier's grace period on the detector phases' fake clock
+ALERT_MS, SELF_HEAL_MS = 10_000, 20_000
+#: the broker the detector phases kill, and the broker whose only logdir dies
+DEAD_BROKER, BAD_DISK_BROKER, BAD_LOGDIR = 3, 5, "/data/d0"
+#: the threaded pass's detector interval (s) and its bound on the drain (s)
+DETECTOR_INTERVAL_S, DRAIN_TIMEOUT_S = 0.5, 120.0
+
+
+def _anomaly_row(a) -> dict:
+    """An anomaly as plain data, without its id and clock."""
+    from cruise_control_tpu_torch.detector import BrokerFailures, DiskFailures, GoalViolations
+
+    row = {"type": a.anomaly_type.name, "description": a.description()}
+    if isinstance(a, GoalViolations):
+        row.update(violated_goals=list(a.violated_goals), fixable=a.fixable)
+    if isinstance(a, BrokerFailures):
+        row.update(failed_brokers=sorted(a.failed_brokers))
+    if isinstance(a, DiskFailures):
+        row.update(failed_disks={b: list(d) for b, d in sorted(a.failed_disks.items())})
+    return row
+
+
+def _hard_violations(cc, dev) -> float:
+    """Hard-goal violations of a fresh model of the cluster, on ``dev``."""
+    from cruise_control_tpu_torch.analyzer import GoalContext, GoalOptimizer
+    from cruise_control_tpu_torch.analyzer import goals_base as G
+
+    state, _ = cc.cluster_model().to_arrays(device=dev)
+    viol = GoalOptimizer(device=dev).violations(state, GoalContext.build(state.num_topics, state.num_brokers,
+                                                                          device=dev))
+    return float(sum(viol[g] for g in G.HARD_GOALS).item())
+
+
+def self_heal_steps(spec, dev, workdir, detailed=False):
+    """The synchronous self-healing drive of phases ``detector`` and
+    ``detector_card_vs_cpu``: through ``build_facade(spec, dev)``, a
+    ``SelfHealingNotifier`` on a fake clock and ``manager.run_detector_once``
+    / ``manager.handle_anomaly``:
+
+    1. goal violations on the skewed start, fixed by an executed rebalance,
+       then a re-detection;
+    2. ``kill_broker(DEAD_BROKER)``: CHECK inside the grace period, FIXED
+       (``remove_brokers``) once the fake clock passes it;
+    3. ``kill_logdir(BAD_DISK_BROKER, BAD_LOGDIR)``, the broker's only
+       logdir: FIXED (``fix_offline_replicas``).
+
+    Returns the comparable outcome (anomalies, actions, every fix's
+    proposals, the admin log, the final placement, the records' shapes) and,
+    with ``detailed``, the walls and counts the phase prints."""
+    from cruise_control_tpu_torch.detector import (
+        AnomalyDetectorManager,
+        BrokerFailureDetector,
+        DiskFailureDetector,
+        GoalViolationDetector,
+        SelfHealingNotifier,
+    )
+    from cruise_control_tpu_torch.obs import RECORDER
+
+    RECORDER.clear()
+    cc, sample_s = build_facade(spec, dev)
+    backend = cc.backend
+    clock = {"now": 1_000_000}
+    notifier = SelfHealingNotifier(broker_failure_alert_threshold_ms=ALERT_MS,
+                                   broker_failure_self_healing_threshold_ms=SELF_HEAL_MS,
+                                   now_ms=lambda: clock["now"])
+    manager = AnomalyDetectorManager(cc, notifier, detectors=[])
+    out, info = {"anomalies": [], "actions": [], "fixes": []}, {"sampling_wall_s": sample_s, "steps": []}
+
+    def detect(detector):
+        t0 = time.monotonic()
+        check(manager.run_detector_once(detector) == 1, f"detector: {type(detector).__name__} found no anomaly")
+        anomaly = manager._next_anomaly(timeout_s=0.0)
+        out["anomalies"].append(_anomaly_row(anomaly))
+        return anomaly, time.monotonic() - t0
+
+    def handle(anomaly, step, want):
+        t0 = time.monotonic()
+        action = manager.handle_anomaly(anomaly)
+        _sync(dev)
+        out["actions"].append(action)
+        check(action == want, f"detector: step {step} gave {action}, want {want}")
+        row = {"step": step, "action": action, "handle_wall_s": time.monotonic() - t0}
+        res = anomaly.fix_result
+        if action == "FIXED":
+            s, opt = res.execution, res.optimizer_result
+            check(s is not None and s.succeeded, f"detector: step {step}'s execution did not succeed: {s}")
+            placement = backend_placement(backend)
+            wrong = [p.tp for p in opt.proposals if placement[p.tp] != (p.new_replicas, p.new_replicas[0])]
+            check(not wrong, f"detector: step {step}: {len(wrong)} partitions off their proposed placement")
+            out["fixes"].append([(p.tp, p.old_replicas, p.new_replicas) for p in opt.proposals])
+            row.update(num_host_syncs=opt.num_host_syncs, rounds=sum(r.rounds for r in opt.goal_reports),
+                       proposals=len(opt.proposals), total_moves=opt.total_moves,
+                       residual_hard_violations=opt.residual_hard_violations,
+                       tasks=dict(completed=s.completed, dead=s.dead, aborted=s.aborted, failed=s.failed))
+        info["steps"].append(row)
+        return action
+
+    # 1. goal violations, their fix, a re-detection
+    gv = GoalViolationDetector(cc, cc.goal_ids)
+    a, det_s = detect(gv)
+    check(a.anomaly_type.name == "GOAL_VIOLATION" and a.fixable, f"detector: {a.description()} is not fixable")
+    check(gv.balancedness_score < 100.0, f"detector: balancedness {gv.balancedness_score} on the skewed start")
+    info.update(violated_goals=list(a.violated_goals), balancedness=gv.balancedness_score, detect_goal_s=det_s)
+    handle(a, "goal violations", "FIXED")
+    again = gv.run()
+    after = len(again[0].violated_goals) if again else 0
+    out["redetected"] = [_anomaly_row(x) for x in again]
+    check(after < len(a.violated_goals), f"detector: {after} goals violated after the fix, {len(a.violated_goals)} before")
+    hard = _hard_violations(cc, dev)
+    check(hard == 0, f"detector: {hard} hard violations in a fresh model after the goal fix")
+    info.update(violated_goals_after=after, hard_violations_after_goal_fix=hard)
+
+    # 2. a dead broker, held back by the grace period, then drained
+    backend.kill_broker(DEAD_BROKER)
+    bf = BrokerFailureDetector(backend, os.path.join(workdir, f"failed-brokers-{dev.type}.json"),
+                               now_ms=lambda: clock["now"])
+    a, _ = detect(bf)
+    check(a.failed_brokers == {DEAD_BROKER: clock["now"]}, f"detector: failed brokers {a.failed_brokers}")
+    handle(a, "broker failure, in the grace period", "CHECK")
+    clock["now"] += SELF_HEAL_MS + 5_000
+    a, det_s = detect(bf)
+    handle(a, "broker failure", "FIXED")
+    on_dead = [tp for tp, (replicas, _) in backend_placement(backend).items() if DEAD_BROKER in replicas]
+    check(not on_dead, f"detector: {len(on_dead)} partitions still on the dead broker, e.g. {on_dead[:3]}")
+    hard = _hard_violations(cc, dev)
+    check(hard == 0, f"detector: {hard} hard violations in a fresh model after the broker fix")
+    info.update(detect_broker_s=det_s, hard_violations_after_broker_fix=hard)
+
+    # 3. the only logdir of a broker goes offline
+    offline = sorted(tp for tp, (replicas, _) in backend_placement(backend).items() if BAD_DISK_BROKER in replicas)
+    backend.kill_logdir(BAD_DISK_BROKER, BAD_LOGDIR)
+    a, det_s = detect(DiskFailureDetector(backend))
+    check(a.failed_disks == {BAD_DISK_BROKER: [BAD_LOGDIR]}, f"detector: failed disks {a.failed_disks}")
+    handle(a, "disk failure", "FIXED")
+    placement = backend_placement(backend)
+    left = [tp for tp in offline if BAD_DISK_BROKER in placement[tp][0]]
+    # the goals after the offline pre-phase refill the broker (alive, BAD_DISKS)
+    # as the JAX package does: what lands on its only logdir is offline again
+    # (ROADMAP Queue C, C4), so the count is reported, not held to 0
+    now_on = [tp for tp, (replicas, _) in placement.items() if BAD_DISK_BROKER in replicas]
+    info.update(detect_disk_s=det_s, replicas_on_offline_logdir_before=len(offline),
+                offline_replicas_left=len(left), replicas_on_offline_logdir_after=len(now_on),
+                hard_violations_after_disk_fix=_hard_violations(cc, dev))
+
+    out["admin_log"] = backend.admin_log
+    out["placement"] = placement
+    out["records"] = _record_shape(reversed(RECORDER.recent(RECORDER.capacity)))
+    if detailed:
+        kinds = {}
+        for r in reversed(RECORDER.recent(RECORDER.capacity)):
+            kinds.setdefault(r.kind, []).append(r.duration_s)
+        info["walls_by_record_kind_s"] = kinds
+        st = manager.state()
+        info["manager_state"] = dict(num_self_healing_started=st.num_self_healing_started,
+                                     num_self_healing_failed=st.num_self_healing_failed,
+                                     queue_size=st.queue_size,
+                                     recent_anomalies={k: v for k, v in st.recent_anomalies.items() if v})
+    return out, info
+
+
+def _threaded_pass(dev, workdir):
+    """``start_detection`` at config2_small: the broker-failure and
+    goal-violation detectors on their own threads, the handler on a third;
+    a killed broker must be drained within ``DRAIN_TIMEOUT_S``."""
+    from cruise_control_tpu_torch.detector import (
+        AnomalyDetectorManager,
+        BrokerFailureDetector,
+        GoalViolationDetector,
+        SelfHealingNotifier,
+    )
+    from cruise_control_tpu_torch.obs import RECORDER
+
+    RECORDER.clear()
+    cc, _ = build_facade(CONFIG2_SMALL, dev)
+    notifier = SelfHealingNotifier(broker_failure_alert_threshold_ms=0, broker_failure_self_healing_threshold_ms=0)
+    manager = AnomalyDetectorManager(cc, notifier, detectors=[
+        (BrokerFailureDetector(cc.backend, os.path.join(workdir, "threaded.json")), DETECTOR_INTERVAL_S),
+        (GoalViolationDetector(cc, cc.goal_ids), DETECTOR_INTERVAL_S),
+    ])
+    cc.backend.kill_broker(DEAD_BROKER)
+    t0 = time.monotonic()
+    manager.start_detection()
+    threads = list(manager._threads)
+    drained = False
+    try:
+        while not drained and time.monotonic() - t0 < DRAIN_TIMEOUT_S:
+            time.sleep(0.1)
+            drained = not cc.executor.has_ongoing_execution and all(
+                DEAD_BROKER not in replicas for replicas, _ in backend_placement(cc.backend).values())
+    finally:
+        manager.shutdown()
+        # shutdown waits 5 s a thread; a pass in the middle of a solve takes
+        # longer, and must end before the next phase reads the recorder
+        for t in threads:
+            t.join(timeout=DRAIN_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    check(not any(t.is_alive() for t in threads), "detector: a detector thread outlived the threaded pass")
+    actions = [r.attrs.get("action") for r in reversed(RECORDER.recent(RECORDER.capacity, kind="anomaly"))]
+    passes = len(RECORDER.recent(RECORDER.capacity, kind="detector"))
+    st = manager.state()
+    row = dict(drained=drained, wall_s=wall, actions=actions, detector_passes=passes,
+               num_self_healing_started=st.num_self_healing_started,
+               num_self_healing_failed=st.num_self_healing_failed)
+    check(drained, f"detector: the threaded pass did not drain broker {DEAD_BROKER} in {DRAIN_TIMEOUT_S} s: {row}")
+    check(st.num_self_healing_failed == 0 and "FIX_FAILED" not in actions and "IGNORE" not in actions,
+          f"detector: the threaded pass: {row}")
+    return row
+
+
+def phase_detector(dev):
+    """The self-healing plane on the card at config #2 width (steps 1-3 of
+    :func:`self_heal_steps`), then the threaded pass at config2_small.
+    Returns the kernel host calls of the whole phase."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="cc-smoke-detector-") as workdir:
+        _reset_counts()
+        _, info = self_heal_steps(CONFIG2, dev, workdir, detailed=True)
+        threaded = _threaded_pass(dev, workdir)
+        launches = _counts()
+    say("detector", brokers=CONFIG2["num_brokers"], partitions=CONFIG2["num_partitions"], **info,
+        threaded=threaded, host_calls=launches)
+    for path in ("segment_sum_f32", "segment_sum_i32"):
+        check(launches[path] > 0, f"detector: kernel path {path} never launched on the self-healing path")
+    return launches
+
+
+def phase_detector_card_vs_cpu(dev):
+    """:func:`self_heal_steps` at config2_small on the CPU port and on the
+    card: the anomalies, actions, fixes' proposals, admin log, final
+    placement and record shapes must be identical."""
+    import tempfile
+
+    out, walls = {}, {}
+    with tempfile.TemporaryDirectory(prefix="cc-smoke-detector-") as workdir:
+        for where in (torch.device("cpu"), dev):
+            t0 = time.monotonic()
+            out[where.type], _ = self_heal_steps(CONFIG2_SMALL, where, workdir)
+            walls[where.type] = time.monotonic() - t0
+    c, g = out["cpu"], out[dev.type]
+    say("detector_card_vs_cpu", cpu_wall_s=walls["cpu"], gpu_wall_s=walls[dev.type], actions=g["actions"],
+        anomalies=[a["description"] for a in g["anomalies"]], proposals=[len(f) for f in g["fixes"]],
+        record_kinds=sorted({k for k, _, _ in g["records"]}))
+    for key in ("anomalies", "actions", "fixes", "redetected", "admin_log", "placement", "records"):
+        check(g[key] == c[key], f"detector: the card's {key} differ from the CPU port's")
+
+
+#: the JAX replay tests' traces (tests/test_traces.py::TestReplay)
+REPLAY_STORM = dict(phases=3, hold=3, magnitude=20.0)
+REPLAY_QUIET = dict(name="flat", num_steps=6, step_s=60.0)
+
+
+def phase_replay_harnesses(dev):
+    """``run_replay`` on the JAX replay tests' drift storm and quiet trace on
+    the card and on the CPU port (publishes, reactions, every step's
+    outcome identical but for the host-sync counts), then the three ported
+    bench harnesses once each at their pinned sizes on the card.  Returns
+    the kernel host calls of the card's replays and harnesses."""
+    from cruise_control_tpu_torch.controller import bench as CB
+    from cruise_control_tpu_torch.fleet import bench as FB
+    from cruise_control_tpu_torch.traces import LoadTrace, drift_storm_trace, run_replay
+
+    TB = importlib.import_module("cruise_control_tpu_torch.traces.bench")
+
+    def comparable(report):
+        d = report.to_dict()
+        d["replay"] = {k: v for k, v in d["replay"].items() if k not in ("durationS", "totalDispatches")}
+        d["steps"] = [{k: v for k, v in st.items() if k != "num_dispatches"} for st in d["steps"]]
+        return d
+
+    _reset_counts()
+    rows = {}
+    for name, make in (("drift_storm", lambda: drift_storm_trace(**REPLAY_STORM)),
+                       ("quiet", lambda: LoadTrace(**REPLAY_QUIET))):
+        got = {}
+        for where in (torch.device("cpu"), dev):
+            got[where.type] = run_replay(make(), device=where)
+        c, g = got["cpu"], got[dev.type]
+        rows[name] = dict(published=g.published, reactions=g.reactions, steps=g.steps,
+                          host_syncs=dict(cpu=c.total_dispatches, gpu=g.total_dispatches),
+                          wall_s=dict(cpu=c.duration_s, gpu=g.duration_s),
+                          warm_kernel_builds=g.warm_compile_events)
+        check(comparable(g) == comparable(c), f"replay {name}: the card's report differs from the CPU port's")
+        check(g.warm_compile_events == 0, f"replay {name}: {g.warm_compile_events} kernel builds after a publish")
+    check(1 <= rows["drift_storm"]["published"] <= REPLAY_STORM["phases"], f"replay: {rows['drift_storm']}")
+    check(rows["quiet"]["published"] <= 1, f"replay: the quiet trace published {rows['quiet']['published']}")
+    harness = {}
+    for name, run in (("controller", lambda: CB.run_bench(device=dev)), ("fleet", lambda: FB.run_bench(device=dev)),
+                      ("traces", lambda: TB.run_bench(device=dev))):
+        t0 = time.monotonic()
+        harness[name] = run()
+        harness[name]["harness_wall_s"] = time.monotonic() - t0
+    launches = _counts()
+    say("replay_harnesses", replays=rows, **{f"{k}_harness": v for k, v in harness.items()},
+        controller_warm_tick_host_syncs=harness["controller"]["warm_tick_host_syncs"],
+        controller_dispatch_budget=harness["controller"]["dispatch_budget"], host_calls=launches)
+    check(harness["controller"]["published"] == CB.SHIFTS, f"controller harness: {harness['controller']}")
+    check(harness["fleet"]["published"] == FB.NUM_TENANTS * FB.SHIFTS, f"fleet harness: {harness['fleet']}")
+    check(harness["traces"]["warm_host_syncs"] == 1, f"traces harness: {harness['traces']}")
+    for name, h in harness.items():
+        check(h["warm_compile_events"] == 0, f"{name} harness: kernel builds when warm: {h}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1621,6 +1949,9 @@ def main() -> int:
     phase_traces_controller_card_vs_cpu(dev, small_final)
     facade_launches = phase_facade(dev)
     phase_facade_card_vs_cpu(dev)
+    detector_launches = phase_detector(dev)
+    phase_detector_card_vs_cpu(dev)
+    replay_launches = phase_replay_harnesses(dev)
 
     kernels = []
     for path in ("segment_sum_f32", "segment_sum_i32"):
@@ -1639,7 +1970,8 @@ def main() -> int:
             "plain_call_ms": rec["plain_call_ms"], "library_call_ms": rec["library_call_ms"],
             "shape": rec["case"], "sim_launches": sim_launches[path],
             "traces_launches": traces_launches[path], "controller_launches": controller_launches[path],
-            "facade_launches": facade_launches[path],
+            "facade_launches": facade_launches[path], "detector_launches": detector_launches[path],
+            "replay_launches": replay_launches[path],
             "traces_shapes": [{k: r[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
                                                  "library_device_ms", "library_call_ms", "bound_ms", "bound_by")}
                               for r in at_rollout],
@@ -1664,6 +1996,8 @@ def main() -> int:
         "sim_launches": sim_launches["even_assign"], "traces_launches": traces_launches["even_assign"],
         "controller_launches": controller_launches["even_assign"],
         "facade_launches": facade_launches["even_assign"],
+        "detector_launches": detector_launches["even_assign"],
+        "replay_launches": replay_launches["even_assign"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -67,6 +67,18 @@ DEFAULT_PRIORITY_WEIGHT = 1.1
 DEFAULT_STRICTNESS_WEIGHT = 1.5
 
 
+def cost_block() -> dict:
+    """A flight record's ``cost`` block with the JAX package's keys: XLA's
+    FLOPs and bytes have no counterpart on an eager path (None); the device
+    memory watermark does."""
+    from cruise_control_tpu_torch.obs.profiler import PROFILER
+
+    return {
+        "flops": None, "bytes_accessed": None, "profiled_calls": 0,
+        "unanalyzed_calls": 0, "memory_peak_bytes": PROFILER.memory_peak_bytes(),
+    }
+
+
 def balancedness_cost_by_goal(
     goal_ids: Sequence[int],
     hard_ids,
@@ -760,7 +772,6 @@ class GoalOptimizer:
         attribute names; ``num_dispatches`` and the spans' ``dispatches``
         carry host syncs."""
         from cruise_control_tpu_torch.obs import recorder as obs
-        from cruise_control_tpu_torch.obs.profiler import PROFILER
 
         spans = [obs.Span("setup", "setup", setup_s, setup_syncs)]
         for rep, (*_, goal_syncs) in zip(result.goal_reports, raw):
@@ -803,12 +814,7 @@ class GoalOptimizer:
                 "num_partitions": state.num_partitions,
                 "num_replicas": state.num_replicas,
                 "movement": dataclasses.asdict(result.movement),
-                # the JAX block's keys: XLA's FLOPs/bytes have no counterpart
-                # on an eager path (None), the memory watermark does
-                "cost": {
-                    "flops": None, "bytes_accessed": None, "profiled_calls": 0,
-                    "unanalyzed_calls": 0, "memory_peak_bytes": PROFILER.memory_peak_bytes(),
-                },
+                "cost": cost_block(),
                 **obs.mesh_metadata(self.device),
             },
             device=self.device,
@@ -840,7 +846,14 @@ class GoalOptimizer:
         As in the JAX package: the unbucketed walk, no proposals, empty
         ``stats_before/after`` and per-lane ``provision`` and ``movement``;
         with the kafka-assigner goal every lane runs the batch's largest
-        replication factor of position passes."""
+        replication factor of position passes.  One ``"optimize"`` flight
+        record with the JAX batched record's names: a ``setup`` span (every
+        lane's leading probe and offline pre-phases), one span per goal (its
+        walls and host syncs summed over the lanes) and a ``finalize`` span."""
+        from cruise_control_tpu_torch.core.sensors import PROPOSAL_COMPUTATION_TIMER, REGISTRY
+        from cruise_control_tpu_torch.obs import recorder as obs
+
+        token = obs.start_trace("optimize")
         t0 = time.monotonic()
         syncs = HostSyncs()
         states, ctx = states.to(self.device), ctx.to(self.device)
@@ -849,19 +862,28 @@ class GoalOptimizer:
         max_rf = (
             _max_replication_factor(states, syncs) if G.KAFKA_ASSIGNER_RACK in self.goal_ids else 1
         )
+        setup_s, setup_syncs = time.monotonic() - t0, syncs.count
+        goal_walls = {g: 0.0 for g in self.goal_ids}
+        goal_syncs = {g: 0 for g in self.goal_ids}
         finals, lanes = [], []
         for i in range(A.num_lanes(states)):
+            s0, c0 = time.monotonic(), syncs.count
             state = A.index_arrays(states, i)
             viol0 = _violations_fn(state, ctx, heavy, self.goal_ids)
             state = self._offline_repair(state, ctx, max_rounds, syncs)
+            setup_s += time.monotonic() - s0
+            setup_syncs += syncs.count - c0
             raw: List[tuple] = []
             prior: Tuple[int, ...] = ()
             for gid in self.goal_ids:
-                g0 = time.monotonic()
+                g0, c0 = time.monotonic(), syncs.count
                 state, rounds, moves, before, after, _ = self._run_goal(
                     gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
                 )
-                raw.append((gid, rounds, moves, before, after, time.monotonic() - g0))
+                wall = time.monotonic() - g0
+                raw.append((gid, rounds, moves, before, after, wall))
+                goal_walls[gid] += wall
+                goal_syncs[gid] += syncs.count - c0
                 prior = prior + (gid,)
             finals.append(state)
             lanes.append((viol0, _violations_fn(state, ctx, heavy, self.goal_ids), raw))
@@ -905,6 +927,42 @@ class GoalOptimizer:
                 movement=movement_stats(A.index_arrays(initial_h, i), final_i),
                 num_host_syncs=syncs.count,
             ))
+        REGISTRY.timer(PROPOSAL_COMPUTATION_TIMER).update(duration)
+
+        spans = [obs.Span("setup", "setup", setup_s, setup_syncs)]
+        for j, gid in enumerate(self.goal_ids):
+            reps = [r.goal_reports[j] for r in results]
+            spans.append(obs.Span(
+                names[gid], "goal", goal_walls[gid], goal_syncs[gid],
+                attrs={
+                    "moves": sum(r.moves_applied for r in reps),
+                    "lanes_unsatisfied": sum(1 for r in reps if r.violations_after > 0),
+                    "hard": gid in self.hard_ids,
+                },
+            ))
+        spans.append(obs.Span(
+            "finalize", "finalize",
+            max(duration - setup_s - sum(goal_walls.values()), 0.0),
+            syncs.count - setup_syncs - sum(goal_syncs.values()),
+        ))
+        obs.finish_trace(
+            token,
+            spans=spans,
+            attrs={
+                "batched": True,
+                "batch_size": len(results),
+                "num_goals": len(self.goal_ids),
+                "num_dispatches": syncs.count,
+                # leaves are [S, ...]-stacked: the trailing axis is the shape
+                "num_brokers": int(states.broker_rack.shape[-1]),
+                "num_partitions": int(states.partition_topic.shape[-1]),
+                "num_replicas": int(states.replica_partition.shape[-1]),
+                "fast_mode": bool(ctx.fast_mode),
+                "cost": cost_block(),
+                **obs.mesh_metadata(self.device),
+            },
+            device=self.device,
+        )
         return final, BatchedResult(
             results=results, batch_size=len(results), num_host_syncs=syncs.count,
             duration_s=duration,

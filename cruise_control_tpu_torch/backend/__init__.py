@@ -3,7 +3,8 @@
 Port of ``cruise_control_tpu/backend``: :class:`ClusterBackend` is the narrow
 interface the monitor and the executor talk to, and
 :class:`FakeClusterBackend` the deterministic in-process stand-in tests and
-demos use.  The circuit breaker and the chaos backend are not ported yet.
+demos use, :class:`BreakerBackend` the circuit breaker around any backend
+and :class:`ChaosBackend` the seeded fault injector.
 """
 
 from cruise_control_tpu_torch.backend.base import (
@@ -15,12 +16,30 @@ from cruise_control_tpu_torch.backend.base import (
     RawMetric,
     ReassignmentInProgress,
 )
+from cruise_control_tpu_torch.backend.breaker import (
+    BreakerBackend,
+    BreakerOpenError,
+    CircuitBreaker,
+)
+from cruise_control_tpu_torch.backend.chaos import (
+    ChaosBackend,
+    ChaosInjectedError,
+    FaultPlan,
+    SimulatedCrash,
+)
 from cruise_control_tpu_torch.backend.fake import FakeClusterBackend
 
 __all__ = [
+    "BreakerBackend",
+    "BreakerOpenError",
     "BrokerInfo",
+    "ChaosBackend",
+    "ChaosInjectedError",
+    "CircuitBreaker",
+    "SimulatedCrash",
     "ClusterBackend",
     "ClusterDescription",
+    "FaultPlan",
     "LogdirInfo",
     "PartitionInfo",
     "RawMetric",

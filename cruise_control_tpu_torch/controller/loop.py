@@ -49,9 +49,11 @@ The seam to the rest of the service is the JAX package's, duck-typed: a
 ``backend.describe_cluster()`` and ``executor.execute_proposals`` (reached
 only with ``execute=True``).  The tick phases (``tick_begin_evidence`` ...
 ``tick_commit``) are the fleet's seam, as in the JAX package.  Each phase
-appends a plain span record (name, kind, seconds, host syncs, attributes) to
-the caller's ``spans`` list; the flight records the JAX package writes from
-them (``obs.start_trace`` / ``finish_trace``) wait for the port's ``obs/``.
+appends an ``obs.Span`` (its ``dispatches`` count host syncs) to
+the caller's ``spans`` list.  A single-tenant evaluation is one
+``controller_tick`` flight record with the JAX package's attribute names
+(``num_dispatches`` carries the host-sync count; the tick's own attributes
+add ``num_host_syncs``); ``last_spans`` is a view of its spans.
 """
 
 from __future__ import annotations
@@ -77,11 +79,7 @@ from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model.model_utils import follower_cpu_from_leader_load
 from cruise_control_tpu_torch.monitor.loadmonitor import WindowDelta
-
-
-def _span(name: str, kind: str, seconds: float, host_syncs: int, **attrs) -> dict:
-    """One phase's span record (the fields of the JAX package's ``obs.Span``)."""
-    return {"name": name, "kind": kind, "seconds": seconds, "host_syncs": host_syncs, "attrs": attrs}
+from cruise_control_tpu_torch.obs import recorder as obs
 
 
 @dataclasses.dataclass
@@ -184,8 +182,8 @@ class ContinuousController:
         self._started_mono = self._clock()
         self._last_topology_probe = 0.0
         self._last_tick_attrs: Optional[dict] = None
-        #: the span records of the last single-tenant evaluation
-        self.last_spans: List[dict] = []
+        #: the spans of the last single-tenant evaluation's flight record
+        self.last_spans: List[obs.Span] = []
 
         self._stop = threading.Event()
         self._wake = threading.Event()
@@ -751,10 +749,13 @@ class ContinuousController:
                 # the evidence was NOT answered: its reaction clock resumes
                 restore_anchor()
         spans.append(
-            _span(
+            obs.Span(
                 "publish", "publish", time.monotonic() - t0, 0,
-                proposals=len(proposals), error=publish_error,
-                **({"tenant": self.tenant} if self.tenant else {}),
+                attrs={
+                    "proposals": len(proposals),
+                    "error": publish_error,
+                    **({"tenant": self.tenant} if self.tenant else {}),
+                },
             )
         )
 
@@ -803,7 +804,9 @@ class ContinuousController:
     # -- the single-tenant driver --------------------------------------------
 
     def _evaluate_and_tick(self, force: bool) -> Optional[StandingProposalSet]:
-        spans: List[dict] = []
+        token = obs.start_trace("controller_tick")
+        spans: List[obs.Span] = []
+        self.last_spans = spans
 
         # -- ingest: refresh the load leaves in place -------------------------
         t0 = time.monotonic()
@@ -811,11 +814,13 @@ class ContinuousController:
         refreshed, ingest_error = self.tick_ingest(had_delta)
         if ingest_error is not None:
             _restore_anchor()
-            self.last_spans = spans
+            self._finish(token, spans, {"skipped": True, "error": ingest_error})
             return None
         spans.append(
-            _span("ingest", "ingest", time.monotonic() - t0, 0,
-                  partitions_refreshed=max(refreshed, 0))
+            obs.Span(
+                "ingest", "ingest", time.monotonic() - t0, 0,
+                attrs={"partitions_refreshed": max(refreshed, 0)},
+            )
         )
 
         # -- drift: one violations probe (one host fetch) + host math ---------
@@ -826,23 +831,44 @@ class ContinuousController:
         )
         report, trigger, stale = self.tick_decide(viol_now, force)
         spans.append(
-            _span("drift", "drift", time.monotonic() - t0, syncs.count,
-                  score=report.score, hard_score=report.hard_score,
-                  violated_goals=report.violated_goals)
+            obs.Span(
+                "drift", "drift", time.monotonic() - t0, syncs.count,
+                attrs={
+                    "score": report.score,
+                    "hard_score": report.hard_score,
+                    "violated_goals": report.violated_goals,
+                },
+            )
         )
 
         if trigger is None:
             self.tick_skipped()
             _restore_anchor()
-            self.last_spans = spans
+            standing = self.standing
+            self._finish(token, spans, {
+                "skipped": True,
+                "stale": stale,
+                "drift": report.score,
+                "balancedness": report.balancedness,
+                "standing_version": standing.version if standing else None,
+            })
             return None
 
         return self._tick(
-            spans, viol_now, report, trigger, anchor, _restore_anchor
+            token, spans, viol_now, report, trigger, anchor, _restore_anchor
+        )
+
+    def _finish(self, token, spans, attrs: dict) -> None:
+        """Close the ``controller_tick`` record under the JAX attribute names:
+        the tick's ``num_host_syncs`` rides as ``num_dispatches`` alone."""
+        obs.finish_trace(
+            token, spans=spans,
+            attrs={k: v for k, v in attrs.items() if k != "num_host_syncs"},
+            device=self.device,
         )
 
     def _tick(
-        self, spans, viol_now, report: DriftReport, trigger: str,
+        self, token, spans, viol_now, report: DriftReport, trigger: str,
         anchor: Optional[float], restore_anchor,
     ) -> Optional[StandingProposalSet]:
         # -- bounded incremental optimize from the CURRENT placement ----------
@@ -860,18 +886,23 @@ class ContinuousController:
         syncs = HostSyncs()
         final_host = syncs.state(final)
         spans.append(
-            _span("optimize", "optimize", time.monotonic() - t0,
-                  inc.num_host_syncs + syncs.count,
-                  goals_run=inc.goals_run, moves=inc.total_moves,
-                  rounds=inc.total_rounds,
-                  max_rounds_per_tick=self.cfg.max_rounds_per_tick)
+            obs.Span(
+                "optimize", "optimize", time.monotonic() - t0,
+                inc.num_host_syncs + syncs.count,
+                attrs={
+                    "goals_run": inc.goals_run,
+                    "moves": inc.total_moves,
+                    "rounds": inc.total_rounds,
+                    "max_rounds_per_tick": self.cfg.max_rounds_per_tick,
+                },
+            )
         )
 
         published, attrs = self.tick_commit(
             spans, report, trigger, anchor, restore_anchor,
             initial_host, final_host, inc, final_dev=final,
         )
-        self.last_spans = spans
+        self._finish(token, spans, attrs)
         return published
 
     def _drain_standing(self, final_host) -> bool:

@@ -37,9 +37,12 @@ holds N tenant clusters.
   (``admission.set_tier_override``) keep one noisy tenant from starving the
   rest of the fleet.
 
-The fleet tick's flight record (``kind="fleet_tick"``) waits for the port's
-``obs/``; its span records and attributes are kept in ``last_spans`` and
-``status()``.
+Each fleet tick is one ``fleet_tick`` flight record with the JAX package's
+attribute names (``num_host_syncs``, the port's own count, stays in the tick's
+attributes and ``status()``); ``last_spans`` is a view of its spans.
+``probe_dispatches`` counts the batched probes, one a group as in the JAX
+package, each one host sync; ``optimize_dispatches`` counts the host syncs of
+the batched solves, so ``num_dispatches`` equals ``num_host_syncs``.
 """
 
 from __future__ import annotations
@@ -58,12 +61,12 @@ from cruise_control_tpu_torch.analyzer.optimizer import HostSyncs, host_fetch
 from cruise_control_tpu_torch.controller.loop import (
     ContinuousController,
     ControllerConfig,
-    _span,
 )
 from cruise_control_tpu_torch.controller.standing import ControllerJournal
 from cruise_control_tpu_torch.core.device import DeviceLike, resolve_device
 from cruise_control_tpu_torch.core.journal import Journal
 from cruise_control_tpu_torch.model import arrays as A
+from cruise_control_tpu_torch.obs import recorder as obs
 
 #: journal.dir namespaces that are NOT tenant WALs — a tenant may not shadow
 #: the executor/user-task planes or the legacy single-tenant controller dir
@@ -190,7 +193,7 @@ class FleetController:
         self._tick_count = 0
         self._last_tick_attrs: Optional[dict] = None
         #: the span records of the last fleet tick
-        self.last_spans: List[dict] = []
+        self.last_spans: List[obs.Span] = []
         #: (group_key, batch_size) pairs whose batched programs were warmed
         self._warm_for = set()
 
@@ -464,7 +467,8 @@ class FleetController:
             FLEET_TICKS_COUNTER,
             REGISTRY,
         )
-        spans: List[dict] = []
+        token = obs.start_trace("fleet_tick")
+        spans: List[obs.Span] = []
         probe_dispatches = 0
         optimize_dispatches = 0
         host_syncs = 0
@@ -484,7 +488,7 @@ class FleetController:
                 errors.append(f"{rt.name}: {err}")
                 continue
             live.append((rt, anchor, restore))
-        spans.append(_span("ingest", "ingest", time.monotonic() - t0, 0, tenants=len(live)))
+        spans.append(obs.Span("ingest", "ingest", time.monotonic() - t0, 0, attrs={"tenants": len(live)}))
 
         # -- group by batch compatibility ------------------------------------
         groups: Dict[tuple, List[Tuple]] = {}
@@ -514,7 +518,7 @@ class FleetController:
             probe_dispatches += 1
             host_syncs += syncs.count
             spans.append(
-                _span("probe", "drift", time.monotonic() - tp, syncs.count, group=gi, tenants=S)
+                obs.Span("probe", "drift", time.monotonic() - tp, syncs.count, attrs={"group": gi, "tenants": S})
             )
 
             # -- phase B: per-tenant trigger decision (host math) -------------
@@ -549,14 +553,14 @@ class FleetController:
             # one copy of the final stack to the host for every lane's commit
             syncs = HostSyncs()
             finals_host = syncs.state(final_states)
-            optimize_dispatches += 1
+            optimize_dispatches += binc.num_host_syncs + syncs.count
             host_syncs += binc.num_host_syncs + syncs.count
             spans.append(
-                _span(
+                obs.Span(
                     "optimize", "optimize", time.monotonic() - to,
                     binc.num_host_syncs + syncs.count,
-                    group=gi, tenants=S, triggered=len(triggered),
-                    goals_run=binc.goals_run,
+                    attrs={"group": gi, "tenants": S, "triggered": len(triggered),
+                           "goals_run": binc.goals_run},
                 )
             )
 
@@ -602,6 +606,11 @@ class FleetController:
         }
         self._last_tick_attrs = attrs
         self.last_spans = spans
+        obs.finish_trace(
+            token, spans=spans,
+            attrs={k: v for k, v in attrs.items() if k != "num_host_syncs"},
+            device=self.device,
+        )
         return attrs
 
     def _arbitrate_drains(self, live) -> Tuple[int, int]:

@@ -14,7 +14,9 @@ launch of ``csrc/even_assign.cu`` (its note gives the design and the bound).
 :func:`even_assign` updates ``counts`` and column ``pos`` of ``chosen`` in
 place.  CPU tensors take :func:`even_assign_plain`, the same greedy as a
 Python loop over partitions; CUDA tensors launch the kernel or raise.  Each
-launch adds one to :data:`LAUNCHES`.
+launch adds one to :data:`LAUNCHES`.  The kernel keeps no state between
+launches (no scratch: every buffer it touches is the caller's), so calls from
+several host threads need no lock.
 """
 
 from __future__ import annotations

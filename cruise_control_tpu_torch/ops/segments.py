@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
+import threading
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
@@ -56,6 +57,8 @@ _HIST_CAP = 8192                  # per-(segment, block) counts of the fixed-ord
 _LIB = None
 _PACKERS: Dict[int, Callable[..., bytes]] = {}
 _SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+#: held from a call's scratch lookup until its kernels are enqueued (see _scratch)
+_LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -167,16 +170,18 @@ def segment_sums_cuda(
         return outs
     lib = _library()
     index = dev.index
-    if index == torch._C._cuda_getDevice():
-        err = _launch(lib, floats, ids, R, S, total, spec, index)
-    else:  # the launch goes to the current device's stream
-        with torch.cuda.device(index):
+    path = "segment_sum_f32" if floats else "segment_sum_i32"
+    with _LAUNCH_LOCK:
+        if index == torch._C._cuda_getDevice():
             err = _launch(lib, floats, ids, R, S, total, spec, index)
+        else:  # the launch goes to the current device's stream
+            with torch.cuda.device(index):
+                err = _launch(lib, floats, ids, R, S, total, spec, index)
+        if err == 0:
+            LAUNCHES[path] += 1
+            FIELDS[path] += len(spec) // 4
     if err != 0:
         raise RuntimeError(f"segment-sum kernel launch failed: CUDA error {err}")
-    path = "segment_sum_f32" if floats else "segment_sum_i32"
-    LAUNCHES[path] += 1
-    FIELDS[path] += len(spec) // 4
     return outs
 
 
@@ -204,8 +209,13 @@ def _pack(values) -> bytes:
 
 def _scratch(index: int, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` int32 of scratch for the fixed-order path on this device
-    and stream.  Kernels on one stream run in order, so one buffer serves
-    every call on it; it only grows."""
+    and stream; it only grows.  Kernels on one stream run in the order they
+    were enqueued, so one buffer serves every call on it as long as each
+    call's three kernels are enqueued back to back.  Host threads share the
+    default stream and ``cc_segment_sums`` runs without the GIL, so the
+    caller holds :data:`_LAUNCH_LOCK` from this lookup until the kernels are
+    enqueued: two threads' kernels never interleave on the buffer (the
+    detector's threads and the anomaly handler solve at the same time)."""
     key = (index, stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < n:

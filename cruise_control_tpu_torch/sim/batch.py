@@ -28,6 +28,7 @@ bisects to, so they must round as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -128,16 +129,66 @@ def _sweep_reductions(states: ClusterArrays, ctx: GoalContext):
 # -- shape accounting -------------------------------------------------------------------
 #
 # A sweep whose shape key was seen before is a bucket hit.  The JAX package
-# counts these because a miss compiles; the port keeps the flag in the result.
+# counts these because a miss compiles; the port counts them the same way
+# (the sensors and the flight records carry the totals) and keeps the flag in
+# the result.
 
 _SEEN_SHAPES: set = set()
+_SHAPE_LOCK = threading.Lock()
 
 
 def _note_shape(key: tuple) -> bool:
     """Record the sweep shape; True when it was seen before."""
-    hit = key in _SEEN_SHAPES
-    _SEEN_SHAPES.add(key)
+    from cruise_control_tpu_torch.core.sensors import (
+        REGISTRY,
+        SIM_BUCKET_HITS_COUNTER,
+        SIM_BUCKET_MISSES_COUNTER,
+    )
+
+    with _SHAPE_LOCK:
+        hit = key in _SEEN_SHAPES
+        _SEEN_SHAPES.add(key)
+    REGISTRY.counter(SIM_BUCKET_HITS_COUNTER if hit else SIM_BUCKET_MISSES_COUNTER).inc()
     return hit
+
+
+def _count_sweep(size: int, duration_s: float) -> None:
+    from cruise_control_tpu_torch.core.sensors import (
+        REGISTRY,
+        SIM_SCENARIOS_COUNTER,
+        SIM_SWEEP_TIMER,
+        SIM_SWEEPS_COUNTER,
+    )
+
+    REGISTRY.counter(SIM_SWEEPS_COUNTER).inc()
+    REGISTRY.counter(SIM_SCENARIOS_COUNTER).inc(size)
+    REGISTRY.timer(SIM_SWEEP_TIMER).update(duration_s)
+
+
+def _trace_attrs(result: "SweepResult", goal_ids, device) -> dict:
+    """A ``"simulate"`` record's attributes, the JAX package's names
+    (``num_dispatches`` carries host syncs; the port has no mesh)."""
+    from cruise_control_tpu_torch.core.sensors import (
+        REGISTRY,
+        SIM_BUCKET_HITS_COUNTER,
+        SIM_BUCKET_MISSES_COUNTER,
+    )
+    from cruise_control_tpu_torch.obs import recorder as obs
+
+    return {
+        "sweep_size": result.sweep_size,
+        "bucket_brokers": result.bucket[0],
+        "num_replicas": result.bucket[1],
+        "num_partitions": result.bucket[2],
+        "num_dispatches": result.num_host_syncs,
+        "bucket_hit": result.bucket_hit,
+        "bucket_hits_total": REGISTRY.counter(SIM_BUCKET_HITS_COUNTER).value,
+        "bucket_misses_total": REGISTRY.counter(SIM_BUCKET_MISSES_COUNTER).value,
+        "num_goals": len(tuple(goal_ids)),
+        "deep": result.deep,
+        "sharded": False,
+        **obs.mesh_metadata(device),
+    }
 
 
 # -- results ------------------------------------------------------------------------
@@ -267,8 +318,12 @@ def fast_sweep(
     the implied minimum broker count and the offline-movement floor.  One
     host fetch at the end.  ``mesh`` is the JAX signature's scenario-axis
     sharding; the port has no device mesh yet and takes only ``None``."""
+    from cruise_control_tpu_torch.analyzer.optimizer import cost_block
+    from cruise_control_tpu_torch.obs import recorder as obs
+
     if mesh is not None:
         raise NotImplementedError("fast_sweep(mesh=...): the port has no device mesh yet")
+    token = obs.start_trace("simulate")
     t0 = time.monotonic()
     goal_ids = tuple(goal_ids)
     hard_ids = tuple(hard_ids)
@@ -280,10 +335,13 @@ def fast_sweep(
     hit = _note_shape((
         batch.size, batch.bucket, int(states.disk_broker.shape[-1]), goal_ids, enable_heavy,
     ))
+    build_s = time.monotonic() - t0
+    t1 = time.monotonic()
     syncs = HostSyncs()
     viol = lane_violations(states, ctx, enable_heavy, goal_ids)
     viol, sat, needed, n_off, off_bytes = host_fetch(syncs, [viol, *_sweep_reductions(states, ctx)])
-    return SweepResult(
+    sweep_s = time.monotonic() - t1
+    result = SweepResult(
         scenarios=_verdicts(batch, goal_ids, hard_ids, viol, sat, needed, n_off, off_bytes),
         sweep_size=batch.size,
         bucket=batch.bucket,
@@ -291,6 +349,17 @@ def fast_sweep(
         bucket_hit=hit,
         duration_s=time.monotonic() - t0,
     )
+    _count_sweep(batch.size, result.duration_s)
+    obs.finish_trace(
+        token,
+        spans=[
+            obs.Span("build-batch", "setup", build_s, 0),
+            obs.Span("sweep", "sweep", sweep_s, syncs.count),
+        ],
+        attrs={**_trace_attrs(result, goal_ids, states.device), "cost": cost_block()},
+        device=states.device,
+    )
+    return result
 
 
 def _verdict_from_result(name: str, state: ClusterArrays, result) -> ScenarioVerdict:
@@ -339,9 +408,11 @@ def deep_sweep(
     hypothetical cluster would look like, where :func:`fast_sweep` says what
     it looks like as it is."""
     from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
+    from cruise_control_tpu_torch.obs import recorder as obs
 
-    t0 = time.monotonic()
     dev = resolve_device(device)
+    token = obs.start_trace("simulate")
+    t0 = time.monotonic()
     goal_ids = tuple(goal_ids)
     hard_ids = tuple(hard_ids)
     scenarios = tuple(scenarios)
@@ -363,14 +434,17 @@ def deep_sweep(
     syncs = 0
     verdicts: List[Optional[ScenarioVerdict]] = [None] * len(scenarios)
     finals: List[Optional[ClusterArrays]] = [None] * len(scenarios)
+    spans: List = []
     all_hit = batched
     for order, idxs in groups:
+        g0 = time.monotonic()
         per = [apply_scenario(base, scenarios[i], bucket_brokers=B_pad) for i in idxs]
         if batched:
-            all_hit &= _note_shape((
+            hit = _note_shape((
                 "deep", len(idxs), B_pad, base.num_replicas, base.num_partitions, order,
                 enable_heavy,
             ))
+            all_hit &= hit
         # the state is already padded to the sweep's bucket
         opt = GoalOptimizer(
             goal_ids=order, hard_ids=hard_ids,
@@ -383,8 +457,19 @@ def deep_sweep(
             verdicts[i] = _verdict_from_result(
                 scenarios[i].name or f"scenario-{i}", per[j], res.results[j]
             )
+        # the JAX record's spans: one per goal-order group, or one per
+        # scenario, named for it, when the sweep is not batched
+        if batched:
+            spans.append(obs.Span(
+                f"group[{len(idxs)}]", "scenario", time.monotonic() - g0, res.num_host_syncs,
+                attrs={"goal_order_len": len(order), "bucket_hit": hit},
+            ))
+        else:
+            spans.append(obs.Span(
+                verdicts[idxs[0]].name, "scenario", time.monotonic() - g0, res.num_host_syncs,
+            ))
 
-    return SweepResult(
+    result = SweepResult(
         scenarios=verdicts,
         sweep_size=len(scenarios),
         bucket=(B_pad, base.num_replicas, base.num_partitions),
@@ -394,3 +479,6 @@ def deep_sweep(
         deep=True,
         states=finals,
     )
+    _count_sweep(len(scenarios), result.duration_s)
+    obs.finish_trace(token, spans=spans, attrs=_trace_attrs(result, goal_ids, dev), device=dev)
+    return result

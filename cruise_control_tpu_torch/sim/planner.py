@@ -118,7 +118,10 @@ def plan_capacity(
     the plan up; if every probed count is refuted, the plan floor moves past
     them (``confirmed: false`` in ``sweep["deep_verify"]``), or to the
     unsatisfiable branch when the refutations reach the search cap."""
+    from cruise_control_tpu_torch.obs import recorder as obs
+
     dev = resolve_device(device)
+    token = obs.start_trace("capacity_plan")
     t0 = time.monotonic()
     base = base.to("cpu")
     alive = base.broker_alive.numpy()
@@ -140,15 +143,21 @@ def plan_capacity(
 
     probes: List[Probe] = []
     syncs = 0
+    spans: List = []
 
     def evaluate(counts: List[int]) -> List[Probe]:
         nonlocal syncs
         scs = [_count_scenario(alive_desc, B0, c, load_factor) for c in counts]
+        r0 = time.monotonic()
         sweep = fast_sweep(
             base, scs, constraint=constraint, goal_ids=goal_ids, hard_ids=hard_ids,
             bucket_brokers=bucket, device=dev,
         )
         syncs += sweep.num_host_syncs
+        spans.append(obs.Span(
+            f"round-{len(spans)}", "sweep", time.monotonic() - r0, sweep.num_host_syncs,
+            attrs={"counts": counts},
+        ))
         out = [
             Probe(c, v.satisfiable, v.min_brokers_needed)
             for c, v in zip(counts, sweep.scenarios)
@@ -196,11 +205,16 @@ def plan_capacity(
             if not counts:
                 break
             scs = [_count_scenario(alive_desc, B0, c, load_factor) for c in counts]
+            d0 = time.monotonic()
             deep = deep_sweep(
                 base, scs, constraint=constraint, goal_ids=goal_ids, hard_ids=hard_ids,
                 bucket_brokers=bucket, device=dev,
             )
             deep_syncs += deep.num_host_syncs
+            spans.append(obs.Span(
+                "deep-verify", "sweep", time.monotonic() - d0, deep.num_host_syncs,
+                attrs={"counts": counts},
+            ))
             deep_counts += counts
             deep_sat += [v.satisfiable for v in deep.scenarios]
             if any(deep_sat):
@@ -288,7 +302,7 @@ def plan_capacity(
                 sweep=sweep_meta,
             )
 
-    return CapacityPlan(
+    plan = CapacityPlan(
         min_brokers=min_brokers,
         current_brokers=B0,
         load_factor=load_factor,
@@ -297,3 +311,17 @@ def plan_capacity(
         duration_s=time.monotonic() - t0,
         recommendation=rec,
     )
+    obs.finish_trace(
+        token,
+        spans=spans,
+        attrs={
+            "load_factor": load_factor,
+            "current_brokers": B0,
+            "min_brokers": min_brokers,
+            "num_dispatches": syncs,
+            "scenarios_evaluated": len(probes),
+            "status": rec.status,
+        },
+        device=dev,
+    )
+    return plan

@@ -1,6 +1,6 @@
 """Time-series scenario engine: load traces and policy rollouts.
 
-Port of ``cruise_control_tpu.traces`` (all but the replay harness):
+Port of ``cruise_control_tpu.traces``:
 
 * :mod:`~cruise_control_tpu_torch.traces.trace` -- the declarative
   :class:`LoadTrace` DSL: seeded-deterministic segment composition (diurnal
@@ -11,13 +11,13 @@ Port of ``cruise_control_tpu.traces`` (all but the replay harness):
   :class:`~cruise_control_tpu_torch.traces.policy.AutoscalePolicy`
   evaluation: a time loop over a stack of (trace, policy) pairs on the
   device, one host sync for the whole batch.
-
-The replay harness (``traces/replay.py``: a trace-synthesized metric stream
-driven through the real facade, monitor and executor on a fake clock) waits
-for the port of those service planes.
+* :mod:`~cruise_control_tpu_torch.traces.replay` -- drive a trace-synthesized
+  metric stream through the real monitor into a live continuous controller on
+  a fake clock (no sleeping), with ``kind="replay"`` flight records.
 """
 
 from cruise_control_tpu_torch.traces.policy import AutoscalePolicy, frozen_policy
+from cruise_control_tpu_torch.traces.replay import FakeClock, ReplayReport, run_replay
 from cruise_control_tpu_torch.traces.rollout import (
     RolloutResult,
     RolloutVerdict,
@@ -35,7 +35,9 @@ from cruise_control_tpu_torch.traces.trace import (
 
 __all__ = [
     "AutoscalePolicy",
+    "FakeClock",
     "LoadTrace",
+    "ReplayReport",
     "RolloutResult",
     "RolloutVerdict",
     "TraceSegment",
@@ -45,5 +47,6 @@ __all__ = [
     "horizon_requirements",
     "ramp_trace",
     "rollout",
+    "run_replay",
     "spike_trace",
 ]

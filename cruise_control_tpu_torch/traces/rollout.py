@@ -273,12 +273,15 @@ def rollout(
         TRACE_ROLLOUT_TIMER,
         TRACE_ROLLOUTS_COUNTER,
     )
+    from cruise_control_tpu_torch.analyzer.optimizer import cost_block
+    from cruise_control_tpu_torch.obs import recorder as obs
 
     dev = resolve_device(device)
     if not traces:
         raise ValueError("rollout needs at least one trace")
     if not policies:
         raise ValueError("rollout needs at least one policy")
+    token = obs.start_trace("rollout")
     t0 = time.monotonic()
     goal_ids = tuple(goal_ids)
     hard_ids = tuple(hard_ids)
@@ -310,10 +313,12 @@ def rollout(
     cost_vec = np.zeros(G.NUM_GOALS, np.float32)
     for g, c in costs.items():
         cost_vec[g] = c
+    build_s = time.monotonic() - t0
 
     hit = _note_shape(("rollout", N, T, B_pad, base.num_replicas, base.num_partitions, goal_ids))
 
     # -- the time loop: every tensor stays on the device ---------------------------
+    t1 = time.monotonic()
     gf_d = torch.from_numpy(gf).to(dev)
     tf_d = torch.from_numpy(tf).to(dev)
     cost_d = torch.from_numpy(cost_vec).to(dev)
@@ -342,6 +347,7 @@ def rollout(
     viol, sat, needed, alive, action = host_fetch(
         syncs, [out_viol, out_sat, out_needed, out_alive, out_action]
     )
+    sweep_s = time.monotonic() - t1
 
     verdicts: List[RolloutVerdict] = []
     for row, (ti, pi) in enumerate(pairs):
@@ -388,6 +394,25 @@ def rollout(
     REGISTRY.counter(TRACE_ROLLOUTS_COUNTER).inc()
     REGISTRY.counter(TRACE_PAIRS_COUNTER).inc(N)
     REGISTRY.timer(TRACE_ROLLOUT_TIMER).update(result.duration_s)
+    obs.finish_trace(
+        token,
+        spans=[
+            obs.Span("build-batch", "setup", build_s, 0),
+            obs.Span("rollout", "sweep", sweep_s, syncs.count),
+        ],
+        attrs={
+            "num_pairs": N,
+            "num_traces": len(traces),
+            "num_policies": len(policies),
+            "num_steps": T,
+            "bucket_brokers": B_pad,
+            "num_dispatches": syncs.count,
+            "bucket_hit": hit,
+            "num_goals": len(goal_ids),
+            "cost": cost_block(),
+        },
+        device=dev,
+    )
     return result
 
 

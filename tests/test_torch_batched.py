@@ -27,7 +27,7 @@ from cruise_control_tpu.synthetic import SyntheticSpec, generate
 from cruise_control_tpu_torch import sim as PSIM
 from cruise_control_tpu_torch.analyzer import GoalOptimizer
 from cruise_control_tpu_torch.model import arrays as PA
-from tests.torch_port_helpers import port_ctx, port_state, to_np
+from tests.torch_port_helpers import assert_records_match, clear_records, port_ctx, port_state, to_np
 
 LIGHT = dict(mean_cpu=0.08, mean_disk=0.08, mean_nw_in=0.08, mean_nw_out=0.06)
 #: tests/test_sim.py's goal subset and hard goals
@@ -123,11 +123,14 @@ def test_two_lanes_match_jax_batched():
     vmapped counters may absorb the batch's trip count does not show."""
     scs = [JSIM.Scenario(name="rack", drop_rack=2), JSIM.Scenario(name="kill", kill_brokers=(0, 5), load_factor=1.3)]
     jlanes, jctx = lanes_of(small_cluster(seed=4), scs)
+    clear_records()
     jfinal, jres = jax_opt().batched_optimize(j_stack(jlanes), jctx)
     jax.clear_caches()
     pfinal, pres = port_opt().batched_optimize(PA.stack_arrays([port_state(s) for s in jlanes]), port_ctx(jctx))
     for i in range(2):
         assert_lane_equals(pfinal, i, pres.results[i], jfinal, jres.results[i], jlane=i)
+    # one batched "optimize" flight record each, of one shape
+    assert_records_match("optimize", count=1)
     assert any(r.moves_applied for r in pres.results[1].goal_reports)
 
 
@@ -184,8 +187,11 @@ def test_deep_sweep_batched_equals_sequential_and_jax():
     pscs = [PSIM.Scenario(**dataclasses.asdict(s)) for s in scs]
     pbase = port_state(jbase)
     rb = PSIM.deep_sweep(pbase, pscs, goal_ids=GOALS, hard_ids=HARD, device="cpu")
+    clear_records()
     rs = PSIM.deep_sweep(pbase, pscs, goal_ids=GOALS, hard_ids=HARD, batched=False, device="cpu")
     rj = JSIM.deep_sweep(jbase, scs, goal_ids=GOALS, hard_ids=HARD, batched=False)
+    # the sequential sweeps' "simulate" records: one span per scenario
+    assert_records_match("simulate", count=1)
     assert rb.deep and rb.sweep_size == 4 and rb.bucket == rj.bucket
     assert [v.to_dict() for v in rb.scenarios] == [v.to_dict() for v in rs.scenarios]
     assert [v.to_dict() for v in rb.scenarios] == [v.to_dict() for v in rj.scenarios]

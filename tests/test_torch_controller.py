@@ -42,7 +42,12 @@ from cruise_control_tpu_torch.core.sensors import REGISTRY
 from cruise_control_tpu_torch.model.cluster import BrokerState
 from tests import fixtures
 from tests import torch_controller_parity as H
-from tests.torch_port_helpers import assert_keys_superset, port_cluster_model
+from tests.torch_port_helpers import (
+    assert_keys_superset,
+    assert_records_match,
+    clear_records,
+    port_cluster_model,
+)
 
 
 # -- ClusterModel.to_arrays -------------------------------------------------------
@@ -384,7 +389,7 @@ def test_shift_ticks_supersede_and_pause_match_jax(tmp_path, _jax_warm):
     # the JAX tick's keys (num_dispatches, which the replay harness reads) beside the port's
     assert_keys_superset(attrs, pair.ctl["jax"]._last_tick_attrs)
     assert attrs["num_dispatches"] == attrs["num_host_syncs"]
-    assert [s["name"] for s in pair.ctl["port"].last_spans] == ["ingest", "drift", "optimize", "publish"]
+    assert [s.name for s in pair.ctl["port"].last_spans] == ["ingest", "drift", "optimize", "publish"]
 
     # an idle wake: same loads, a fresh delta; drift against the residual is 0
     pair.deliver()
@@ -412,6 +417,25 @@ def test_shift_ticks_supersede_and_pause_match_jax(tmp_path, _jax_warm):
     assert [r["type"] for r in p_recs] == [r["type"] for r in j_recs]
     assert [r.get("version") for r in p_recs] == [r.get("version") for r in j_recs]
     assert REGISTRY.timer("Controller.reaction-latency-timer").count >= 2
+
+
+def test_tick_flight_records_match_jax(_jax_warm):
+    """A published tick, then an idle (skipped) one: each package writes one
+    ``controller_tick`` record a tick, of one shape, and the port's
+    ``last_spans`` are its last record's spans."""
+    from cruise_control_tpu_torch.obs import RECORDER
+
+    pair = Pair()
+    pair.warm_start()
+    clear_records()
+    pair.shift(0)
+    pair.deliver()
+    assert pair.tick() is not None
+    pair.deliver()
+    assert pair.tick() is None
+    assert_records_match("controller_tick", count=2)
+    (last,) = RECORDER.recent(1, kind="controller_tick")
+    assert last.spans == pair.ctl["port"].last_spans and last.attrs["skipped"] is True
 
 
 def test_refused_publish_and_crash_recover_match_jax(tmp_path, _jax_warm):

@@ -446,3 +446,106 @@ def test_facade_defaults_to_the_card_and_records_it(cuda_device):
     assert trace.platform == "cuda" and trace.attrs["device_count"] >= 1
     assert trace.total_dispatches == trace.attrs["num_dispatches"] == res.num_host_syncs
     assert trace.attrs["cost"]["memory_peak_bytes"] > 0
+
+
+def _race_calls(n: int = 200):
+    """``n`` segment-sum calls of different shapes and ids (the fixed-order
+    path, which keeps one scratch buffer a stream, and the integer path):
+    (float columns, int columns, ids, segments)."""
+    rng = np.random.default_rng(2024)
+    calls = []
+    for i in range(n):
+        R = int(rng.integers(1, 40_000))
+        S = int(rng.choice([1, 40, 128, 2048, 12_800]))
+        floats = [(rng.exponential(size=(R, int(rng.integers(1, 4)))) * 1000).astype(np.float32)]
+        ints = [rng.integers(0, 3, size=R).astype(np.int32)]
+        if i % 3 == 2:
+            floats = []          # an integer-path call now and then
+        seg = rng.integers(-2, S + 2, size=R).astype(np.int32)
+        calls.append((floats + ints, seg, S))
+    return calls
+
+
+@pytest.mark.cuda
+def test_segment_sums_are_safe_under_concurrent_host_threads(cuda_device):
+    """4 host threads x 50 calls on the default stream at once: every output
+    bitwise equal to the same call made alone (the fixed-order path's
+    scratch is held under a lock from lookup to enqueue)."""
+    import sys
+    import threading
+
+    calls = _race_calls(200)
+    dev_calls = [([torch.from_numpy(c).to(cuda_device) for c in cols], torch.from_numpy(seg).to(cuda_device), S)
+                 for cols, seg, S in calls]
+    alone = []
+    for cols, seg, S in dev_calls:
+        out = PS.segment_sums(cols, seg, S)
+        torch.cuda.synchronize()
+        alone.append([o.cpu().numpy() for o in out])
+    got = [None] * len(calls)
+    errors = []
+    barrier = threading.Barrier(4)
+
+    def worker(k):
+        try:
+            barrier.wait(timeout=60)
+            for i in range(k, len(calls), 4):
+                got[i] = PS.segment_sums(*dev_calls[i])
+        except Exception as e:     # reported below, with the thread's index
+            errors.append((k, repr(e)))
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(k,)) for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    bad = [i for i, (g, w) in enumerate(zip(got, alone))
+           if any(not np.array_equal(a.cpu().numpy(), b) for a, b in zip(g, w))]
+    assert not bad, f"{len(bad)} of {len(calls)} calls differ from the same call made alone, e.g. {bad[:5]}"
+
+
+@pytest.mark.cuda
+def test_broker_failure_self_heal_on_the_card_equals_the_cpu_port(cuda_device, tmp_path):
+    """At config2_small: a dead broker detected, held back by the notifier's
+    grace period, then drained through ``remove_brokers`` on the card and on
+    the CPU port -- the same anomaly, actions, proposals, admin calls and
+    final placement, and no replica left on the dead broker."""
+    import chip_smoke as SM
+    from cruise_control_tpu_torch.detector import (
+        AnomalyDetectorManager,
+        BrokerFailureDetector,
+        SelfHealingNotifier,
+    )
+
+    out = {}
+    for where in (cuda_device, torch.device("cpu")):
+        PS.reset_launch_counts()
+        cc, _ = SM.build_facade(SM.CONFIG2_SMALL, where)
+        clock = {"now": 1_000_000}
+        notifier = SelfHealingNotifier(broker_failure_alert_threshold_ms=10_000,
+                                       broker_failure_self_healing_threshold_ms=20_000,
+                                       now_ms=lambda: clock["now"])
+        manager = AnomalyDetectorManager(cc, notifier, detectors=[])
+        cc.backend.kill_broker(3)
+        det = BrokerFailureDetector(cc.backend, str(tmp_path / f"{where.type}.json"), now_ms=lambda: clock["now"])
+        (a,) = det.run()
+        first = manager.handle_anomaly(a)
+        clock["now"] += 25_000
+        (a,) = det.run()
+        action = manager.handle_anomaly(a)
+        if where.type == "cuda":
+            assert PS.LAUNCHES["segment_sum_f32"] > 0 and PS.LAUNCHES["segment_sum_i32"] > 0
+        res = a.fix_result
+        assert res.execution.succeeded
+        out[where.type] = (a.failed_brokers, first, action, res.optimizer_result.proposals,
+                           cc.backend.admin_log, SM.backend_placement(cc.backend))
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][1:3] == ("CHECK", "FIXED")
+    assert all(3 not in replicas for replicas, _ in out["cuda"][-1].values())

@@ -1,10 +1,9 @@
 """The port's executor against the JAX package.
 
 The cases of the JAX package's ``tests/test_executor.py`` and the executor
-recovery cases of ``tests/test_recovery.py`` run against the port.  The
-recovery cases that need a stalled or an unreachable backend use two small
-subclasses of the port's ``FakeClusterBackend`` below in place of the JAX
-package's chaos backend, which the port does not have yet.  The parity
+recovery cases of ``tests/test_recovery.py`` run against the port; the
+cases that need a failing, stalled or unreachable backend wrap the fake in
+the port's ``ChaosBackend`` with a ``FaultPlan``, as the JAX cases do.  The parity
 cases run the same seeded proposals and journals through both packages'
 executors: the summaries' counts, the backend's admin log and its final
 replica lists and leaders must be equal.
@@ -22,7 +21,7 @@ from cruise_control_tpu.core.journal import Journal as JJournal
 from cruise_control_tpu.executor import ExecutionJournal as JExecutionJournal
 from cruise_control_tpu.executor import Executor as JExecutor
 from cruise_control_tpu_torch.analyzer.proposals import ExecutionProposal
-from cruise_control_tpu_torch.backend import FakeClusterBackend
+from cruise_control_tpu_torch.backend import ChaosBackend, FakeClusterBackend, FaultPlan
 from cruise_control_tpu_torch.core.journal import Journal, SimulatedCrash
 from cruise_control_tpu_torch.executor import (
     ConcurrencyConfig,
@@ -161,15 +160,15 @@ class TestExecution:
         unwinds used to land in no bucket; they must be counted as failed so
         completed + dead + aborted + failed == total."""
 
-        class ExplodingBackend(FakeClusterBackend):
-            def list_partition_reassignments(self):
-                raise ValueError("metadata fetch exploded")
-
-        backend = ExplodingBackend()
+        inner = FakeClusterBackend()
         for b in range(4):
-            backend.add_broker(b, rack=str(b % 2))
+            inner.add_broker(b, rack=str(b % 2))
         for p in range(3):
-            backend.create_partition(("T", p), [p % 4, (p + 1) % 4], load=[1.0] * 4)
+            inner.create_partition(("T", p), [p % 4, (p + 1) % 4], load=[1.0] * 4)
+        plan = FaultPlan(seed=7).raise_every(
+            "list_partition_reassignments", 1, exc=lambda m: ValueError("metadata fetch exploded")
+        )
+        backend = ChaosBackend(inner, plan)
         executor = Executor(backend, progress_check_interval_s=0.01)
         proposals = [move_proposal(("T", 0), [0, 1], [2, 1])]
         summary = executor.execute_proposals(proposals)
@@ -271,27 +270,15 @@ def prop(tp, old, new, cls=ExecutionProposal):
     return cls(tp=tp, partition_size=1.0, old_leader=old[0], old_replicas=tuple(old), new_replicas=tuple(new))
 
 
-class StallingBackend(FakeClusterBackend):
+def stalling_backend():
     """Reassignments never finish on their own; a cancel (None target) still
-    drops them (the chaos backend's ``stall_reassignments``)."""
-
-    def _tick_reassignments(self) -> None:
-        pass
-
-    @property
-    def stalled_reassignments(self):
-        return set(self._reassignments)
+    drops them."""
+    return ChaosBackend(make_recovery_backend(), FaultPlan(seed=7).stall_reassignments())
 
 
-class DownBackend(FakeClusterBackend):
-    """Every reassignment listing fails (a backend dead from the first call)."""
-
-    down = True
-
-    def list_ongoing_reassignments(self):
-        if self.down:
-            raise ConnectionError("backend unreachable")
-        return super().list_ongoing_reassignments()
+def down_backend():
+    """A backend dead from the first call: every call raises."""
+    return ChaosBackend(make_recovery_backend(), FaultPlan(seed=7).crash_after("*", 0))
 
 
 class TestExecutorRecovery:
@@ -339,7 +326,7 @@ class TestExecutorRecovery:
     def test_stalled_in_flight_rolled_back(self, tmp_path):
         p1 = prop(("T", 0), [0, 1], [2, 1])
         j = self._journal(tmp_path, p1)
-        backend = make_recovery_backend(StallingBackend)
+        backend = stalling_backend()
         backend.alter_partition_reassignments({("T", 0): [2, 1]})
         self._mark(j, 7, p1, TaskState.IN_PROGRESS)
         ex = Executor(backend, journal=j, rollback_stuck_tasks=True)
@@ -352,7 +339,7 @@ class TestExecutorRecovery:
     def test_stalled_in_flight_without_rollback_times_out_dead(self, tmp_path):
         p1 = prop(("T", 0), [0, 1], [2, 1])
         j = self._journal(tmp_path, p1)
-        backend = make_recovery_backend(StallingBackend)
+        backend = stalling_backend()
         backend.alter_partition_reassignments({("T", 0): [2, 1]})
         self._mark(j, 7, p1, TaskState.IN_PROGRESS)
         ex = Executor(backend, journal=j, rollback_stuck_tasks=False,
@@ -365,7 +352,7 @@ class TestExecutorRecovery:
         p1 = prop(("T", 0), [0, 1], [2, 1])
         j = self._journal(tmp_path, p1)
         self._mark(j, 7, p1, TaskState.IN_PROGRESS)
-        backend = make_recovery_backend(DownBackend)
+        backend = down_backend()
         summaries = Executor(backend, journal=j).recover()   # must NOT raise
         assert len(summaries) == 1
         s = summaries[0]

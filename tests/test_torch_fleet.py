@@ -31,7 +31,7 @@ from cruise_control_tpu_torch.fleet import (
 )
 from cruise_control_tpu_torch.model import arrays as A
 from tests import torch_controller_parity as H
-from tests.torch_port_helpers import assert_keys_superset
+from tests.torch_port_helpers import assert_keys_superset, assert_records_match, clear_records
 
 N = 3
 ALT_GOALS = (JG.RACK_AWARE, JG.REPLICA_CAPACITY, JG.DISK_CAPACITY)
@@ -82,8 +82,11 @@ class Trio:
         self.clock.t += 1.5
 
     def tick(self):
+        clear_records()
         ja, pa = self.jfleet.maybe_tick(), self.pfleet.maybe_tick()
         assert_keys_superset(pa, ja)
+        # one "fleet_tick" flight record each, of one shape
+        assert_records_match("fleet_tick", count=1)
         for s in self.solos.values():
             s.maybe_tick()
         for key in ("tenants", "active", "groups", "probe_dispatches", "triggered", "published", "skipped"):
@@ -107,7 +110,7 @@ def test_fleet_tick_matches_jax_and_standalone_ticks():
     trio.shift()
     attrs = trio.tick()
     assert attrs["groups"] == 1 and attrs["published"] == N and attrs["tenants_per_dispatch"] == N
-    assert [s["name"] for s in trio.pfleet.last_spans] == ["ingest", "probe", "optimize"] + ["publish"] * N
+    assert [s.name for s in trio.pfleet.last_spans] == ["ingest", "probe", "optimize"] + ["publish"] * N
     # a second shift: every tenant's candidate is probed, the sets supersede
     trio.shift(offset=3)
     attrs = trio.tick()

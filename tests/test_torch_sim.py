@@ -35,7 +35,13 @@ from cruise_control_tpu_torch.ops import index as IX
 from cruise_control_tpu_torch.ops.index import segment_max
 from cruise_control_tpu_torch.ops.segments import segment_sum_plain
 from cruise_control_tpu_torch.sim import batch as PB
-from tests.torch_port_helpers import assert_keys_superset, port_ctx, port_state
+from tests.torch_port_helpers import (
+    assert_keys_superset,
+    assert_records_match,
+    clear_records,
+    port_ctx,
+    port_state,
+)
 
 LIGHT = dict(mean_cpu=0.08, mean_disk=0.08, mean_nw_in=0.08, mean_nw_out=0.06)
 SUBSET = tuple(JG.DEFAULT_GOAL_ORDER)
@@ -176,6 +182,7 @@ def _sweep_scenarios(n):
 def test_fast_sweep_matches_jax(lanes):
     jbase = small_cluster()
     scs = _sweep_scenarios(lanes)
+    clear_records()
     jr = JSIM.fast_sweep(jbase, scs, goal_ids=SUBSET)
     pr = PSIM.fast_sweep(port_state(jbase), [port_scenario(s) for s in scs], goal_ids=SUBSET, device="cpu")
     assert pr.sweep_size == jr.sweep_size == lanes and pr.bucket == jr.bucket
@@ -184,6 +191,7 @@ def test_fast_sweep_matches_jax(lanes):
     # the JAX wire keys (numDispatches, which the API schemas require) beside the port's
     assert_keys_superset(pr.to_dict(), jr.to_dict())
     assert pr.to_dict()["sweep"]["numDispatches"] == pr.num_host_syncs
+    assert_records_match("simulate", count=1)
     assert len({v.satisfiable for v in pr.scenarios}) == (1 if lanes == 1 else 2)
 
 
@@ -299,6 +307,7 @@ def _message_shape(msg):
 def test_plan_capacity_matches_jax(load_factor):
     """40x is unsatisfiable up to the search cap (20 brokers)."""
     jbase = small_cluster()
+    clear_records()
     jp = JSIM.plan_capacity(jbase, load_factor=load_factor)
     pp = PSIM.plan_capacity(port_state(jbase), load_factor=load_factor, device="cpu")
     assert [dataclasses.astuple(p) for p in pp.probes] == [dataclasses.astuple(p) for p in jp.probes]
@@ -314,6 +323,8 @@ def test_plan_capacity_matches_jax(load_factor):
     assert prec.sweep["num_host_syncs"] == prec.sweep["num_dispatches"] == pp.num_host_syncs >= 1
     assert_keys_superset(prec.sweep, jrec.sweep)
     assert_keys_superset(pp.to_dict(), jp.to_dict())
+    assert_records_match("capacity_plan", count=1)
+    assert_records_match("simulate")
     if load_factor == 40.0:
         assert pp.min_brokers is None and prec.status == "UNDER_PROVISIONED"
 

@@ -37,7 +37,7 @@ from cruise_control_tpu_torch.sim import batch as PB
 from cruise_control_tpu_torch.traces import policy as PP
 from cruise_control_tpu_torch.traces import trace as PT
 from tests import fixtures
-from tests.torch_port_helpers import assert_keys_superset, port_state
+from tests.torch_port_helpers import assert_keys_superset, assert_records_match, clear_records, port_state
 
 # the packages export a function named ``rollout`` over the module's name
 JR = importlib.import_module("cruise_control_tpu.traces.rollout")
@@ -64,7 +64,9 @@ def p_policy(p):
 
 
 def both(state, traces, policies, **kw):
-    """The JAX rollout and the port's on the CPU, same inputs."""
+    """The JAX rollout and the port's on the CPU, same inputs; both write one
+    ``rollout`` flight record of one shape."""
+    clear_records()
     j = JR.rollout(state, traces, policies, **kw)
     p = PR.rollout(port_state(state), [p_trace(t) for t in traces],
                    [p_policy(x) for x in policies], device="cpu", **kw)
@@ -74,6 +76,7 @@ def both(state, traces, policies, **kw):
     assert p.num_host_syncs == 1
     # the JAX wire keys (numDispatches, which the API schemas require) beside the port's
     assert_keys_superset(p.to_dict(), j.to_dict())
+    assert_records_match("rollout", count=1)
     return j, p
 
 

@@ -149,3 +149,33 @@ def assert_keys_superset(port, jax, path="$"):
         assert len(port) == len(jax), path
         for i, (p, j) in enumerate(zip(port, jax)):
             assert_keys_superset(p, j, f"{path}[{i}]")
+
+
+def clear_records() -> None:
+    """Empty the JAX package's and the port's flight-record rings."""
+    from cruise_control_tpu.obs import RECORDER as JRECORDER
+    from cruise_control_tpu_torch.obs import RECORDER
+
+    JRECORDER.clear()
+    RECORDER.clear()
+
+
+def recorded_shapes(kind: str):
+    """The JAX package's and the port's flight records of ``kind`` (oldest
+    first) as ``chip_smoke._record_shape`` gives them: (kind, attribute names,
+    spans' (kind, name, attribute names))."""
+    from chip_smoke import _record_shape
+    from cruise_control_tpu.obs import RECORDER as JRECORDER
+    from cruise_control_tpu_torch.obs import RECORDER
+
+    return tuple(
+        _record_shape(reversed(rec.recent(rec.capacity, kind=kind))) for rec in (JRECORDER, RECORDER)
+    )
+
+
+def assert_records_match(kind: str, count: int = None):
+    """The port wrote the records of ``kind`` the JAX package wrote, shape for
+    shape (``recorded_shapes``), ``count`` of them when given."""
+    jax_shapes, port_shapes = recorded_shapes(kind)
+    assert port_shapes == jax_shapes
+    assert jax_shapes and (count is None or len(jax_shapes) == count), jax_shapes
