@@ -104,29 +104,34 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    rebalance; a re-detection must find fewer violated goals), a killed
    broker (CHECK inside the grace period, FIXED after it: no replica left on
    it, 0 hard violations in a fresh model on the card), and broker 5's only
-   logdir taken offline (FIXED; the replicas on it before and after are
-   reported: the goals refill the broker as the JAX package does).  Every
-   fix must execute, and the backend must equal its proposals.  Then a
-   threaded pass at config2_small: ``start_detection`` with the
-   broker-failure and goal-violation detectors on their own threads must
-   drain a killed broker within 120 s.  Both segment-sum paths must launch;
+   logdir taken offline (FIXED; a dry run of the fix with no goals, the
+   offline pre-phase alone, must move every replica off it, and the executed
+   fix must leave fewer there than it found: the goals after the pre-phase
+   refill the broker as the JAX package does).  Every fix must execute, and
+   the backend must equal its proposals.  Then a threaded pass at
+   config2_small: ``start_detection`` with the broker-failure and
+   goal-violation detectors on their own threads must drain a killed broker
+   within 120 s.  Both segment-sum paths must launch in the synchronous
+   drive and in the threaded pass, each counted on its own;
 16. detector card vs CPU: the synchronous drive at config2_small on the CPU
    port and on the card; anomalies, actions, fixes' proposals, admin log,
-   final placement and record shapes identical;
+   final placement, the offline-logdir counts and record shapes identical;
 17. replay and harnesses: ``traces.run_replay`` on the JAX replay tests'
    drift storm and quiet trace on the card and the CPU port (every step
    identical but for the host-sync counts), then the controller, fleet and
-   traces bench harnesses once each at their pinned sizes; the controller
-   harness's warm-tick host syncs are printed beside the JAX dispatch
-   budget, not held to it;
+   traces bench harnesses once each at their pinned sizes, each card run
+   with its own kernel counts; the controller harness's warm-tick host syncs
+   are printed beside the JAX dispatch budget, not held to it;
 18. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
    ``launches`` and ``host_calls`` are the wrapper's count of host calls in
    phase 4's cold solve (phase 5's P1 for ``even_assign``), ``sim_launches``
    those of phase 6's cold S1 sweep, ``traces_launches`` those of phase 9's
    warm rollout, ``controller_launches`` those of phase 10's tick,
    ``facade_launches`` those of phase 13's three rebalances,
-   ``detector_launches`` those of phase 15 (detections, fixes and the
-   threaded pass), ``replay_launches`` those of phase 17's card runs;
+   ``detector_launches`` those of phase 15's synchronous drive at config #2
+   (its detections and fixes; not the checks between them),
+   ``detector_threaded_launches`` those of its threaded pass, and
+   ``replay_launches`` those of each of phase 17's card runs by name;
    ``sim_shape`` and ``traces_shapes`` are phase 2's times at the sweep's and
    the rollout's call shapes; ``kernel_launches`` are the kernels
    those calls enqueued in phase 7's solve (the fixed-order path enqueues
@@ -1641,137 +1646,190 @@ def _hard_violations(cc, dev) -> float:
     return float(sum(viol[g] for g in G.HARD_GOALS).item())
 
 
-def self_heal_steps(spec, dev, workdir, detailed=False):
+class SelfHealDrive:
     """The synchronous self-healing drive of phases ``detector`` and
-    ``detector_card_vs_cpu``: through ``build_facade(spec, dev)``, a
-    ``SelfHealingNotifier`` on a fake clock and ``manager.run_detector_once``
-    / ``manager.handle_anomaly``:
+    ``detector_card_vs_cpu`` (and of the card tests): a facade from
+    ``build_facade(spec, dev)``, a ``SelfHealingNotifier`` on a fake clock,
+    ``manager.run_detector_once`` / ``manager.handle_anomaly``.  Its steps:
 
-    1. goal violations on the skewed start, fixed by an executed rebalance,
-       then a re-detection;
-    2. ``kill_broker(DEAD_BROKER)``: CHECK inside the grace period, FIXED
-       (``remove_brokers``) once the fake clock passes it;
-    3. ``kill_logdir(BAD_DISK_BROKER, BAD_LOGDIR)``, the broker's only
-       logdir: FIXED (``fix_offline_replicas``).
+    1. :meth:`goal_violations`: the skewed start, fixed by an executed
+       rebalance, then a re-detection;
+    2. :meth:`broker_failure`: ``kill_broker(DEAD_BROKER)``, CHECK inside the
+       grace period, FIXED (``remove_brokers``) once the fake clock passes it;
+    3. :meth:`disk_failure`: ``kill_logdir(BAD_DISK_BROKER, BAD_LOGDIR)``, the
+       broker's only logdir, FIXED (``fix_offline_replicas``).
 
-    Returns the comparable outcome (anomalies, actions, every fix's
-    proposals, the admin log, the final placement, the records' shapes) and,
-    with ``detailed``, the walls and counts the phase prints."""
-    from cruise_control_tpu_torch.detector import (
-        AnomalyDetectorManager,
-        BrokerFailureDetector,
-        DiskFailureDetector,
-        GoalViolationDetector,
-        SelfHealingNotifier,
-    )
-    from cruise_control_tpu_torch.obs import RECORDER
+    ``out`` holds the comparable outcome (anomalies, actions, every fix's
+    proposals, the offline-logdir counts), ``info`` the walls and counts the
+    phase prints, and ``host_calls`` the kernel host calls of the detections
+    and fixes: the counts are set to 0 just before each and read just after,
+    so the checks between them (fresh models, the pre-phase dry run) are not
+    counted."""
 
-    RECORDER.clear()
-    cc, sample_s = build_facade(spec, dev)
-    backend = cc.backend
-    clock = {"now": 1_000_000}
-    notifier = SelfHealingNotifier(broker_failure_alert_threshold_ms=ALERT_MS,
-                                   broker_failure_self_healing_threshold_ms=SELF_HEAL_MS,
-                                   now_ms=lambda: clock["now"])
-    manager = AnomalyDetectorManager(cc, notifier, detectors=[])
-    out, info = {"anomalies": [], "actions": [], "fixes": []}, {"sampling_wall_s": sample_s, "steps": []}
+    def __init__(self, spec, dev, workdir):
+        from cruise_control_tpu_torch.detector import AnomalyDetectorManager, SelfHealingNotifier
+        from cruise_control_tpu_torch.obs import RECORDER
 
-    def detect(detector):
+        RECORDER.clear()
+        self.dev, self.workdir = dev, workdir
+        self.cc, sample_s = build_facade(spec, dev)
+        self.backend = self.cc.backend
+        self.clock = {"now": 1_000_000}
+        notifier = SelfHealingNotifier(broker_failure_alert_threshold_ms=ALERT_MS,
+                                       broker_failure_self_healing_threshold_ms=SELF_HEAL_MS,
+                                       now_ms=lambda: self.clock["now"])
+        self.manager = AnomalyDetectorManager(self.cc, notifier, detectors=[])
+        self.out = {"anomalies": [], "actions": [], "fixes": []}
+        self.info = {"sampling_wall_s": sample_s, "steps": []}
+        _reset_counts()
+        self.host_calls = dict.fromkeys(_counts(), 0)
+
+    def _counted(self, fn, *args):
+        """``fn(*args)`` with the kernel counts set to 0 before it, added to
+        ``host_calls`` after it."""
+        _reset_counts()
+        try:
+            return fn(*args)
+        finally:
+            for path, n in _counts().items():
+                self.host_calls[path] += n
+
+    def _detect(self, detector):
         t0 = time.monotonic()
-        check(manager.run_detector_once(detector) == 1, f"detector: {type(detector).__name__} found no anomaly")
-        anomaly = manager._next_anomaly(timeout_s=0.0)
-        out["anomalies"].append(_anomaly_row(anomaly))
+        found = self._counted(self.manager.run_detector_once, detector)
+        check(found == 1, f"detector: {type(detector).__name__} found no anomaly")
+        anomaly = self.manager._next_anomaly(timeout_s=0.0)
+        self.out["anomalies"].append(_anomaly_row(anomaly))
         return anomaly, time.monotonic() - t0
 
-    def handle(anomaly, step, want):
+    def _handle(self, anomaly, step, want):
         t0 = time.monotonic()
-        action = manager.handle_anomaly(anomaly)
-        _sync(dev)
-        out["actions"].append(action)
+        action = self._counted(self.manager.handle_anomaly, anomaly)
+        _sync(self.dev)
+        self.out["actions"].append(action)
         check(action == want, f"detector: step {step} gave {action}, want {want}")
         row = {"step": step, "action": action, "handle_wall_s": time.monotonic() - t0}
         res = anomaly.fix_result
         if action == "FIXED":
             s, opt = res.execution, res.optimizer_result
             check(s is not None and s.succeeded, f"detector: step {step}'s execution did not succeed: {s}")
-            placement = backend_placement(backend)
+            placement = backend_placement(self.backend)
             wrong = [p.tp for p in opt.proposals if placement[p.tp] != (p.new_replicas, p.new_replicas[0])]
             check(not wrong, f"detector: step {step}: {len(wrong)} partitions off their proposed placement")
-            out["fixes"].append([(p.tp, p.old_replicas, p.new_replicas) for p in opt.proposals])
+            self.out["fixes"].append([(p.tp, p.old_replicas, p.new_replicas) for p in opt.proposals])
             row.update(num_host_syncs=opt.num_host_syncs, rounds=sum(r.rounds for r in opt.goal_reports),
                        proposals=len(opt.proposals), total_moves=opt.total_moves,
                        residual_hard_violations=opt.residual_hard_violations,
                        tasks=dict(completed=s.completed, dead=s.dead, aborted=s.aborted, failed=s.failed))
-        info["steps"].append(row)
+        self.info["steps"].append(row)
         return action
 
-    # 1. goal violations, their fix, a re-detection
-    gv = GoalViolationDetector(cc, cc.goal_ids)
-    a, det_s = detect(gv)
-    check(a.anomaly_type.name == "GOAL_VIOLATION" and a.fixable, f"detector: {a.description()} is not fixable")
-    check(gv.balancedness_score < 100.0, f"detector: balancedness {gv.balancedness_score} on the skewed start")
-    info.update(violated_goals=list(a.violated_goals), balancedness=gv.balancedness_score, detect_goal_s=det_s)
-    handle(a, "goal violations", "FIXED")
-    again = gv.run()
-    after = len(again[0].violated_goals) if again else 0
-    out["redetected"] = [_anomaly_row(x) for x in again]
-    check(after < len(a.violated_goals), f"detector: {after} goals violated after the fix, {len(a.violated_goals)} before")
-    hard = _hard_violations(cc, dev)
-    check(hard == 0, f"detector: {hard} hard violations in a fresh model after the goal fix")
-    info.update(violated_goals_after=after, hard_violations_after_goal_fix=hard)
+    def goal_violations(self):
+        """Step 1: goal violations, their fix, a re-detection."""
+        from cruise_control_tpu_torch.detector import GoalViolationDetector
 
-    # 2. a dead broker, held back by the grace period, then drained
-    backend.kill_broker(DEAD_BROKER)
-    bf = BrokerFailureDetector(backend, os.path.join(workdir, f"failed-brokers-{dev.type}.json"),
-                               now_ms=lambda: clock["now"])
-    a, _ = detect(bf)
-    check(a.failed_brokers == {DEAD_BROKER: clock["now"]}, f"detector: failed brokers {a.failed_brokers}")
-    handle(a, "broker failure, in the grace period", "CHECK")
-    clock["now"] += SELF_HEAL_MS + 5_000
-    a, det_s = detect(bf)
-    handle(a, "broker failure", "FIXED")
-    on_dead = [tp for tp, (replicas, _) in backend_placement(backend).items() if DEAD_BROKER in replicas]
-    check(not on_dead, f"detector: {len(on_dead)} partitions still on the dead broker, e.g. {on_dead[:3]}")
-    hard = _hard_violations(cc, dev)
-    check(hard == 0, f"detector: {hard} hard violations in a fresh model after the broker fix")
-    info.update(detect_broker_s=det_s, hard_violations_after_broker_fix=hard)
+        gv = GoalViolationDetector(self.cc, self.cc.goal_ids)
+        a, det_s = self._detect(gv)
+        check(a.anomaly_type.name == "GOAL_VIOLATION" and a.fixable, f"detector: {a.description()} is not fixable")
+        check(gv.balancedness_score < 100.0, f"detector: balancedness {gv.balancedness_score} on the skewed start")
+        self.info.update(violated_goals=list(a.violated_goals), balancedness=gv.balancedness_score,
+                         detect_goal_s=det_s)
+        self._handle(a, "goal violations", "FIXED")
+        again = self._counted(gv.run)
+        after = len(again[0].violated_goals) if again else 0
+        self.out["redetected"] = [_anomaly_row(x) for x in again]
+        check(after < len(a.violated_goals),
+              f"detector: {after} goals violated after the fix, {len(a.violated_goals)} before")
+        hard = _hard_violations(self.cc, self.dev)
+        check(hard == 0, f"detector: {hard} hard violations in a fresh model after the goal fix")
+        self.info.update(violated_goals_after=after, hard_violations_after_goal_fix=hard)
 
-    # 3. the only logdir of a broker goes offline
-    offline = sorted(tp for tp, (replicas, _) in backend_placement(backend).items() if BAD_DISK_BROKER in replicas)
-    backend.kill_logdir(BAD_DISK_BROKER, BAD_LOGDIR)
-    a, det_s = detect(DiskFailureDetector(backend))
-    check(a.failed_disks == {BAD_DISK_BROKER: [BAD_LOGDIR]}, f"detector: failed disks {a.failed_disks}")
-    handle(a, "disk failure", "FIXED")
-    placement = backend_placement(backend)
-    left = [tp for tp in offline if BAD_DISK_BROKER in placement[tp][0]]
-    # the goals after the offline pre-phase refill the broker (alive, BAD_DISKS)
-    # as the JAX package does: what lands on its only logdir is offline again
-    # (ROADMAP Queue C, C4), so the count is reported, not held to 0
-    now_on = [tp for tp, (replicas, _) in placement.items() if BAD_DISK_BROKER in replicas]
-    info.update(detect_disk_s=det_s, replicas_on_offline_logdir_before=len(offline),
-                offline_replicas_left=len(left), replicas_on_offline_logdir_after=len(now_on),
-                hard_violations_after_disk_fix=_hard_violations(cc, dev))
+    def broker_failure(self):
+        """Step 2: a dead broker, held back by the grace period, then drained."""
+        from cruise_control_tpu_torch.detector import BrokerFailureDetector
 
-    out["admin_log"] = backend.admin_log
-    out["placement"] = placement
-    out["records"] = _record_shape(reversed(RECORDER.recent(RECORDER.capacity)))
-    if detailed:
-        kinds = {}
-        for r in reversed(RECORDER.recent(RECORDER.capacity)):
-            kinds.setdefault(r.kind, []).append(r.duration_s)
-        info["walls_by_record_kind_s"] = kinds
-        st = manager.state()
-        info["manager_state"] = dict(num_self_healing_started=st.num_self_healing_started,
-                                     num_self_healing_failed=st.num_self_healing_failed,
-                                     queue_size=st.queue_size,
-                                     recent_anomalies={k: v for k, v in st.recent_anomalies.items() if v})
-    return out, info
+        self.backend.kill_broker(DEAD_BROKER)
+        bf = BrokerFailureDetector(self.backend, os.path.join(self.workdir, f"failed-brokers-{self.dev.type}.json"),
+                                   now_ms=lambda: self.clock["now"])
+        a, _ = self._detect(bf)
+        check(a.failed_brokers == {DEAD_BROKER: self.clock["now"]}, f"detector: failed brokers {a.failed_brokers}")
+        self._handle(a, "broker failure, in the grace period", "CHECK")
+        self.clock["now"] += SELF_HEAL_MS + 5_000
+        a, det_s = self._detect(bf)
+        self._handle(a, "broker failure", "FIXED")
+        on_dead = [tp for tp, (replicas, _) in backend_placement(self.backend).items() if DEAD_BROKER in replicas]
+        check(not on_dead, f"detector: {len(on_dead)} partitions still on the dead broker, e.g. {on_dead[:3]}")
+        hard = _hard_violations(self.cc, self.dev)
+        check(hard == 0, f"detector: {hard} hard violations in a fresh model after the broker fix")
+        self.info.update(detect_broker_s=det_s, hard_violations_after_broker_fix=hard)
+
+    def disk_failure(self):
+        """Step 3: the only logdir of a broker goes offline.  The fix's
+        offline pre-phase moves every replica off it (a dry run of the fix
+        with no goals proves it); the goals after it refill the broker, which
+        is alive, as the JAX package does (ROADMAP Queue C, C4): a partition
+        that gets its replica back there is not moved at all, and the others
+        land on the dead logdir.  So the executed fix must leave fewer of the
+        offline replicas there than it found, not none."""
+        from cruise_control_tpu_torch.detector import DiskFailureDetector
+
+        offline = sorted(tp for tp, (replicas, _) in backend_placement(self.backend).items()
+                         if BAD_DISK_BROKER in replicas)
+        self.backend.kill_logdir(BAD_DISK_BROKER, BAD_LOGDIR)
+        a, det_s = self._detect(DiskFailureDetector(self.backend))
+        check(a.failed_disks == {BAD_DISK_BROKER: [BAD_LOGDIR]}, f"detector: failed disks {a.failed_disks}")
+        pre = self.cc.fix_offline_replicas(dryrun=True, goal_ids=()).optimizer_result.proposals
+        moved_off = {p.tp for p in pre if BAD_DISK_BROKER in p.old_replicas and BAD_DISK_BROKER not in p.new_replicas}
+        check(moved_off == set(offline),
+              f"detector: the offline pre-phase moved {len(moved_off)} of the {len(offline)} offline replicas")
+        self._handle(a, "disk failure", "FIXED")
+        placement = backend_placement(self.backend)
+        left = [tp for tp in offline if BAD_DISK_BROKER in placement[tp][0]]
+        now_on = [tp for tp, (replicas, _) in placement.items() if BAD_DISK_BROKER in replicas]
+        check(len(left) < len(offline), f"detector: {len(left)} of the {len(offline)} offline replicas never left")
+        self.out["disk"] = dict(replicas_on_offline_logdir_before=len(offline),
+                                moved_off_by_the_pre_phase=len(moved_off), offline_replicas_left=len(left),
+                                replicas_on_offline_logdir_after=len(now_on))
+        self.info.update(detect_disk_s=det_s, **self.out["disk"],
+                         hard_violations_after_disk_fix=_hard_violations(self.cc, self.dev))
+
+    def outcome(self, detailed=False):
+        """(the comparable outcome, the printed info); ``detailed`` adds the
+        walls by record kind and ``manager.state()``."""
+        from cruise_control_tpu_torch.obs import RECORDER
+
+        records = list(reversed(RECORDER.recent(RECORDER.capacity)))
+        out = dict(self.out, admin_log=self.backend.admin_log, placement=backend_placement(self.backend),
+                   records=_record_shape(records))
+        info = dict(self.info)
+        if detailed:
+            kinds = {}
+            for r in records:
+                kinds.setdefault(r.kind, []).append(r.duration_s)
+            info["walls_by_record_kind_s"] = kinds
+            st = self.manager.state()
+            info["manager_state"] = dict(num_self_healing_started=st.num_self_healing_started,
+                                         num_self_healing_failed=st.num_self_healing_failed,
+                                         queue_size=st.queue_size,
+                                         recent_anomalies={k: v for k, v in st.recent_anomalies.items() if v})
+        return out, info
+
+
+def self_heal_steps(spec, dev, workdir, detailed=False):
+    """All three steps of :class:`SelfHealDrive`: (outcome, info, host calls)."""
+    drive = SelfHealDrive(spec, dev, workdir)
+    drive.goal_violations()
+    drive.broker_failure()
+    drive.disk_failure()
+    return (*drive.outcome(detailed), drive.host_calls)
 
 
 def _threaded_pass(dev, workdir):
     """``start_detection`` at config2_small: the broker-failure and
     goal-violation detectors on their own threads, the handler on a third;
-    a killed broker must be drained within ``DRAIN_TIMEOUT_S``."""
+    a killed broker must be drained within ``DRAIN_TIMEOUT_S``.  The kernel
+    counts are set to 0 just before the threads start and read once they
+    have ended."""
     from cruise_control_tpu_torch.detector import (
         AnomalyDetectorManager,
         BrokerFailureDetector,
@@ -1789,6 +1847,7 @@ def _threaded_pass(dev, workdir):
     ])
     cc.backend.kill_broker(DEAD_BROKER)
     t0 = time.monotonic()
+    _reset_counts()
     manager.start_detection()
     threads = list(manager._threads)
     drained = False
@@ -1803,6 +1862,7 @@ def _threaded_pass(dev, workdir):
         # longer, and must end before the next phase reads the recorder
         for t in threads:
             t.join(timeout=DRAIN_TIMEOUT_S)
+    launches = _counts()
     wall = time.monotonic() - t0
     check(not any(t.is_alive() for t in threads), "detector: a detector thread outlived the threaded pass")
     actions = [r.attrs.get("action") for r in reversed(RECORDER.recent(RECORDER.capacity, kind="anomaly"))]
@@ -1810,48 +1870,47 @@ def _threaded_pass(dev, workdir):
     st = manager.state()
     row = dict(drained=drained, wall_s=wall, actions=actions, detector_passes=passes,
                num_self_healing_started=st.num_self_healing_started,
-               num_self_healing_failed=st.num_self_healing_failed)
+               num_self_healing_failed=st.num_self_healing_failed, host_calls=launches)
     check(drained, f"detector: the threaded pass did not drain broker {DEAD_BROKER} in {DRAIN_TIMEOUT_S} s: {row}")
     check(st.num_self_healing_failed == 0 and "FIX_FAILED" not in actions and "IGNORE" not in actions,
           f"detector: the threaded pass: {row}")
-    return row
+    return row, launches
 
 
 def phase_detector(dev):
-    """The self-healing plane on the card at config #2 width (steps 1-3 of
-    :func:`self_heal_steps`), then the threaded pass at config2_small.
-    Returns the kernel host calls of the whole phase."""
+    """The self-healing plane on the card at config #2 width (the three
+    steps of :class:`SelfHealDrive`), then the threaded pass at
+    config2_small.  Returns the kernel host calls of each, apart."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="cc-smoke-detector-") as workdir:
-        _reset_counts()
-        _, info = self_heal_steps(CONFIG2, dev, workdir, detailed=True)
-        threaded = _threaded_pass(dev, workdir)
-        launches = _counts()
+        _, info, launches = self_heal_steps(CONFIG2, dev, workdir, detailed=True)
+        threaded, threaded_launches = _threaded_pass(dev, workdir)
     say("detector", brokers=CONFIG2["num_brokers"], partitions=CONFIG2["num_partitions"], **info,
         threaded=threaded, host_calls=launches)
     for path in ("segment_sum_f32", "segment_sum_i32"):
         check(launches[path] > 0, f"detector: kernel path {path} never launched on the self-healing path")
-    return launches
+        check(threaded_launches[path] > 0, f"detector: kernel path {path} never launched in the threaded pass")
+    return launches, threaded_launches
 
 
 def phase_detector_card_vs_cpu(dev):
     """:func:`self_heal_steps` at config2_small on the CPU port and on the
-    card: the anomalies, actions, fixes' proposals, admin log, final
-    placement and record shapes must be identical."""
+    card: the anomalies, actions, fixes' proposals, offline-logdir counts,
+    admin log, final placement and record shapes must be identical."""
     import tempfile
 
     out, walls = {}, {}
     with tempfile.TemporaryDirectory(prefix="cc-smoke-detector-") as workdir:
         for where in (torch.device("cpu"), dev):
             t0 = time.monotonic()
-            out[where.type], _ = self_heal_steps(CONFIG2_SMALL, where, workdir)
+            out[where.type], _, _ = self_heal_steps(CONFIG2_SMALL, where, workdir)
             walls[where.type] = time.monotonic() - t0
     c, g = out["cpu"], out[dev.type]
     say("detector_card_vs_cpu", cpu_wall_s=walls["cpu"], gpu_wall_s=walls[dev.type], actions=g["actions"],
         anomalies=[a["description"] for a in g["anomalies"]], proposals=[len(f) for f in g["fixes"]],
-        record_kinds=sorted({k for k, _, _ in g["records"]}))
-    for key in ("anomalies", "actions", "fixes", "redetected", "admin_log", "placement", "records"):
+        disk=g["disk"], record_kinds=sorted({k for k, _, _ in g["records"]}))
+    for key in ("anomalies", "actions", "fixes", "redetected", "disk", "admin_log", "placement", "records"):
         check(g[key] == c[key], f"detector: the card's {key} differ from the CPU port's")
 
 
@@ -1865,7 +1924,8 @@ def phase_replay_harnesses(dev):
     the card and on the CPU port (publishes, reactions, every step's
     outcome identical but for the host-sync counts), then the three ported
     bench harnesses once each at their pinned sizes on the card.  Returns
-    the kernel host calls of the card's replays and harnesses."""
+    the kernel host calls of each card run by name: the counts are set to
+    0 just before it and read just after."""
     from cruise_control_tpu_torch.controller import bench as CB
     from cruise_control_tpu_torch.fleet import bench as FB
     from cruise_control_tpu_torch.traces import LoadTrace, drift_storm_trace, run_replay
@@ -1878,18 +1938,20 @@ def phase_replay_harnesses(dev):
         d["steps"] = [{k: v for k, v in st.items() if k != "num_dispatches"} for st in d["steps"]]
         return d
 
-    _reset_counts()
-    rows = {}
+    def counted(fn):
+        _reset_counts()
+        got = fn()
+        return got, _counts()
+
+    launches, rows = {}, {}
     for name, make in (("drift_storm", lambda: drift_storm_trace(**REPLAY_STORM)),
                        ("quiet", lambda: LoadTrace(**REPLAY_QUIET))):
-        got = {}
-        for where in (torch.device("cpu"), dev):
-            got[where.type] = run_replay(make(), device=where)
-        c, g = got["cpu"], got[dev.type]
+        c = run_replay(make(), device=torch.device("cpu"))
+        g, launches[name] = counted(lambda: run_replay(make(), device=dev))
         rows[name] = dict(published=g.published, reactions=g.reactions, steps=g.steps,
                           host_syncs=dict(cpu=c.total_dispatches, gpu=g.total_dispatches),
                           wall_s=dict(cpu=c.duration_s, gpu=g.duration_s),
-                          warm_kernel_builds=g.warm_compile_events)
+                          warm_kernel_builds=g.warm_compile_events, host_calls=launches[name])
         check(comparable(g) == comparable(c), f"replay {name}: the card's report differs from the CPU port's")
         check(g.warm_compile_events == 0, f"replay {name}: {g.warm_compile_events} kernel builds after a publish")
     check(1 <= rows["drift_storm"]["published"] <= REPLAY_STORM["phases"], f"replay: {rows['drift_storm']}")
@@ -1898,9 +1960,8 @@ def phase_replay_harnesses(dev):
     for name, run in (("controller", lambda: CB.run_bench(device=dev)), ("fleet", lambda: FB.run_bench(device=dev)),
                       ("traces", lambda: TB.run_bench(device=dev))):
         t0 = time.monotonic()
-        harness[name] = run()
+        harness[name], launches[f"{name}_harness"] = counted(run)
         harness[name]["harness_wall_s"] = time.monotonic() - t0
-    launches = _counts()
     say("replay_harnesses", replays=rows, **{f"{k}_harness": v for k, v in harness.items()},
         controller_warm_tick_host_syncs=harness["controller"]["warm_tick_host_syncs"],
         controller_dispatch_budget=harness["controller"]["dispatch_budget"], host_calls=launches)
@@ -1909,6 +1970,8 @@ def phase_replay_harnesses(dev):
     check(harness["traces"]["warm_host_syncs"] == 1, f"traces harness: {harness['traces']}")
     for name, h in harness.items():
         check(h["warm_compile_events"] == 0, f"{name} harness: kernel builds when warm: {h}")
+    for name, calls in launches.items():
+        check(calls["segment_sum_f32"] > 0, f"{name}: the fixed-order segment sum never launched on the card")
     return launches
 
 
@@ -1949,7 +2012,7 @@ def main() -> int:
     phase_traces_controller_card_vs_cpu(dev, small_final)
     facade_launches = phase_facade(dev)
     phase_facade_card_vs_cpu(dev)
-    detector_launches = phase_detector(dev)
+    detector_launches, threaded_launches = phase_detector(dev)
     phase_detector_card_vs_cpu(dev)
     replay_launches = phase_replay_harnesses(dev)
 
@@ -1971,7 +2034,8 @@ def main() -> int:
             "shape": rec["case"], "sim_launches": sim_launches[path],
             "traces_launches": traces_launches[path], "controller_launches": controller_launches[path],
             "facade_launches": facade_launches[path], "detector_launches": detector_launches[path],
-            "replay_launches": replay_launches[path],
+            "detector_threaded_launches": threaded_launches[path],
+            "replay_launches": {run: n[path] for run, n in replay_launches.items()},
             "traces_shapes": [{k: r[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
                                                  "library_device_ms", "library_call_ms", "bound_ms", "bound_by")}
                               for r in at_rollout],
@@ -1997,7 +2061,8 @@ def main() -> int:
         "controller_launches": controller_launches["even_assign"],
         "facade_launches": facade_launches["even_assign"],
         "detector_launches": detector_launches["even_assign"],
-        "replay_launches": replay_launches["even_assign"],
+        "detector_threaded_launches": threaded_launches["even_assign"],
+        "replay_launches": {run: n["even_assign"] for run, n in replay_launches.items()},
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -43,7 +43,7 @@ from cruise_control_tpu_torch.monitor import LoadMonitor
 from cruise_control_tpu_torch.monitor.capacity import StaticCapacityResolver
 from cruise_control_tpu_torch.monitor.samples import BackendMetricSampler
 
-#: pinned workload — changing any of these requires --update-baseline
+#: pinned workload: the JAX harness's own, so the two packages' dicts compare
 BROKERS = 6
 RACKS = 2
 PARTITIONS = 48

@@ -40,7 +40,7 @@ from cruise_control_tpu_torch.controller.bench import (
 from cruise_control_tpu_torch.core.device import DeviceLike
 from cruise_control_tpu_torch.fleet.controller import FleetConfig, FleetController
 
-#: pinned fleet width — changing it requires --update-baseline
+#: pinned fleet width: the JAX harness's own, so the two packages' dicts compare
 NUM_TENANTS = 32
 
 

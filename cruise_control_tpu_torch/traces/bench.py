@@ -17,7 +17,7 @@ from typing import Dict
 
 from cruise_control_tpu_torch.core.device import DeviceLike
 
-#: pinned workload — changing any of these requires --update-baseline
+#: pinned workload: the JAX harness's own, so the two packages' dicts compare
 PAIRS = 16
 STEPS = 64
 BUCKET = 16

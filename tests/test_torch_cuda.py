@@ -515,37 +515,19 @@ def test_segment_sums_are_safe_under_concurrent_host_threads(cuda_device):
 def test_broker_failure_self_heal_on_the_card_equals_the_cpu_port(cuda_device, tmp_path):
     """At config2_small: a dead broker detected, held back by the notifier's
     grace period, then drained through ``remove_brokers`` on the card and on
-    the CPU port -- the same anomaly, actions, proposals, admin calls and
-    final placement, and no replica left on the dead broker."""
+    the CPU port (the smoke's ``SelfHealDrive.broker_failure``, which checks
+    the drain and 0 hard violations after it) -- the same anomaly, actions,
+    proposals, admin calls and final placement."""
     import chip_smoke as SM
-    from cruise_control_tpu_torch.detector import (
-        AnomalyDetectorManager,
-        BrokerFailureDetector,
-        SelfHealingNotifier,
-    )
 
     out = {}
     for where in (cuda_device, torch.device("cpu")):
-        PS.reset_launch_counts()
-        cc, _ = SM.build_facade(SM.CONFIG2_SMALL, where)
-        clock = {"now": 1_000_000}
-        notifier = SelfHealingNotifier(broker_failure_alert_threshold_ms=10_000,
-                                       broker_failure_self_healing_threshold_ms=20_000,
-                                       now_ms=lambda: clock["now"])
-        manager = AnomalyDetectorManager(cc, notifier, detectors=[])
-        cc.backend.kill_broker(3)
-        det = BrokerFailureDetector(cc.backend, str(tmp_path / f"{where.type}.json"), now_ms=lambda: clock["now"])
-        (a,) = det.run()
-        first = manager.handle_anomaly(a)
-        clock["now"] += 25_000
-        (a,) = det.run()
-        action = manager.handle_anomaly(a)
+        drive = SM.SelfHealDrive(SM.CONFIG2_SMALL, where, str(tmp_path))
+        drive.broker_failure()
         if where.type == "cuda":
-            assert PS.LAUNCHES["segment_sum_f32"] > 0 and PS.LAUNCHES["segment_sum_i32"] > 0
-        res = a.fix_result
-        assert res.execution.succeeded
-        out[where.type] = (a.failed_brokers, first, action, res.optimizer_result.proposals,
-                           cc.backend.admin_log, SM.backend_placement(cc.backend))
+            assert drive.host_calls["segment_sum_f32"] > 0 and drive.host_calls["segment_sum_i32"] > 0
+        outcome, _ = drive.outcome()
+        out[where.type] = {k: outcome[k] for k in ("anomalies", "actions", "fixes", "admin_log", "placement")}
     assert out["cuda"] == out["cpu"]
-    assert out["cuda"][1:3] == ("CHECK", "FIXED")
-    assert all(3 not in replicas for replicas, _ in out["cuda"][-1].values())
+    assert out["cuda"]["actions"] == ["CHECK", "FIXED"]
+    assert all(SM.DEAD_BROKER not in replicas for replicas, _ in out["cuda"]["placement"].values())

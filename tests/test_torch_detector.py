@@ -132,10 +132,14 @@ def scenario(side, tmp_path):
     out["broker"] = (_anomaly(a), first, manager.handle_anomaly(a), _fix(a))
 
     # 3. broker 5's only logdir goes offline: its replicas are offline on a
-    #    live broker, and the fix relocates them
+    #    live broker, and the fix relocates them.  A dry run of the fix with
+    #    no goals is the offline pre-phase alone: which partitions it moves
+    #    off broker 5
     offline = sorted(tp for tp, (replicas, _) in backend_placement(backend).items() if 5 in replicas)
     backend.kill_logdir(5, "/data/d0")
     a = _detect(manager, D.DiskFailureDetector(backend))
+    pre = cc.fix_offline_replicas(dryrun=True, goal_ids=()).optimizer_result.proposals
+    out["pre_phase_moved_off"] = sorted(p.tp for p in pre if 5 in p.old_replicas and 5 not in p.new_replicas)
     out["disk"] = (_anomaly(a), manager.handle_anomaly(a), _fix(a), offline)
 
     st = dataclasses.asdict(manager.state())
@@ -178,16 +182,23 @@ def test_broker_failure_waits_out_the_grace_period_then_drains(both):
 
 
 def test_offline_logdir_is_fixed_like_the_jax_detector(both):
-    """The fix's offline pre-phase relocates the replicas off the dead
-    logdir, but the goals after it refill the broker (alive, BAD_DISKS): its
-    only logdir is dead, so what lands there is offline again.  The JAX
-    package does exactly the same (ROADMAP Queue C, C4)."""
+    """The fix's offline pre-phase moves every replica off the dead logdir,
+    but the goals after it refill the broker (alive, BAD_DISKS).  A
+    partition whose replica they put back on it is not moved at all, so that
+    replica never leaves the dead logdir; the others land on it, offline
+    again.  The JAX package does exactly the same (ROADMAP Queue C, C4)."""
     assert both["port"]["disk"] == both["jax"]["disk"]
     anomaly, action, (proposals, execution), offline = both["port"]["disk"]
     assert anomaly["failed_disks"] == {5: ["/data/d0"]}
     assert action == "FIXED" and proposals and execution[-1] and offline
-    left = [tp for tp, (replicas, _) in both["port"]["placement"].items() if 5 in replicas]
-    assert left == [tp for tp, (replicas, _) in both["jax"]["placement"].items() if 5 in replicas]
+    for side in ("jax", "port"):
+        assert both[side]["pre_phase_moved_off"] == offline
+    on_5 = {side: [tp for tp, (replicas, _) in both[side]["placement"].items() if 5 in replicas]
+            for side in ("jax", "port")}
+    assert on_5["port"] == on_5["jax"]
+    never_left = {side: [tp for tp in offline if tp in on_5[side]] for side in ("jax", "port")}
+    assert never_left["jax"] and never_left["port"] == never_left["jax"]
+    assert len(never_left["port"]) < len(offline)
 
 
 def test_admin_log_placement_state_and_records_equal_the_jax_run(both):
