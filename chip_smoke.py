@@ -122,7 +122,36 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    traces bench harnesses once each at their pinned sizes, each card run
    with its own kernel counts; the controller harness's warm-tick host syncs
    are printed beside the JAX dispatch budget, not held to it;
-18. the ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
+18. ingest: the config layer, the metrics ingest, the replication and the
+   self-monitoring plane at config #2 width.  ``config/cruisecontrol
+   .properties`` through the port's registry (the window keys overridden,
+   every class key a class of the port); the facade stack of phase 13 with
+   a deployment's route as sampler -- a ``MetricsReporter`` for each of the
+   100 brokers serializing its share of one backend fetch an interval with
+   the wire format onto an ``IntervalTransport`` (batches stamped with the
+   interval they report), a ``FetcherPool`` of 4 ``TransportMetricSampler`` samplers
+   -- filling the windows; a dry-run rebalance cold and warm (0 hard
+   violations, warm = cold = phase 13's proposals, each optimize record's
+   ``cost`` equal to the profiler census of its kernel calls); a
+   ``ContinuousController`` journaling to a temporary directory (recovered
+   and fenced as at the service's startup), a writer ``ReplicationState``
+   on the journal's listener and a ``FollowerTailer``; topics 0-9 x 1.3 at
+   the backend, sampled through the reporters until a tick publishes; the
+   follower's version, epoch and set equal the writer's, then a compaction
+   gives it one reset and no delta.  A ``SelfMonitor`` samples the process
+   registry around those steps and the shipped SLOs evaluate: the page
+   parses, carries the replication gauges and the census (equal to the
+   launch counts), ``warm-recompiles`` and ``replication-staleness`` stay
+   quiet, ``warm-tick-dispatches`` is printed beside the JAX budget of 7.
+   Then ``selfmon_bench.run_bench`` on the card, its denominator phase
+   17's controller harness tick p50: 0 kernel calls and builds while
+   sampling, no false positive, the burn caught within two periods;
+19. ingest card vs CPU: phase 18's ingest and replication steps at
+   config2_small on the CPU port and on the card; proposals, the sets of
+   controller, writer and follower, the journal records and the flight
+   records' shapes identical;
+20. the total wall with the kernels' build and each phase's wall, the
+   ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
    ``launches`` and ``host_calls`` are the wrapper's count of host calls in
    phase 4's cold solve (phase 5's P1 for ``even_assign``), ``sim_launches``
    those of phase 6's cold S1 sweep, ``traces_launches`` those of phase 9's
@@ -130,8 +159,9 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    ``facade_launches`` those of phase 13's three rebalances,
    ``detector_launches`` those of phase 15's synchronous drive at config #2
    (its detections and fixes; not the checks between them),
-   ``detector_threaded_launches`` those of its threaded pass, and
-   ``replay_launches`` those of each of phase 17's card runs by name;
+   ``detector_threaded_launches`` those of its threaded pass,
+   ``replay_launches`` those of each of phase 17's card runs by name, and
+   ``ingest_launches`` those of phase 18's ingest and replication steps;
    ``sim_shape`` and ``traces_shapes`` are phase 2's times at the sweep's and
    the rollout's call shapes; ``kernel_launches`` are the kernels
    those calls enqueued in phase 7's solve (the fixed-order path enqueues
@@ -1467,48 +1497,67 @@ def seed_fake_backend(backend, state, maps, num_racks):
     load plus the partition's leadership delta."""
     rb = state.replica_broker.cpu().numpy()
     rp = state.replica_partition.cpu().numpy()
-    leader = state.partition_leader.cpu().numpy()
-    load = state.base_load.cpu().numpy()[leader] + state.leadership_delta.cpu().numpy()
     for b in range(state.num_brokers):
         backend.add_broker(b, rack=str(b % num_racks))
     replicas = [[] for _ in range(state.num_partitions)]
     for p, b in zip(rp.tolist(), rb.tolist()):
         replicas[p].append(b)
+    loads = seeded_loads(state, maps)
     for p, tp in enumerate(maps.partitions):
-        backend.create_partition(tp, replicas[p], load=load[p].tolist())
+        backend.create_partition(tp, replicas[p], load=loads[tp])
     return backend
 
 
-def build_facade(spec, device, goal_ids=DEFAULT_GOALS):
-    """The port's service stack on a synthetic spec: a ``FakeClusterBackend``
-    seeded with it, a ``LoadMonitor`` whose windows ``sample_once`` fills on a
-    window-aligned clock, an ``Executor`` that pauses sampling while replicas
-    move, and ``CruiseControl`` on ``device``.  ``(facade, sampling wall s)``."""
+def seeded_loads(state, maps) -> dict:
+    """tp -> the leader-replica load ``seed_fake_backend`` gives a partition."""
+    leader = state.partition_leader.cpu().numpy()
+    load = state.base_load.cpu().numpy()[leader] + state.leadership_delta.cpu().numpy()
+    return {tp: load[p].tolist() for p, tp in enumerate(maps.partitions)}
+
+
+def _facade_stack(spec, device, goal_ids, make_sampler, num_windows=FACADE_WINDOWS, window_ms=FACADE_WINDOW_MS):
+    """A ``FakeClusterBackend`` seeded with a synthetic spec, a ``LoadMonitor``
+    over ``make_sampler(backend)``, an ``Executor`` that pauses sampling while
+    replicas move, and a started ``CruiseControl`` on ``device``:
+    ``(facade, the synthetic state, its maps)``."""
     from cruise_control_tpu_torch.backend import FakeClusterBackend
     from cruise_control_tpu_torch.core.resources import Resource
     from cruise_control_tpu_torch.executor import Executor
     from cruise_control_tpu_torch.facade import CruiseControl
-    from cruise_control_tpu_torch.monitor import BackendMetricSampler, LoadMonitor, StaticCapacityResolver
+    from cruise_control_tpu_torch.monitor import LoadMonitor, StaticCapacityResolver
     from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
     from cruise_control_tpu_torch.analyzer import goals_base as G
 
     syn = SyntheticSpec(**spec)
     state, maps = generate(syn, device="cpu")
-    backend = seed_fake_backend(FakeClusterBackend(metric_interval_ms=FACADE_WINDOW_MS), state, maps,
-                                syn.num_racks)
+    backend = seed_fake_backend(FakeClusterBackend(metric_interval_ms=window_ms), state, maps, syn.num_racks)
     capacity = {Resource.CPU: syn.capacity_cpu, Resource.NW_IN: syn.capacity_nw_in,
                 Resource.NW_OUT: syn.capacity_nw_out, Resource.DISK: syn.capacity_disk}
-    monitor = LoadMonitor(backend, BackendMetricSampler(backend), StaticCapacityResolver(capacity),
-                          num_windows=FACADE_WINDOWS, window_ms=FACADE_WINDOW_MS)
+    monitor = LoadMonitor(backend, make_sampler(backend), StaticCapacityResolver(capacity),
+                          num_windows=num_windows, window_ms=window_ms)
     executor = Executor(backend, progress_check_interval_s=FACADE_CHECK_INTERVAL_S,
                         pause_sampling=monitor.pause_sampling, resume_sampling=monitor.resume_sampling)
     cc = CruiseControl(backend, monitor, executor, goal_ids=goal_ids,
                        hard_ids=tuple(g for g in goal_ids if g in G.HARD_GOALS), device=device)
     cc.start()
+    return cc, state, maps
+
+
+def facade_clock(w: int) -> int:
+    """The facade phases' window-aligned clock: the start of window ``w``."""
+    return 1_700_000_000_000 // FACADE_WINDOW_MS * FACADE_WINDOW_MS + w * FACADE_WINDOW_MS
+
+
+def build_facade(spec, device, goal_ids=DEFAULT_GOALS):
+    """The port's service stack on a synthetic spec (``_facade_stack`` over
+    the ``BackendMetricSampler``), its windows filled by ``sample_once`` on
+    the window-aligned clock.  ``(facade, sampling wall s)``."""
+    from cruise_control_tpu_torch.monitor import BackendMetricSampler
+
+    cc, _, _ = _facade_stack(spec, device, goal_ids, BackendMetricSampler)
     t0 = time.monotonic()
-    start = 1_700_000_000_000 // FACADE_WINDOW_MS * FACADE_WINDOW_MS
     for w in range(FACADE_WINDOWS + 2):
-        monitor.sample_once(now_ms=start + w * FACADE_WINDOW_MS)
+        cc.monitor.sample_once(now_ms=facade_clock(w))
     return cc, time.monotonic() - t0
 
 
@@ -1533,7 +1582,7 @@ def phase_facade(dev):
     """The service's own path on the card at config #2 width: the facade's
     dry-run rebalance cold and warm, then an executed one, through the fake
     backend, the load monitor, the solver and the executor.  Returns the
-    kernel host calls of the three rebalances."""
+    kernel host calls of the three rebalances and the dry run's proposals."""
     from cruise_control_tpu_torch.analyzer import GoalContext, GoalOptimizer
     from cruise_control_tpu_torch.analyzer import goals_base as G
     from cruise_control_tpu_torch.obs import PROFILER, RECORDER
@@ -1587,7 +1636,7 @@ def phase_facade(dev):
     check(after_hard == 0, f"facade: the model taken after the execution has {after_hard} hard violations")
     for path in ("segment_sum_f32", "segment_sum_i32"):
         check(launches[path] > 0, f"facade: kernel path {path} never launched on the facade's path")
-    return launches
+    return launches, res.proposals
 
 
 def phase_facade_card_vs_cpu(dev):
@@ -1924,8 +1973,9 @@ def phase_replay_harnesses(dev):
     the card and on the CPU port (publishes, reactions, every step's
     outcome identical but for the host-sync counts), then the three ported
     bench harnesses once each at their pinned sizes on the card.  Returns
-    the kernel host calls of each card run by name: the counts are set to
-    0 just before it and read just after."""
+    the kernel host calls of each card run by name (the counts are set to 0
+    just before it and read just after) and the controller harness's warm
+    tick p50."""
     from cruise_control_tpu_torch.controller import bench as CB
     from cruise_control_tpu_torch.fleet import bench as FB
     from cruise_control_tpu_torch.traces import LoadTrace, drift_storm_trace, run_replay
@@ -1972,7 +2022,404 @@ def phase_replay_harnesses(dev):
         check(h["warm_compile_events"] == 0, f"{name} harness: kernel builds when warm: {h}")
     for name, calls in launches.items():
         check(calls["segment_sum_f32"] > 0, f"{name}: the fixed-order segment sum never launched on the card")
+    return launches, harness["controller"]["reaction_p50_s"]
+
+
+# -- phases 18-19: the metrics ingest, the replication and the self-monitoring --
+
+#: the fetcher pool of the ingest phases
+INGEST_FETCHERS = 4
+#: the keys the ingest phases override in ``config/cruisecontrol.properties``:
+#: the facade phases' windows, one metric interval a window
+INGEST_OVERRIDES = {
+    "partition.metrics.window.ms": FACADE_WINDOW_MS,
+    "num.partition.metrics.windows": FACADE_WINDOWS,
+    "metric.sampling.interval.ms": FACADE_WINDOW_MS,
+}
+#: windows of shifted load sampled, at most, until a tick publishes (the two
+#: valid windows are averaged, so the second shifted window is the first
+#: whose average is all shift)
+INGEST_SHIFT_WINDOWS = 3
+#: the JAX package's dispatch budget of a warm tick (``slo.dispatch.budget``
+#: of its bench and gate), printed beside the port's host syncs
+JAX_DISPATCH_BUDGET = 7
+
+
+class IntervalTransport:
+    """The ingest phases' metrics transport: the ``MetricsTransport`` SPI of
+    either package (``publish``, ``poll``) with each batch stamped with the
+    metric interval its reporter reports (``interval_ms``, set before the
+    reporters publish).  The package's ``InMemoryTransport`` stamps the wall
+    clock, which the phases' window-aligned clock never reaches.  Counts the
+    bytes on the wire."""
+
+    def __init__(self) -> None:
+        self.interval_ms = 0
+        self.batches = []
+        self.bytes = 0
+
+    def publish(self, payload: bytes) -> None:
+        self.batches.append((self.interval_ms, payload))
+        self.bytes += len(payload)
+
+    def poll(self, from_ms: int, to_ms: int):
+        return [p for ts, p in self.batches if from_ms <= ts < to_ms]
+
+
+class ReporterFleet:
+    """One ``MetricsReporter`` per broker of a fake backend (``reporter`` is
+    either package's ``monitor.reporter`` module) publishing through one
+    :class:`IntervalTransport`.  Each metric interval the backend's raw
+    metrics are fetched once and split by broker, and each broker's reporter
+    publishes its share: one fetch builds the metrics of every replica (and
+    draws the backend's noise in the order the direct path does), so a fetch
+    per reporter would cost a hundred times the host work."""
+
+    def __init__(self, backend, reporter, interval_ms: int, first_ms: int) -> None:
+        self.backend = backend
+        self.interval_ms = interval_ms
+        self.transport = IntervalTransport()
+        self._share = {}
+        self.reporters = [reporter.MetricsReporter(b, self.transport, collect_fn=self._collector(b))
+                          for b in sorted(backend.describe_cluster().brokers)]
+        self._next_ms = first_ms
+        self.collect_s = self.serialize_s = 0.0
+
+    def _collector(self, broker: int):
+        return lambda: self._share.get(broker, [])
+
+    def publish_until(self, now_ms: int) -> None:
+        """Publish every interval from the last one published up to ``now_ms``."""
+        for ts in range(self._next_ms, now_ms, self.interval_ms):
+            t0 = time.perf_counter()
+            share = {}
+            for m in self.backend.fetch_raw_metrics(ts, ts + self.interval_ms):
+                share.setdefault(m.broker_id, []).append(m)
+            self._share = share
+            t1 = time.perf_counter()
+            self.transport.interval_ms = ts
+            for r in self.reporters:
+                r.report_once()
+            self.collect_s += t1 - t0
+            self.serialize_s += time.perf_counter() - t1
+        self._next_ms = max(self._next_ms, now_ms)
+
+
+def ingest_sampler(backend, transport, fetcher, reporter):
+    """The ingest route's sampler: a ``FetcherPool`` of ``INGEST_FETCHERS``
+    ``TransportMetricSampler``\\ s polling ``transport``, partitions assigned
+    by the ``DefaultPartitionAssignor`` (``fetcher`` and ``reporter`` are
+    either package's ``monitor`` modules)."""
+    def partitions():
+        return [i.tp for infos in backend.describe_topics().values() for i in infos]
+
+    return fetcher.FetcherPool(lambda: reporter.TransportMetricSampler(transport, backend.describe_topics),
+                               partitions, num_fetchers=INGEST_FETCHERS,
+                               assignor=fetcher.DefaultPartitionAssignor())
+
+
+def ingest_config():
+    """``config/cruisecontrol.properties`` through the port's registry with
+    ``INGEST_OVERRIDES``: ``(Config, {class key: resolved class name})``.
+    Fails unless every class key resolves to a class of the port."""
+    from cruise_control_tpu_torch.core.config import Config, load_properties, resolve_class
+    from cruise_control_tpu_torch.core.config_defs import cruise_control_config
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "cruisecontrol.properties")
+    cfg = Config(cruise_control_config(), {**load_properties(path), **INGEST_OVERRIDES})
+    classes = {}
+    for name, key in cfg.definition.keys().items():
+        if key.type.value == "class":
+            cls = resolve_class(cfg.get(name))
+            classes[name] = f"{cls.__module__}.{cls.__name__}"
+    check(len(classes) == 6 and all(c.startswith("cruise_control_tpu_torch.") for c in classes.values()),
+          f"config: class keys {classes}")
+    return cfg, classes
+
+
+def build_ingest_facade(spec, device, cfg, goal_ids=DEFAULT_GOALS):
+    """The facade stack of :func:`build_facade` with a deployment's ingest
+    route as its sampler: a reporter in each broker, the wire format, an
+    :class:`IntervalTransport` and a fetcher pool; the windows (``cfg``'s)
+    fill on the window-aligned clock.  A namespace: the facade, the reporter
+    fleet, the synthetic state and maps, the next window and the walls."""
+    import types
+
+    from cruise_control_tpu_torch.monitor import fetcher, reporter
+
+    windows, window_ms = cfg.get("num.partition.metrics.windows"), cfg.get("partition.metrics.window.ms")
+    check(window_ms == FACADE_WINDOW_MS, f"ingest: window {window_ms} ms off the facade clock")
+    made = {}
+
+    def make_sampler(backend):
+        made["fleet"] = ReporterFleet(backend, reporter, window_ms, facade_clock(-(windows + 1)))
+        return ingest_sampler(backend, made["fleet"].transport, fetcher, reporter)
+
+    cc, state, maps = _facade_stack(spec, device, goal_ids, make_sampler, windows, window_ms)
+    run = types.SimpleNamespace(cc=cc, fleet=made["fleet"], state=state, maps=maps, window=0, sample_s=0.0,
+                                fetch_s=0.0)
+    for _ in range(windows + 2):
+        ingest_window(run)
+    return run
+
+
+def ingest_window(run) -> None:
+    """The reporters publish up to the next window and the monitor samples it
+    through the fetcher pool; ``run.fetch_s`` gains the pool's wall."""
+    from cruise_control_tpu_torch.core.sensors import REGISTRY, SAMPLE_FETCH_TIMER
+
+    now = facade_clock(run.window)
+    timer = REGISTRY.timer(SAMPLE_FETCH_TIMER)
+    before = timer.total_s
+    t0 = time.perf_counter()
+    run.fleet.publish_until(now)
+    run.cc.monitor.sample_once(now_ms=now)
+    run.sample_s += time.perf_counter() - t0
+    run.fetch_s += timer.total_s - before
+    run.window += 1
+
+
+def _census() -> dict:
+    """The profiler census per kernel: (calls, reckoned operations, bytes)."""
+    from cruise_control_tpu_torch.obs import PROFILER
+
+    return {k: (v["calls"], v["flops_total"], v["bytes_total"]) for k, v in PROFILER.per_program_totals().items()}
+
+
+def _census_grown(before: dict, after: dict) -> dict:
+    zero = (0, 0.0, 0.0)
+    return {k: tuple(a - b for a, b in zip(after[k], before.get(k, zero))) for k in after
+            if after[k] != before.get(k, zero)}
+
+
+def _journal_key(records) -> list:
+    """Controller-WAL records without their wall-clock fields."""
+    return [{k: v for k, v in r.items() if k not in ("created_ms", "reaction_s", "ts_ms")} for r in records]
+
+
+def ingest_steps(spec, device, workdir, cfg, on_step=None):
+    """Steps 2-3 of the ingest phases on ``device``.  Ingest: the reporters
+    fill the windows through the fetcher pool, then a dry-run rebalance cold
+    and warm, each with the census's growth over it beside its optimize
+    record's ``cost``.  Replication: a ``ContinuousController`` journaling
+    under ``workdir`` and listening to the monitor's windows, a writer
+    ``ReplicationState`` fed by the journal's listener, a ``FollowerTailer``
+    on the same directory; the controller recovers and fences its epoch as
+    the service does at startup; the backend's topics 0-9 scaled by 1.3, and their
+    metrics sampled through the reporters window by window until a tick
+    publishes; the follower polls; then the journal is compacted
+    (``ControllerJournal.rewrite``) and the follower polls once more.
+    ``on_step(label, window)`` runs between the steps, outside the walls."""
+    import types
+
+    from cruise_control_tpu_torch.controller import ContinuousController, ControllerConfig, ControllerJournal
+    from cruise_control_tpu_torch.core.journal import Journal, JournalTail
+    from cruise_control_tpu_torch.obs import RECORDER
+    from cruise_control_tpu_torch.replication import FollowerTailer, ReplicationState
+
+    step = on_step or (lambda label, window: None)
+    out = types.SimpleNamespace(rebalances=[])
+    run = build_ingest_facade(spec, device, cfg)
+    out.run = run
+    step("sampled", run.window)
+    for label in ("cold", "warm"):
+        census = _census()
+        res, wall = _timed_rebalance(run.cc, device, True)
+        cost = RECORDER.recent(1, kind="optimize")[0].attrs["cost"]
+        out.rebalances.append(types.SimpleNamespace(result=res.optimizer_result, wall_s=wall, cost=cost,
+                                                    census=_census_grown(census, _census())))
+        step(label, run.window)
+    jdir = os.path.join(workdir, "controller")
+    c = ContinuousController(run.cc, journal=ControllerJournal(Journal(jdir)), config=ControllerConfig(**TICK_CFG),
+                             device=device)
+    run.cc.monitor.add_window_listener(c.on_window_delta)
+    writer, records = ReplicationState(writer=True), []
+    c.journal.listener = lambda rec: (records.append(rec), writer.apply(rec))
+    follower = FollowerTailer(jdir, ReplicationState())
+    out.recovered_records = c.recover()     # the service's startup: recover, then fence epoch + 1
+    t0 = time.monotonic()
+    c.warm_start()
+    _sync(device)
+    out.warm_start_s = time.monotonic() - t0
+    hot = set(run.maps.topic_names[:10])
+    for tp, load in seeded_loads(run.state, run.maps).items():
+        if tp[0] in hot:
+            run.cc.backend.set_partition_load(tp, [x * SHIFT_FACTORS[2] for x in load])
+    published, out.shift_windows = None, 0
+    while published is None and out.shift_windows < INGEST_SHIFT_WINDOWS:
+        ingest_window(run)
+        out.shift_windows += 1
+        t0 = time.monotonic()
+        published = c.maybe_tick()
+        _sync(device)
+        out.tick_s = time.monotonic() - t0
+    check(published is not None, f"replication: no tick published in {out.shift_windows} shifted windows")
+    out.published, out.tick_attrs = published, dict(c._last_tick_attrs or {})
+    out.tick_host_syncs = sum(s.dispatches for s in c.last_spans)
+    step("tick", run.window)
+    out.follower_applied = follower.poll_once()
+    out.follower_staleness_ms = follower.state.staleness_ms()
+    out.sets = {"controller": _set_key(c.standing), "writer": _set_key(writer.standing),
+                "follower": _set_key(follower.state.standing)}
+    out.versions = {"writer": (writer.set_version, writer.epoch),
+                    "follower": (follower.state.set_version, follower.state.epoch)}
+    seq = follower.state.seq
+    c.journal.rewrite(c.standing)
+    out.compaction_applied = follower.poll_once()
+    out.compaction = dict(resets=follower.tail.resets, deltas=follower.state.seq - seq,
+                          same_set=_set_key(follower.state.standing) == out.sets["writer"],
+                          version=(follower.state.set_version, follower.state.epoch))
+    out.journal = _journal_key(records)
+    out.replayed = _journal_key(JournalTail(jdir).poll())   # a read that leaves the writer's segment open
+    step("compacted", run.window)
+    c.journal.close()
+    run.cc.shutdown()
+    return out
+
+
+def _check_ingest(out, label) -> None:
+    """The checks of steps 2-3 that hold on every device and size."""
+    cold, warm = out.rebalances
+    check(cold.result.residual_hard_violations == 0,
+          f"{label}: hard goals violated {cold.result.violated_hard_goals}")
+    check(warm.result.proposals == cold.result.proposals, f"{label}: the warm rebalance differs from the cold one")
+    for r in out.rebalances:
+        calls = sum(n for n, _, _ in r.census.values())
+        check(r.cost["flops"] is not None and r.cost["bytes_accessed"] is not None and calls > 0,
+              f"{label}: optimize cost {r.cost}")
+        check((r.cost["profiled_calls"], r.cost["flops"], r.cost["bytes_accessed"])
+              == (calls, sum(f for _, f, _ in r.census.values()), sum(b for _, _, b in r.census.values())),
+              f"{label}: optimize cost {r.cost} is not its kernel calls' census {r.census}")
+    check(out.published.trigger == "drift", f"{label}: the tick published on {out.published.trigger}")
+    check(out.sets["follower"] == out.sets["writer"] == out.sets["controller"],
+          f"{label}: the follower's set differs from the writer's")
+    check(out.versions["follower"] == out.versions["writer"], f"{label}: versions {out.versions}")
+    check(out.compaction == dict(resets=1, deltas=0, same_set=True, version=out.versions["writer"]),
+          f"{label}: compaction {out.compaction}")
+    check(out.replayed == out.journal[-1:], f"{label}: the compacted journal holds {len(out.replayed)} records")
+
+
+def phase_ingest(dev, facade_proposals, tick_p50_s):
+    """Phase 18 on the card at config #2 width: the config layer, the metrics
+    ingest, the replication and the self-monitoring plane, then the
+    self-monitoring bench, its denominator ``tick_p50_s``, the controller
+    harness's warm tick p50 of phase 17.  Returns the kernel host calls of
+    steps 2-3."""
+    import tempfile
+
+    from cruise_control_tpu_torch.obs import PROFILER, RECORDER
+    from cruise_control_tpu_torch.obs import selfmon_bench
+    from cruise_control_tpu_torch.obs.exporter import parse_exposition, render_prometheus
+    from cruise_control_tpu_torch.obs.selfmon import SelfMonitor
+    from cruise_control_tpu_torch.obs.slo import SloEngine, build_pairs, shipped_specs
+    from cruise_control_tpu_torch.monitor.wire import deserialize
+
+    cfg, classes = ingest_config()
+    say("ingest_config", overrides={k: cfg.get(k) for k in INGEST_OVERRIDES}, classes=classes)
+    RECORDER.clear()
+    with tempfile.TemporaryDirectory() as workdir:
+        mon = SelfMonitor(interval_s=cfg.get("selfmon.sample.interval.ms") / 1000.0,
+                          num_windows=cfg.get("selfmon.num.windows"), window_ms=cfg.get("selfmon.window.ms"),
+                          spool_dir=os.path.join(workdir, "selfmon"), spool_max_bytes=cfg.get("selfmon.spool.max.bytes"))
+        engine = SloEngine(shipped_specs(cfg.get), mon, pairs=build_pairs(cfg.get))
+        samples, statuses = [], {}
+
+        def on_step(label, window):
+            now = facade_clock(window) + 1_000 * len(samples)
+            mon.sample(now_ms=now)
+            statuses.update({st["slo"]: st for st in engine.evaluate(now_ms=now)})
+            samples.append(label)
+
+        census = _census()
+        _reset_counts()
+        out = ingest_steps(CONFIG2, dev, workdir, cfg, on_step)
+        launches = _counts()
+        grown = _census_grown(census, _census())
+        run = out.run
+        t0 = time.perf_counter()
+        n = sum(len(deserialize(p)) for _, p in run.fleet.transport.batches)
+        deserialize_s = time.perf_counter() - t0
+        text = render_prometheus(slo_engine=engine, selfmon=mon, selfmon_window=2)
+        parsed = parse_exposition(text)
+        mon.stop()
+        cold, warm = out.rebalances
+        walls = {kind: [r.duration_s for r in reversed(RECORDER.recent(RECORDER.capacity, kind=kind))]
+                 for kind in ("model", "optimize")}
+        slos = {name: dict(value=st["value"], ok=st["ok"], firing=any(a["firing"] for a in st["alerts"]))
+                for name, st in statuses.items()}
+        say("ingest", brokers=CONFIG2["num_brokers"], partitions=CONFIG2["num_partitions"],
+            reporters=len(run.fleet.reporters), fetchers=INGEST_FETCHERS, windows_sampled=run.window,
+            sampling_wall_s=run.sample_s, collect_s=run.fleet.collect_s, serialize_s=run.fleet.serialize_s,
+            fetch_s=run.fetch_s, deserialize_s_per_fetcher=deserialize_s, records_on_wire=n,
+            bytes_on_wire=run.fleet.transport.bytes, batches_on_wire=len(run.fleet.transport.batches),
+            model_walls_s=walls["model"], optimize_walls_s=walls["optimize"],
+            cold_rebalance_s=cold.wall_s, warm_rebalance_s=warm.wall_s,
+            proposals=len(cold.result.proposals), residual_hard_violations=cold.result.residual_hard_violations,
+            num_host_syncs=cold.result.num_host_syncs, optimize_cost=[r.cost for r in out.rebalances],
+            host_calls=launches)
+        say("replication", warm_start_s=out.warm_start_s, shift=SHIFT_FACTORS[2], shift_windows=out.shift_windows,
+            tick_wall_s=out.tick_s, reaction_s=out.published.reaction_s, trigger=out.published.trigger,
+            proposals=len(out.published.proposals), tick_host_syncs=out.tick_host_syncs,
+            goals_run=out.tick_attrs.get("goals_run"), journal_records=len(out.journal),
+            follower_records_applied=out.follower_applied, follower_staleness_ms=out.follower_staleness_ms,
+            version=out.versions["follower"], compaction=out.compaction,
+            compaction_records_applied=out.compaction_applied)
+        say("selfmon", samples=samples, series=len(mon.series_names()), spool_bytes=mon.status()["spool"]["bytes"],
+            slos=slos, warm_tick_dispatches=slos.get("warm-tick-dispatches", {}).get("value"),
+            jax_dispatch_budget=JAX_DISPATCH_BUDGET, exposition_families=len(parsed),
+            census_calls={k: v[0] for k, v in grown.items()})
+        _check_ingest(out, "ingest")
+        check(cold.result.proposals == facade_proposals, "ingest: the proposals differ from phase facade's")
+        for path in ("segment_sum_f32", "segment_sum_i32"):
+            check(launches[path] > 0, f"ingest: kernel path {path} never launched")
+        check({k: v[0] for k, v in grown.items()} == {k: v for k, v in launches.items() if v},
+              f"ingest: census calls {grown} are not the launches {launches}")
+        gauges = {dict(lb)["sensor"] for lb, _ in parsed["cruise_control_tpu_gauge"]["samples"]
+                  if dict(lb)["family"] == "Replication"}
+        check("follower-staleness-ms" in gauges, f"selfmon: replication gauges {gauges}")
+        programs = {dict(lb)["program"]: v for lb, v in parsed["cruise_control_tpu_executable_calls_total"]["samples"]}
+        totals = PROFILER.per_program_totals()
+        check(programs == {k: float(v["calls"]) for k, v in totals.items()}, f"selfmon: census rows {programs}")
+        for name in ("replication-staleness", "warm-recompiles"):
+            check(name in slos and not slos[name]["firing"], f"selfmon: {name} {slos.get(name)}")
+    t0 = time.monotonic()
+    bench = selfmon_bench.run_bench(tick_p50_s=tick_p50_s, device=dev)
+    say("selfmon_bench", phase_wall_s=time.monotonic() - t0, **bench)
+    failures = selfmon_bench.contract_failures(bench)
+    check(not failures, f"selfmon_bench: {failures}")
     return launches
+
+
+def phase_ingest_card_vs_cpu(dev):
+    """Phase 19: steps 2-3 at config2_small on the CPU port and on the card.
+    The proposals, the standing sets of controller, writer and follower, the
+    journal records and the flight records' shapes must be identical."""
+    import tempfile
+
+    from cruise_control_tpu_torch.executor.journal import proposal_to_record
+    from cruise_control_tpu_torch.obs import RECORDER
+
+    cfg, _ = ingest_config()
+    out = {}
+    for where in (torch.device("cpu"), dev):
+        RECORDER.clear()
+        with tempfile.TemporaryDirectory() as workdir:
+            t0 = time.monotonic()
+            res = ingest_steps(CONFIG2_SMALL, where, workdir, cfg)
+            wall = time.monotonic() - t0
+        _check_ingest(res, f"ingest {where.type}")
+        shapes = _record_shape(reversed(RECORDER.recent(RECORDER.capacity)))
+        out[where.type] = (res, shapes, wall)
+    (rc, sc, wc), (rg, sg, wg) = out["cpu"], out[dev.type]
+    say("ingest_card_vs_cpu", cpu_wall_s=wc, gpu_wall_s=wg, proposals=len(rg.rebalances[0].result.proposals),
+        tick_proposals=len(rg.published.proposals), journal_records=len(rg.journal),
+        record_kinds=[k for k, _, _ in sg])
+    check([proposal_to_record(p) for p in rg.rebalances[0].result.proposals]
+          == [proposal_to_record(p) for p in rc.rebalances[0].result.proposals],
+          "ingest: card proposals differ from the CPU port's")
+    check(rg.sets == rc.sets, "ingest: card standing sets differ from the CPU port's")
+    check(rg.journal == rc.journal and rg.replayed == rc.replayed, "ingest: card journal differs from the CPU port's")
+    check(sg == sc, f"ingest: flight records differ: {sg} against {sc}")
 
 
 def main() -> int:
@@ -1984,7 +2431,7 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi()
     print(smi, flush=True)
-    t0 = time.monotonic()
+    t0 = start = time.monotonic()
     libs = _build.build_all(["segment_sum", "even_assign"])
     build_s = time.monotonic() - t0
     ptxas = {
@@ -1997,24 +2444,35 @@ def main() -> int:
         kernel_build_s=build_s, libraries={k: os.path.relpath(v) for k, v in libs.items()},
         ptxas=ptxas)
 
-    records = phase_kernels(dev)
-    assign_records = phase_assign(dev)
-    launches, config2_final = phase_config2(dev)
-    p1_launches = phase_paths(dev)
-    sim_launches = phase_sim(dev, config2_final)
-    profile_calls, profile_kernels = phase_profile(dev)
-    small_final = phase_card_vs_cpu(dev)
-    phase_sim_card_vs_cpu(dev, small_final)
-    traces_launches = phase_traces(dev)
+    walls = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall kept under ``name`` for the total line."""
+        t = time.monotonic()
+        out = fn(*args)
+        walls[name] = time.monotonic() - t
+        return out
+
+    records = timed("kernels", phase_kernels, dev)
+    assign_records = timed("assign", phase_assign, dev)
+    launches, config2_final = timed("config2", phase_config2, dev)
+    p1_launches = timed("path", phase_paths, dev)
+    sim_launches = timed("sim", phase_sim, dev, config2_final)
+    profile_calls, profile_kernels = timed("profile", phase_profile, dev)
+    small_final = timed("card_vs_cpu", phase_card_vs_cpu, dev)
+    timed("sim_card_vs_cpu", phase_sim_card_vs_cpu, dev, small_final)
+    traces_launches = timed("traces", phase_traces, dev)
     config2_maps = _case(CONFIG2, "cpu")[2]
-    controller_launches = phase_controller(dev, config2_final, config2_maps)
-    phase_fleet(dev, config2_final, config2_maps)
-    phase_traces_controller_card_vs_cpu(dev, small_final)
-    facade_launches = phase_facade(dev)
-    phase_facade_card_vs_cpu(dev)
-    detector_launches, threaded_launches = phase_detector(dev)
-    phase_detector_card_vs_cpu(dev)
-    replay_launches = phase_replay_harnesses(dev)
+    controller_launches = timed("controller", phase_controller, dev, config2_final, config2_maps)
+    timed("fleet", phase_fleet, dev, config2_final, config2_maps)
+    timed("traces_controller_card_vs_cpu", phase_traces_controller_card_vs_cpu, dev, small_final)
+    facade_launches, facade_proposals = timed("facade", phase_facade, dev)
+    timed("facade_card_vs_cpu", phase_facade_card_vs_cpu, dev)
+    detector_launches, threaded_launches = timed("detector", phase_detector, dev)
+    timed("detector_card_vs_cpu", phase_detector_card_vs_cpu, dev)
+    replay_launches, tick_p50_s = timed("replay_harnesses", phase_replay_harnesses, dev)
+    ingest_launches = timed("ingest", phase_ingest, dev, facade_proposals, tick_p50_s)
+    timed("ingest_card_vs_cpu", phase_ingest_card_vs_cpu, dev)
 
     kernels = []
     for path in ("segment_sum_f32", "segment_sum_i32"):
@@ -2036,6 +2494,7 @@ def main() -> int:
             "facade_launches": facade_launches[path], "detector_launches": detector_launches[path],
             "detector_threaded_launches": threaded_launches[path],
             "replay_launches": {run: n[path] for run, n in replay_launches.items()},
+            "ingest_launches": ingest_launches[path],
             "traces_shapes": [{k: r[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
                                                  "library_device_ms", "library_call_ms", "bound_ms", "bound_by")}
                               for r in at_rollout],
@@ -2063,7 +2522,9 @@ def main() -> int:
         "detector_launches": detector_launches["even_assign"],
         "detector_threaded_launches": threaded_launches["even_assign"],
         "replay_launches": {run: n["even_assign"] for run, n in replay_launches.items()},
+        "ingest_launches": ingest_launches["even_assign"],
     })
+    say("total", wall_s=time.monotonic() - start, kernel_build_s=build_s, phase_walls_s=walls)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

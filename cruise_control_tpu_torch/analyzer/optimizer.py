@@ -49,6 +49,7 @@ from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model import stats as S
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
+from cruise_control_tpu_torch.obs.profiler import PROFILER
 
 FAST_MODE_MAX_ROUNDS = 64
 #: cap on phase-cycle repetitions per goal; a pass that applies zero actions
@@ -65,18 +66,6 @@ MAX_BALANCEDNESS_SCORE = 100.0
 #: AnalyzerConfig.java:375,385 — goal.balancedness.priority/strictness.weight
 DEFAULT_PRIORITY_WEIGHT = 1.1
 DEFAULT_STRICTNESS_WEIGHT = 1.5
-
-
-def cost_block() -> dict:
-    """A flight record's ``cost`` block with the JAX package's keys: XLA's
-    FLOPs and bytes have no counterpart on an eager path (None); the device
-    memory watermark does."""
-    from cruise_control_tpu_torch.obs.profiler import PROFILER
-
-    return {
-        "flops": None, "bytes_accessed": None, "profiled_calls": 0,
-        "unanalyzed_calls": 0, "memory_peak_bytes": PROFILER.memory_peak_bytes(),
-    }
 
 
 def balancedness_cost_by_goal(
@@ -645,6 +634,7 @@ class GoalOptimizer:
         from cruise_control_tpu_torch.obs import recorder as obs
 
         trace_token = obs.start_trace("optimize")
+        cost_mark = PROFILER.mark()
         t0 = time.monotonic()
         syncs = HostSyncs()
         heavy = self.enable_heavy_goals
@@ -761,16 +751,16 @@ class GoalOptimizer:
             degraded=degraded,
         )
         REGISTRY.timer(PROPOSAL_COMPUTATION_TIMER).update(result.duration_s)
-        self._record_optimize(trace_token, result, raw, setup_s, setup_syncs, ctx, state)
+        self._record_optimize(trace_token, cost_mark, result, raw, setup_s, setup_syncs, ctx, state)
         return state, result
 
     def _record_optimize(
-        self, token: dict, result: OptimizerResult, raw: List[tuple], setup_s: float,
+        self, token: dict, cost_mark: int, result: OptimizerResult, raw: List[tuple], setup_s: float,
         setup_syncs: int, ctx: GoalContext, state: ClusterArrays,
     ) -> None:
         """Close the ``"optimize"`` flight record with the JAX package's
         attribute names; ``num_dispatches`` and the spans' ``dispatches``
-        carry host syncs."""
+        carry host syncs, and ``cost`` the kernel calls since ``cost_mark``."""
         from cruise_control_tpu_torch.obs import recorder as obs
 
         spans = [obs.Span("setup", "setup", setup_s, setup_syncs)]
@@ -814,7 +804,7 @@ class GoalOptimizer:
                 "num_partitions": state.num_partitions,
                 "num_replicas": state.num_replicas,
                 "movement": dataclasses.asdict(result.movement),
-                "cost": cost_block(),
+                "cost": PROFILER.cost_since(cost_mark),
                 **obs.mesh_metadata(self.device),
             },
             device=self.device,
@@ -854,6 +844,7 @@ class GoalOptimizer:
         from cruise_control_tpu_torch.obs import recorder as obs
 
         token = obs.start_trace("optimize")
+        cost_mark = PROFILER.mark()
         t0 = time.monotonic()
         syncs = HostSyncs()
         states, ctx = states.to(self.device), ctx.to(self.device)
@@ -958,7 +949,7 @@ class GoalOptimizer:
                 "num_partitions": int(states.partition_topic.shape[-1]),
                 "num_replicas": int(states.replica_partition.shape[-1]),
                 "fast_mode": bool(ctx.fast_mode),
-                "cost": cost_block(),
+                "cost": PROFILER.cost_since(cost_mark),
                 **obs.mesh_metadata(self.device),
             },
             device=self.device,

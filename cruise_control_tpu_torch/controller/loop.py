@@ -84,7 +84,10 @@ from cruise_control_tpu_torch.obs import recorder as obs
 
 @dataclasses.dataclass
 class ControllerConfig:
-    """The ``controller.*`` knob block (the JAX package's core/config_defs.py)."""
+    """The ``controller.*`` knob block: its defaults are those of
+    :func:`~cruise_control_tpu_torch.core.config_defs.controller_config`
+    (``controller.tick.interval.ms`` and ``controller.stale.after.ms`` in
+    seconds here; ``execute`` is ``controller.execute.enable``)."""
 
     tick_interval_s: float = 30.0
     drift_threshold: float = 1.0

@@ -34,9 +34,24 @@ N raise :class:`SimulatedCrash` *before* writing -- the journal then looks
 exactly like the process died between the state change and its journal
 write.
 
-The live read cursor of the JAX package (``Journal.tail`` /
-``JournalTail``), which the replication plane's followers use, is not
-ported yet.
+Live tailing (:meth:`Journal.tail` / :class:`JournalTail`): a follower —
+usually another *process* -- holds a cursor ``(segment index, byte offset)``
+and polls for records appended since the last poll, following sealed segments
+and the active ``.open`` segment.  The cursor survives the two races a live
+WAL throws at a reader:
+
+* **rotation** -- ``os.replace`` keeps the inode, so a segment sealed between
+  the directory listing and the ``open()`` is re-opened under its final name
+  at the same offset; nothing is missed or double-read.
+* **torn tails** -- an unterminated (or not-yet-fully-flushed) last line in
+  the ``.open`` segment is *pending*, not corrupt: the cursor parks before it
+  and retries next poll.  Corruption becomes permanent only once the segment
+  is sealed, where the standard per-segment prefix tolerance applies.
+
+A writer-side ``truncate()``/``rewrite()`` compaction resets the cursor to
+the new segment 0 (counted in ``resets``); tail consumers must therefore be
+idempotent against re-delivery -- the replication layer dedupes by version.
+The cursor reads either package's journal: the on-disk format is one.
 """
 
 from __future__ import annotations
@@ -45,7 +60,7 @@ import json
 import os
 import threading
 import zlib
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 
 class SimulatedCrash(RuntimeError):
@@ -335,6 +350,12 @@ class Journal:
                     return None
             return None
 
+    def tail(self) -> "JournalTail":
+        """A live read cursor over this journal's directory (works equally
+        from another process -- construct :class:`JournalTail` directly on the
+        directory there)."""
+        return JournalTail(self.directory)
+
     @staticmethod
     def _decode(line: str) -> Optional[dict]:
         """One line → record; None marks the corruption point.
@@ -353,3 +374,235 @@ class Journal:
         if isinstance(doc, dict):
             return doc   # legacy record without envelope
         return None
+
+
+class JournalTail:
+    """Live cursor over a journal directory: each :meth:`poll` returns the
+    records appended since the last one, in write order (see the module
+    docstring for the rotation / torn-tail / truncation semantics).
+
+    The cursor is a ``(segment index, byte offset)`` pair over the on-disk
+    files — it holds no file handles between polls and shares no state with
+    the writer, so a follower in another process tails the same directory
+    with nothing but filesystem visibility.  Truncation (compaction) by the
+    writer is detected by segment *identity* (inode + size), not just the
+    listing: a recreated ``segment-000000`` under a parked cursor resets the
+    cursor instead of silently serving the stale offset."""
+
+    def __init__(self, directory: str) -> None:
+        self.directory = directory
+        self._idx = 0
+        self._offset = 0
+        #: inode of the segment under the cursor (None until first opened)
+        self._ino: Optional[int] = None
+        #: (inode, size) of the most recently *finished* (sealed, fully
+        #: consumed) segment — its disappearance or replacement marks a
+        #: truncation.  Size rides along because freed inode numbers are
+        #: reused: a recreated same-index segment can collide on inode alone
+        self._prev_ino: Optional[int] = None
+        self._prev_size: Optional[int] = None
+        #: fstat size of the segment under the cursor as of the last open
+        self._cur_size: int = 0
+        #: records delivered across all polls
+        self.records = 0
+        #: permanently skipped lines (sealed-segment prefix tolerance)
+        self.skipped = 0
+        #: cursor resets observed (writer-side truncate()/rewrite()
+        #: compaction) — consumers must dedupe re-delivered records
+        self.resets = 0
+        #: True when the last poll read to the end of the WAL without error
+        self.caught_up = False
+
+    # -- cursor internals ----------------------------------------------------
+
+    def _segments(self) -> dict:
+        """index → (name, sealed) for every segment currently listed."""
+        out: dict = {}
+        try:
+            names = _list_segments(self.directory)
+        except FileNotFoundError:
+            return out
+        for name in names:
+            out[_segment_index(name)] = (name, name.endswith(".jsonl"))
+        return out
+
+    def _open_at(self, name: str):
+        """Open a listed segment; rotation-race safe (same fallback as
+        :meth:`Journal._open_segment` — ``os.replace`` keeps the inode, so
+        the sealed name serves the identical bytes at the same offset)."""
+        path = os.path.join(self.directory, name)
+        try:
+            return open(path, "rb")
+        except FileNotFoundError:
+            if name.endswith(Journal.OPEN_SUFFIX):
+                try:
+                    return open(path[: -len(Journal.OPEN_SUFFIX)], "rb")
+                except FileNotFoundError:
+                    return None
+            return None
+
+    def _stat_sig(self, name: str) -> Optional[Tuple[int, int]]:
+        """(inode, size) of a listed segment, rotation-race tolerant."""
+        try:
+            st = os.stat(os.path.join(self.directory, name))
+            return st.st_ino, st.st_size
+        except OSError:
+            if name.endswith(Journal.OPEN_SUFFIX):
+                try:
+                    st = os.stat(
+                        os.path.join(
+                            self.directory, name[: -len(Journal.OPEN_SUFFIX)]
+                        )
+                    )
+                    return st.st_ino, st.st_size
+                except OSError:
+                    return None
+            return None
+
+    def _reset(self, idx: int) -> None:
+        self._idx = idx
+        self._offset = 0
+        self._ino = None
+        self._prev_ino = None
+        self._prev_size = None
+        self.resets += 1
+
+    # -- the poll loop -------------------------------------------------------
+
+    def poll(self, max_records: Optional[int] = None) -> List[dict]:
+        """Read forward from the cursor; returns a possibly-empty list of
+        records.  Never blocks and never raises on concurrent writer
+        activity — a torn tail or a mid-rename segment just ends the poll
+        early and the next poll resumes."""
+        out: List[dict] = []
+        self.caught_up = False
+        while True:
+            if max_records is not None and len(out) >= max_records:
+                return out
+            segs = self._segments()
+            if not segs:
+                # empty (or truncated-to-empty) journal: park at segment 0
+                if self._idx != 0 or self._offset != 0 or self._ino is not None:
+                    self._reset(0)
+                self.caught_up = True
+                return out
+            lo, hi = min(segs), max(segs)
+            # truncation check against the last finished segment: if the
+            # segment we completed was replaced (new inode) or is gone while
+            # lower indices exist, the writer compacted — restart from the
+            # oldest surviving segment
+            if self._prev_ino is not None and self._idx > lo:
+                prev = segs.get(self._idx - 1)
+                # the segment we finished was SEALED — immutable, and a name
+                # never transitions back to .open.  Anything listed at that
+                # index that is .open again, or whose (inode, size) signature
+                # differs, is a recreation — inode alone is not identity (the
+                # filesystem reuses freed inode numbers immediately)
+                if (
+                    prev is None
+                    or not prev[1]
+                    or self._stat_sig(prev[0])
+                    != (self._prev_ino, self._prev_size)
+                ):
+                    self._reset(lo)
+                    continue
+            if self._idx not in segs:
+                if self._idx == hi + 1 and self._prev_ino is not None:
+                    # parked past the newest segment after cleanly finishing
+                    # it — waiting for the writer to start the next one
+                    self.caught_up = True
+                    return out
+                if self._idx > hi or self._idx < lo:
+                    # the WAL restarted below the cursor (truncate) or the
+                    # cursor predates the oldest segment
+                    self._reset(lo)
+                    continue
+                # gap mid-listing (rename in flight): retry next poll
+                self.caught_up = True
+                return out
+            name, sealed = segs[self._idx]
+            fh = self._open_at(name)
+            if fh is None:
+                continue   # vanished under both names: concurrent truncate
+            with fh:
+                st = os.fstat(fh.fileno())
+                self._cur_size = st.st_size
+                if self._ino is None:
+                    self._ino = st.st_ino
+                elif st.st_ino != self._ino or st.st_size < self._offset:
+                    # the file under the cursor is not the file the offset
+                    # was measured in (truncate + recreate at this index)
+                    self._reset(lo)
+                    continue
+                fh.seek(self._offset)
+                data = fh.read()
+            if not self._consume(data, sealed, out, max_records):
+                # parked: torn tail in .open, caught up, or max_records hit
+                self.caught_up = True
+                return out
+
+    def _consume(
+        self,
+        data: bytes,
+        sealed: bool,
+        out: List[dict],
+        max_records: Optional[int],
+    ) -> bool:
+        """Decode complete lines from ``data`` (the bytes past the cursor),
+        advancing ``self._offset`` over everything cleanly consumed.
+        Returns True when the segment finished (sealed, fully read) and the
+        poll loop should continue into the next one; False when the cursor
+        parks for this poll."""
+        pos = 0
+        while True:
+            if max_records is not None and len(out) >= max_records:
+                self._offset += pos
+                return False
+            nl = data.find(b"\n", pos)
+            if nl < 0:
+                tail = data[pos:]
+                self._offset += pos
+                if not tail.strip():
+                    # clean end of the readable bytes: a sealed segment is
+                    # finished; the .open segment is simply caught up
+                    return self._finish_segment() if sealed else False
+                if sealed:
+                    # torn tail of a sealed segment never completes — the
+                    # crashed-writer leftover; prefix tolerance skips it
+                    self.skipped += 1
+                    return self._finish_segment()
+                # torn / in-flight tail of the .open segment: the writer may
+                # still complete the line — park before it, retry next poll
+                return False
+            line = data[pos:nl].decode("utf-8", errors="replace").strip()
+            if not line:
+                pos = nl + 1
+                continue
+            rec = Journal._decode(line)
+            if rec is None:
+                if sealed:
+                    # permanent corruption: abandon the rest of the segment
+                    # (count every remaining non-blank line, replay-style)
+                    self.skipped += 1 + sum(
+                        1 for ln in data[nl + 1:].splitlines() if ln.strip()
+                    )
+                    self._offset += pos
+                    return self._finish_segment()
+                # .open segment: a newline-terminated line failing the CRC
+                # may be a write racing this read — park and re-decode next
+                # poll; if the segment seals with the line still bad, the
+                # sealed branch above makes the skip permanent
+                self._offset += pos
+                return False
+            out.append(rec)
+            self.records += 1
+            pos = nl + 1
+
+    def _finish_segment(self) -> bool:
+        """Advance past the current (sealed, fully consumed) segment."""
+        self._prev_ino = self._ino
+        self._prev_size = self._cur_size
+        self._ino = None
+        self._idx += 1
+        self._offset = 0
+        return True

@@ -98,7 +98,9 @@ def adopt_legacy_namespace(journal_dir: str, tenant: str = "default") -> bool:
 
 @dataclasses.dataclass
 class FleetConfig:
-    """The ``fleet.*`` knob block (the JAX package's core/config_defs.py)."""
+    """The ``fleet.*`` knob block: its defaults are those of
+    :func:`~cruise_control_tpu_torch.core.config_defs.fleet_config` (the
+    ``*.ms`` keys in seconds here; ``execute`` is ``fleet.execute.enable``)."""
 
     tick_interval_s: float = 30.0
     drift_threshold: float = 1.0

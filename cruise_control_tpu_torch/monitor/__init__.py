@@ -2,9 +2,12 @@
 
 Port of ``cruise_control_tpu/monitor`` (the counterpart of the reference's
 ``monitor/``).  The model is built on the host in numpy; only
-``ClusterModel.to_arrays(device=)`` moves it to the device.  The fetcher, the
-wire format, the reporter, the Prometheus sampler and the container
-capacity resolver are not ported yet.
+``ClusterModel.to_arrays(device=)`` moves it to the device.  The ingest
+route of a deployment -- a reporter in each broker (``reporter``), the
+versioned wire format (``wire``), a transport and a pool of fetchers
+(``fetcher``) -- and the Prometheus sampler (``prometheus``) and the cgroup
+CPU helpers (``container``) run on the host too; import them from their
+modules, as in the JAX package.
 """
 
 from cruise_control_tpu_torch.monitor.capacity import (

@@ -14,7 +14,11 @@ launch of ``csrc/even_assign.cu`` (its note gives the design and the bound).
 :func:`even_assign` updates ``counts`` and column ``pos`` of ``chosen`` in
 place.  CPU tensors take :func:`even_assign_plain`, the same greedy as a
 Python loop over partitions; CUDA tensors launch the kernel or raise.  Each
-launch adds one to :data:`LAUNCHES`.  The kernel keeps no state between
+launch adds one to :data:`LAUNCHES` and reports to the profiler's census
+(each plain pass on the CPU too), with the work reckoned from the shape: two
+argmins over the brokers a partition, and the bytes of the counts, the
+earlier picks, the picks written and the per-partition and per-broker
+inputs, each once.  The kernel keeps no state between
 launches (no scratch: every buffer it touches is the caller's), so calls from
 several host threads need no lock.
 """
@@ -23,11 +27,14 @@ from __future__ import annotations
 
 import ctypes
 import struct
+import time
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from cruise_control_tpu_torch.obs.profiler import PROFILER
+from cruise_control_tpu_torch.obs.recorder import compile_events_since, compile_mark
 from cruise_control_tpu_torch.ops import _build
 
 #: kernel launches since :func:`reset_launch_counts`
@@ -50,6 +57,15 @@ def _library() -> ctypes.CDLL:
         lib.cc_even_assign.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _census(partitions: int, brokers: int, pos: int, wall_s: float, events=()) -> None:
+    """Report one pass to the profiler's census (the smoke's bound formula)."""
+    def describe():
+        nbytes = 8 * brokers + 4 * partitions * pos + 4 * partitions + 5 * partitions + 5 * brokers
+        return f"{partitions} partitions x {brokers} brokers, position {pos}", 2 * partitions * brokers, nbytes
+
+    PROFILER.on_call("even_assign", ("even_assign", partitions, brokers, pos), describe, wall_s, events)
 
 
 def _check(counts, chosen, pos, rf, excluded_part, broker_rack, eligible) -> None:
@@ -121,6 +137,8 @@ def even_assign_cuda(
     if dev.type != "cuda":
         raise ValueError(f"even_assign_cuda takes CUDA tensors, got {dev}")
     P, max_rf = chosen.shape
+    t0 = time.perf_counter()
+    mark = compile_mark() if _LIB is None else None   # the first call builds
     lib = _library()
     with torch.cuda.device(dev.index):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -131,6 +149,8 @@ def even_assign_cuda(
     if err != 0:
         raise RuntimeError(f"even_assign kernel launch failed: CUDA error {err}")
     LAUNCHES["even_assign"] += 1
+    _census(P, counts.shape[0], pos, time.perf_counter() - t0,
+            compile_events_since(mark) if mark is not None else ())
     return counts, chosen
 
 
@@ -146,7 +166,10 @@ def even_assign(
     broker_rack: i32[B]; eligible: bool[B] possible destinations."""
     if counts.device.type == "cpu":
         _check(counts, chosen, pos, rf, excluded_part, broker_rack, eligible)
-        return even_assign_plain(counts, chosen, pos, rf, excluded_part, broker_rack, eligible)
+        t0 = time.perf_counter()
+        out = even_assign_plain(counts, chosen, pos, rf, excluded_part, broker_rack, eligible)
+        _census(chosen.shape[0], counts.shape[0], pos, time.perf_counter() - t0)
+        return out
     if counts.device.type == "cuda":
         return even_assign_cuda(counts, chosen, pos, rf, excluded_part, broker_rack, eligible)
     raise ValueError(f"even_assign: unsupported device {counts.device}")

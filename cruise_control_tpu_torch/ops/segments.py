@@ -29,7 +29,13 @@ integers keep their dtype and a bool column comes back as "any row".
 
 CPU tensors take the plain version; CUDA tensors launch a kernel or raise.
 Each host call that launches adds one to :data:`LAUNCHES` for its path, and
-the number of value tensors it carried to :data:`FIELDS`.
+the number of value tensors it carried to :data:`FIELDS`.  Each such call
+(on the CPU: each call of the plain version where a kernel would have
+launched) also reports to the profiler's census
+(:meth:`~cruise_control_tpu_torch.obs.profiler.DeviceProfiler.on_call`)
+under its path's name, with its shape and the work reckoned from it: ``R *
+columns`` additions and the bytes of the ids, the value columns and the
+sums, each once.
 """
 
 from __future__ import annotations
@@ -37,10 +43,13 @@ from __future__ import annotations
 import ctypes
 import struct
 import threading
+import time
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from cruise_control_tpu_torch.obs.profiler import PROFILER
+from cruise_control_tpu_torch.obs.recorder import compile_events_since, compile_mark
 from cruise_control_tpu_torch.ops import _build
 
 #: host calls that launched a kernel path since :func:`reset_launch_counts`
@@ -51,6 +60,7 @@ FIELDS: Dict[str, int] = {"segment_sum_f32": 0, "segment_sum_i32": 0}
 _INT32_MAX = 2**31 - 1
 _F32, _I32, _U8 = 0, 1, 2          # the kernel's field types
 _FIELD_TYPE = {torch.float32: _F32, torch.int32: _I32, torch.bool: _U8, torch.uint8: _U8}
+_FIELD_BYTES = {_F32: 4, _I32: 4, _U8: 1}
 _MAX_FIELDS = 16
 _MAX_COLS = 64
 _HIST_CAP = 8192                  # per-(segment, block) counts of the fixed-order path
@@ -76,6 +86,30 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _census(path: str, rows: int, segments: int, layout: tuple, wall_s: float, events=()) -> None:
+    """Report one host call to the profiler's census: ``layout`` is the
+    value columns' ``(field type, width)`` pairs as the kernel reads them."""
+    key = (path, rows, segments, layout)
+
+    def describe():
+        columns = sum(w for _, w in layout)
+        nbytes = 4 * rows + rows * sum(w * _FIELD_BYTES[k] for k, w in layout) + 4 * segments * columns
+        return f"[{rows}] ids, {columns} columns -> {segments} segments", rows * columns, nbytes
+
+    PROFILER.on_call(path, key, describe, wall_s, events)
+
+
+def _plain_census(columns: Sequence[torch.Tensor], rows: int, segments: int, wall_s: float) -> None:
+    """The census of a plain call, under the path its kernel would take."""
+    layout = tuple(
+        (_FIELD_TYPE.get(c.dtype, _F32 if c.dtype.is_floating_point else _I32), 1 if c.dim() == 1 else c.shape[1])
+        for c in columns
+    )
+    if segments and any(w for _, w in layout):
+        path = "segment_sum_f32" if any(k == _F32 for k, _ in layout) else "segment_sum_i32"
+        _census(path, rows, segments, layout, wall_s)
 
 
 def segment_sum_plain(
@@ -135,7 +169,7 @@ def segment_sums_cuda(
     R, S = ids.shape[0], int(num_segments)
     if not 0 < len(columns) <= _MAX_FIELDS:
         raise ValueError(f"a call takes 1 to {_MAX_FIELDS} value tensors, got {len(columns)}")
-    fields, floats, total = [], False, 0
+    fields, floats, total, layout = [], False, 0, []
     for c in columns:
         kind = _FIELD_TYPE.get(c.dtype)
         if kind is None:
@@ -149,6 +183,7 @@ def segment_sums_cuda(
             c = c.contiguous()
         w = 1 if len(shape) == 1 else shape[1]
         fields.append((c, kind, w, len(shape)))
+        layout.append((kind, w))
         floats = floats or kind == _F32
         total += w
     if total > _MAX_COLS:
@@ -168,6 +203,8 @@ def segment_sums_cuda(
         addr += 4 * S * w
     if S == 0 or not spec:
         return outs
+    t0 = time.perf_counter()
+    mark = compile_mark() if _LIB is None else None   # the first call builds
     lib = _library()
     index = dev.index
     path = "segment_sum_f32" if floats else "segment_sum_i32"
@@ -182,6 +219,8 @@ def segment_sums_cuda(
             FIELDS[path] += len(spec) // 4
     if err != 0:
         raise RuntimeError(f"segment-sum kernel launch failed: CUDA error {err}")
+    _census(path, R, S, tuple(layout), time.perf_counter() - t0,
+            compile_events_since(mark) if mark is not None else ())
     return outs
 
 
@@ -233,7 +272,10 @@ def segment_sums(
     the card one host call: the fixed-order path if any column is float, the
     integer path otherwise."""
     if segment_ids.device.type == "cpu":
-        return segment_sums_plain(columns, segment_ids, num_segments)
+        t0 = time.perf_counter()
+        out = segment_sums_plain(columns, segment_ids, num_segments)
+        _plain_census(columns, segment_ids.shape[0], int(num_segments), time.perf_counter() - t0)
+        return out
     if segment_ids.device.type == "cuda":
         return segment_sums_cuda(columns, segment_ids, num_segments)
     raise ValueError(f"segment_sums: unsupported device {segment_ids.device}")
@@ -263,7 +305,10 @@ def segment_sum(
     which raises if it cannot build or launch.
     """
     if values.device.type == "cpu":
-        return segment_sum_plain(values, segment_ids, num_segments)
+        t0 = time.perf_counter()
+        out = segment_sum_plain(values, segment_ids, num_segments)
+        _plain_census([values], segment_ids.shape[0], int(num_segments), time.perf_counter() - t0)
+        return out
     if values.device.type == "cuda":
         return segment_sum_cuda(values, segment_ids, num_segments)
     raise ValueError(f"segment_sum: unsupported device {values.device}")

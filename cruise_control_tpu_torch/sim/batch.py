@@ -318,12 +318,13 @@ def fast_sweep(
     the implied minimum broker count and the offline-movement floor.  One
     host fetch at the end.  ``mesh`` is the JAX signature's scenario-axis
     sharding; the port has no device mesh yet and takes only ``None``."""
-    from cruise_control_tpu_torch.analyzer.optimizer import cost_block
     from cruise_control_tpu_torch.obs import recorder as obs
+    from cruise_control_tpu_torch.obs.profiler import PROFILER
 
     if mesh is not None:
         raise NotImplementedError("fast_sweep(mesh=...): the port has no device mesh yet")
     token = obs.start_trace("simulate")
+    cost_mark = PROFILER.mark()
     t0 = time.monotonic()
     goal_ids = tuple(goal_ids)
     hard_ids = tuple(hard_ids)
@@ -356,7 +357,7 @@ def fast_sweep(
             obs.Span("build-batch", "setup", build_s, 0),
             obs.Span("sweep", "sweep", sweep_s, syncs.count),
         ],
-        attrs={**_trace_attrs(result, goal_ids, states.device), "cost": cost_block()},
+        attrs={**_trace_attrs(result, goal_ids, states.device), "cost": PROFILER.cost_since(cost_mark)},
         device=states.device,
     )
     return result

@@ -273,8 +273,8 @@ def rollout(
         TRACE_ROLLOUT_TIMER,
         TRACE_ROLLOUTS_COUNTER,
     )
-    from cruise_control_tpu_torch.analyzer.optimizer import cost_block
     from cruise_control_tpu_torch.obs import recorder as obs
+    from cruise_control_tpu_torch.obs.profiler import PROFILER
 
     dev = resolve_device(device)
     if not traces:
@@ -282,6 +282,7 @@ def rollout(
     if not policies:
         raise ValueError("rollout needs at least one policy")
     token = obs.start_trace("rollout")
+    cost_mark = PROFILER.mark()
     t0 = time.monotonic()
     goal_ids = tuple(goal_ids)
     hard_ids = tuple(hard_ids)
@@ -409,7 +410,7 @@ def rollout(
             "num_dispatches": syncs.count,
             "bucket_hit": hit,
             "num_goals": len(goal_ids),
-            "cost": cost_block(),
+            "cost": PROFILER.cost_since(cost_mark),
         },
         device=dev,
     )

@@ -531,3 +531,37 @@ def test_broker_failure_self_heal_on_the_card_equals_the_cpu_port(cuda_device, t
     assert out["cuda"] == out["cpu"]
     assert out["cuda"]["actions"] == ["CHECK", "FIXED"]
     assert all(SM.DEAD_BROKER not in replicas for replicas, _ in out["cuda"]["placement"].values())
+
+
+@pytest.mark.cuda
+def test_ingest_route_rebalance_on_the_card_equals_the_cpu_port(cuda_device):
+    """At config2_small: the smoke's ingest route (a reporter per broker, the
+    wire format, the fetcher pool) fills the windows and a dry-run rebalance
+    runs on the card and on the CPU port -- the same bytes on the wire, the
+    same loads and proposals, both segment-sum paths launched on the card,
+    and the optimize record's ``cost`` equal to the census of its calls."""
+    import chip_smoke as SM
+    from cruise_control_tpu_torch.obs import RECORDER
+
+    cfg, _ = SM.ingest_config()
+    out = {}
+    for where in (cuda_device, torch.device("cpu")):
+        run = SM.build_ingest_facade(SM.CONFIG2_SMALL, where, cfg)
+        census = SM._census()
+        PS.reset_launch_counts()
+        res = run.cc.rebalance(dryrun=True).optimizer_result
+        torch.cuda.synchronize()
+        launches = dict(PS.LAUNCHES)
+        grown = SM._census_grown(census, SM._census())
+        cost = RECORDER.recent(1, kind="optimize")[0].attrs["cost"]
+        assert cost["profiled_calls"] == sum(n for n, _, _ in grown.values()) > 0
+        assert cost["flops"] == sum(f for _, f, _ in grown.values())
+        if where.type == "cuda":
+            assert launches["segment_sum_f32"] > 0 and launches["segment_sum_i32"] > 0
+            assert {k: v[0] for k, v in grown.items()} == {k: v for k, v in launches.items() if v}
+        out[where.type] = (run.fleet.transport.batches, run.cc.monitor.current_partition_loads(),
+                           [(p.tp, p.old_replicas, p.new_replicas) for p in res.proposals],
+                           res.residual_hard_violations)
+        run.cc.shutdown()
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][2] and out["cuda"][3] == 0

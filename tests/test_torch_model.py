@@ -166,7 +166,7 @@ def test_port_imports_nothing_from_jax_or_the_jax_package():
     assert len(files) > 10
     walked = {p.relative_to(_PKG).parts[0] for p in files if _PKG in p.parents}
     assert {"analyzer", "backend", "controller", "core", "detector", "executor", "facade.py", "fleet", "model",
-            "monitor", "obs", "ops", "sim", "traces"} <= walked
+            "monitor", "obs", "ops", "replication", "sim", "traces"} <= walked
     bad = []
     for path in files:
         for mod in _imported_roots(path):

@@ -179,3 +179,24 @@ def assert_records_match(kind: str, count: int = None):
     jax_shapes, port_shapes = recorded_shapes(kind)
     assert port_shapes == jax_shapes
     assert jax_shapes and (count is None or len(jax_shapes) == count), jax_shapes
+
+
+def port_test_module(name: str):
+    """The JAX package's test module ``tests/<name>.py`` with every
+    ``cruise_control_tpu.`` module path in it (imports and dotted class names)
+    pointed at ``cruise_control_tpu_torch.``: a port test file binds the
+    classes it runs, whose cases then run unchanged against the port.  The
+    module is compiled from the JAX file's source, so its names stay the JAX
+    test's; pytest's assertion rewriting does not apply to it."""
+    import pathlib
+    import re
+    import sys
+    import types
+
+    path = pathlib.Path(__file__).resolve().parent / f"{name}.py"
+    source = re.sub(r"\bcruise_control_tpu\.", "cruise_control_tpu_torch.", path.read_text())
+    module = types.ModuleType(f"tests.{name}_on_the_port")
+    module.__file__ = str(path)
+    sys.modules[module.__name__] = module
+    exec(compile(source, str(path), "exec"), module.__dict__)
+    return module
