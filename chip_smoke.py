@@ -150,7 +150,34 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    config2_small on the CPU port and on the card; proposals, the sets of
    controller, writer and follower, the journal records and the flight
    records' shapes identical;
-20. the total wall with the kernels' build and each phase's wall, the
+20. api: the REST API at config #2 width -- the port's app
+   (``CruiseControlTpuApp`` on the card) over phase 13's seeded backend and
+   capacities, its windows sampled on the facade clock, serving HTTP on
+   127.0.0.1 (the proposal refresher stopped, detectors hourly with no
+   initial pass: every solve comes from a request); the port's client sends
+   HEALTHZ (readiness), STATE, LOAD, PARTITION_LOAD (10 rows),
+   KAFKA_CLUSTER_STATE, PROPOSALS cold and warm (past the cache), REBALANCE
+   ``dryrun=true`` polled through its user task, the kafka-assigner
+   PROPOSALS (goals 22, 23), SIMULATE (8 scenarios), USER_TASKS, METRICS and
+   TRACES (``kind=optimize``), each request's wall printed.  Fails unless
+   every body passes its schema (the page parses), no response is a 5xx, the
+   proposals over HTTP equal an in-process ``rebalance(dryrun=True)`` on the
+   same app with no hard goal violated, the warm optimize record has no
+   compile event, and all three kernels launched with the census equal to
+   the launches.  Then ``python -m cruise_control_tpu_torch --config`` a
+   copy of ``config/cruisecontrol.properties`` on an ephemeral port: its
+   probe line must name the card, HEALTHZ and STATE answer, and it is
+   stopped;
+21. api harnesses: ``api/bench.run_bench`` (200 clients, 4 execution slots,
+   a queue of 8) with its app on the card, then ``replication/bench
+   .run_bench`` (2 follower processes on the CPU, 500 watchers, 10
+   publishes); each must meet its own contract (0 5xx, a Retry-After on
+   every shed; every delivery made, no version regression);
+22. api card vs CPU: phase 20's requests (PROPOSALS once) at config2_small
+   to an app on the CPU port and one on the card; every body but the page
+   and the flight records identical once the wall-clock fields, the sensor,
+   profiler and self-monitor blocks and ``bucketHit`` are dropped;
+23. the total wall with the kernels' build and each phase's wall, the
    ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
    ``launches`` and ``host_calls`` are the wrapper's count of host calls in
    phase 4's cold solve (phase 5's P1 for ``even_assign``), ``sim_launches``
@@ -161,7 +188,8 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    (its detections and fixes; not the checks between them),
    ``detector_threaded_launches`` those of its threaded pass,
    ``replay_launches`` those of each of phase 17's card runs by name, and
-   ``ingest_launches`` those of phase 18's ingest and replication steps;
+   ``ingest_launches`` those of phase 18's ingest and replication steps,
+   ``api_launches`` those of phase 20's requests;
    ``sim_shape`` and ``traces_shapes`` are phase 2's times at the sweep's and
    the rollout's call shapes; ``kernel_launches`` are the kernels
    those calls enqueued in phase 7's solve (the fixed-order path enqueues
@@ -2422,6 +2450,338 @@ def phase_ingest_card_vs_cpu(dev):
     check(sg == sc, f"ingest: flight records differ: {sg} against {sc}")
 
 
+#: the api phases' kafka-assigner request (goals 22, 23: ``even_assign`` runs)
+API_ASSIGNER_GOALS = ("KafkaAssignerEvenRackAwareGoal", "KafkaAssignerDiskUsageDistributionGoal")
+#: SIMULATE's fast sweep: 4 broker counts x 2 load factors, 8 scenarios
+API_SIMULATE = dict(add_broker_counts=[0, 1, 2, 3], load_factors=[1.0, 1.25])
+#: fields that record when, how long or with what timers something ran, the
+#: sensor, profiler and self-monitor blocks (process-wide registries), and
+#: ``bucketHit`` (whether this process had swept that shape before): dropped
+#: before the card's bodies are held against the CPU's
+API_WALL_CLOCK_KEYS = frozenset({
+    "durationS", "startMs", "StartMs", "UserTaskId", "RequestId", "uptime_s", "ts", "wall_s",
+    "Sensors", "Profiler", "SelfMonitor", "bucketHit",
+})
+#: the schema of a request whose name is not its endpoint's (REBALANCE answers
+#: the PROPOSALS body)
+API_SCHEMA_OF = {"PROPOSALS_warm": "PROPOSALS", "PROPOSALS_assigner": "PROPOSALS", "REBALANCE": "PROPOSALS"}
+#: the entry point's wait for its serving line and its first HEALTHZ
+API_ENTRY_TIMEOUT_S = 180.0
+
+
+def api_props() -> dict:
+    """The app's properties in the api phases: HTTP on an ephemeral port of
+    127.0.0.1, the facade phases' windows, detectors and sampling on an hourly
+    cadence with no initial pass (every solve comes from a request), and no
+    sample store."""
+    return {
+        "webserver.http.address": "127.0.0.1",
+        "webserver.http.port": 0,
+        "partition.metrics.window.ms": FACADE_WINDOW_MS,
+        "num.partition.metrics.windows": FACADE_WINDOWS,
+        "metric.sampling.interval.ms": 3_600_000,
+        "anomaly.detection.interval.ms": 3_600_000,
+        "anomaly.detection.initial.pass": False,
+        "sample.store.class": "cruise_control_tpu_torch.monitor.samplestore.NoopSampleStore",
+    }
+
+
+def build_api_app(spec, device):
+    """The port's app (``CruiseControlTpuApp``) on ``device`` over a
+    ``FakeClusterBackend`` seeded with ``spec`` (``seed_fake_backend``, the
+    facade phases' capacities), its windows sampled on ``facade_clock``,
+    serving HTTP.  The proposal refresher is stopped, so that every solve
+    comes from a request."""
+    from cruise_control_tpu_torch.app import CruiseControlTpuApp
+    from cruise_control_tpu_torch.backend import FakeClusterBackend
+    from cruise_control_tpu_torch.core.resources import Resource
+    from cruise_control_tpu_torch.monitor import StaticCapacityResolver
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+
+    syn = SyntheticSpec(**spec)
+    state, maps = generate(syn, device="cpu")
+    backend = seed_fake_backend(FakeClusterBackend(metric_interval_ms=FACADE_WINDOW_MS), state, maps, syn.num_racks)
+    app = CruiseControlTpuApp(api_props(), backend=backend, device=device)
+    app.monitor.capacity_resolver = StaticCapacityResolver(
+        {Resource.CPU: syn.capacity_cpu, Resource.NW_IN: syn.capacity_nw_in,
+         Resource.NW_OUT: syn.capacity_nw_out, Resource.DISK: syn.capacity_disk})
+    for w in range(FACADE_WINDOWS + 2):
+        app.monitor.sample_once(now_ms=facade_clock(w))
+    app.start(serve_http=True)
+    app.app.stop_proposal_refresher()
+    return app
+
+
+def api_client(port: int):
+    """The port's ``CruiseControlClient`` on 127.0.0.1:``port`` that keeps the
+    status of every response it reads (``statuses``: (endpoint, status)), the
+    user-task polls included."""
+    from cruise_control_tpu_torch.client import ClientError, CruiseControlClient
+
+    class RecordingClient(CruiseControlClient):
+        statuses: list
+
+        def _request(self, method, endpoint, params=None, headers=None, raw=False):
+            try:
+                out = super()._request(method, endpoint, params, headers=headers, raw=raw)
+            except ClientError as e:
+                self.statuses.append((endpoint, e.status))
+                raise
+            self.statuses.append((endpoint, out[0]))
+            return out
+
+    client = RecordingClient(f"http://127.0.0.1:{port}", poll_timeout_s=600.0, poll_interval_s=0.05)
+    client.statuses = []
+    return client
+
+
+def api_requests(client, warm: bool = True):
+    """The api phases' requests in order: ``(bodies by request, wall s by
+    request)``.  PROPOSALS cold (filling the server's cache) and, with
+    ``warm``, again past the cache; REBALANCE ``dryrun=true`` through its
+    user task; the kafka-assigner PROPOSALS; SIMULATE's 8 scenarios."""
+    calls = [
+        ("HEALTHZ", lambda: client.healthz(readiness=True)),
+        ("STATE", client.state),
+        ("LOAD", client.load),
+        ("PARTITION_LOAD", lambda: client.partition_load(entries=10)),
+        ("KAFKA_CLUSTER_STATE", client.kafka_cluster_state),
+        ("PROPOSALS", client.proposals),
+        *([("PROPOSALS_warm", lambda: client.proposals(ignore_proposal_cache=True))] if warm else []),
+        ("REBALANCE", lambda: client.rebalance(dryrun=True)),
+        ("PROPOSALS_assigner", lambda: client.proposals(goals=API_ASSIGNER_GOALS)),
+        ("SIMULATE", lambda: client.simulate(**API_SIMULATE)),
+        ("USER_TASKS", client.user_tasks),
+        ("METRICS", client.metrics),
+        ("TRACES", lambda: client.traces(kind="optimize", limit=50)),
+    ]
+    bodies, walls = {}, {}
+    for name, call in calls:
+        t0 = time.monotonic()
+        bodies[name] = call()
+        walls[name] = time.monotonic() - t0
+    return bodies, walls
+
+
+def _check_api_bodies(bodies, statuses, label) -> None:
+    """Every body passes its endpoint's schema (REBALANCE's is the PROPOSALS
+    body), the page parses, and no response was a 5xx."""
+    from cruise_control_tpu_torch.api.schemas import validate_endpoint
+    from cruise_control_tpu_torch.obs.exporter import parse_exposition
+
+    for name, body in bodies.items():
+        if name == "METRICS":
+            check(len(parse_exposition(body)) > 0, f"{label}: the METRICS page parses to nothing")
+            continue
+        validate_endpoint(API_SCHEMA_OF.get(name, name), body)
+    errors = [(e, s) for e, s in statuses if s >= 500]
+    check(not errors, f"{label}: 5xx responses {errors}")
+
+
+def _wire_proposals(proposals) -> list:
+    """The PROPOSALS body's first 1,000 proposals of an in-process result."""
+    return [{"topic": p.tp[0], "partition": p.tp[1], "oldLeader": p.old_leader,
+             "oldReplicas": list(p.old_replicas), "newReplicas": list(p.new_replicas)} for p in proposals[:1000]]
+
+
+def api_entry_point(dev, workdir):
+    """``python -m cruise_control_tpu_torch --config`` a copy of
+    ``config/cruisecontrol.properties`` that serves on an ephemeral port and
+    keeps its files in ``workdir`` (the card by default; ``--device cpu`` only
+    when ``dev`` is the CPU).  Waits for its serving line and HEALTHZ, reads
+    STATE, then stops it (SIGINT, a kill after 30 s).  Returns its lines, the
+    STATE body, the walls and its exit code."""
+    import re
+    import signal
+    import threading
+
+    from cruise_control_tpu_torch.client import ClientError
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    overrides = {"webserver.http.port": "0", "sample.store.dir": os.path.join(workdir, "samples"),
+                 "failed.brokers.file.path": os.path.join(workdir, "failed-brokers.txt")}
+    with open(os.path.join(root, "config", "cruisecontrol.properties")) as f:
+        lines = [ln for ln in f.read().splitlines() if ln.split("=", 1)[0].strip() not in overrides]
+    path = os.path.join(workdir, "cruisecontrol.properties")
+    with open(path, "w") as f:
+        f.write("\n".join(lines + [f"{k}={v}" for k, v in overrides.items()]) + "\n")
+    cmd = [sys.executable, "-m", "cruise_control_tpu_torch", "--config", path]
+    if dev.type != "cuda":
+        cmd += ["--device", dev.type]
+    out_lines, serving = [], threading.Event()
+    t0 = time.monotonic()
+    with open(os.path.join(workdir, "entry.stderr"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=err, text=True)
+
+        def read():
+            for ln in proc.stdout:
+                out_lines.append(ln.rstrip("\n"))
+                if "serving on" in ln:
+                    serving.set()
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        try:
+            while not serving.wait(0.2):
+                check(proc.poll() is None, f"api entry point exited {proc.returncode}: {out_lines}")
+                check(time.monotonic() - t0 < API_ENTRY_TIMEOUT_S, f"api entry point never served: {out_lines}")
+            boot_s = time.monotonic() - t0
+            port = int(re.search(r":(\d+) \(", out_lines[-1]).group(1))
+            client = api_client(port)
+            while True:
+                try:
+                    health = client.healthz()
+                    break
+                except (ClientError, OSError):
+                    check(time.monotonic() - t0 < API_ENTRY_TIMEOUT_S, "api entry point: HEALTHZ never answered")
+                    time.sleep(0.2)
+            state = client.state()
+            ready_s = time.monotonic() - t0
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            reader.join(timeout=10)
+    with open(os.path.join(workdir, "entry.stderr")) as f:
+        stderr_tail = f.read()[-2000:]
+    return dict(lines=out_lines, health=health, state=state, boot_s=boot_s, ready_s=ready_s,
+                statuses=client.statuses, returncode=proc.returncode, stderr_tail=stderr_tail)
+
+
+def phase_api(dev, facade_proposals):
+    """Phase 20, the REST API at config #2 width on the card: the port's app
+    (``build_api_app``) driven over HTTP by the port's client, every request's
+    wall, then the process entry point.  Returns the kernel host calls of the
+    requests."""
+    import tempfile
+
+    from cruise_control_tpu_torch.obs import RECORDER
+
+    RECORDER.clear()
+    t0 = time.monotonic()
+    app = build_api_app(CONFIG2, dev)
+    build_s = time.monotonic() - t0
+    try:
+        client = api_client(app.port)
+        census = _census()
+        _reset_counts()
+        bodies, walls = api_requests(client)
+        _sync(dev)
+        launches = _counts()
+        grown = _census_grown(census, _census())
+        t0 = time.monotonic()
+        op = app.cruise_control.rebalance(dryrun=True)     # in process, for the comparison: not counted
+        _sync(dev)
+        in_process_s = time.monotonic() - t0
+    finally:
+        app.stop()
+    _check_api_bodies(bodies, client.statuses, "api")
+    res = op.optimizer_result
+    cold, warm, rebalance = bodies["PROPOSALS"], bodies["PROPOSALS_warm"], bodies["REBALANCE"]
+    optimize = list(reversed(bodies["TRACES"]["traces"]))    # oldest first
+    polled = [s for e, s in client.statuses if e == "rebalance"]
+    say("api", brokers=CONFIG2["num_brokers"], partitions=CONFIG2["num_partitions"], device=str(app.device),
+        app_build_and_sampling_s=build_s, request_walls_s=walls, in_process_rebalance_s=in_process_s,
+        proposals=cold["numProposals"], proposals_equal_facade_phase=cold["numProposals"] == len(facade_proposals),
+        facade_phase_proposals=len(facade_proposals), assigner_proposals=bodies["PROPOSALS_assigner"]["numProposals"],
+        violated_hard_goals=cold["violatedHardGoals"], load_rows=len(bodies["LOAD"]["brokers"]),
+        partition_load_rows=len(bodies["PARTITION_LOAD"]["records"]),
+        simulate_scenarios=len(bodies["SIMULATE"]["scenarios"]), user_tasks=len(bodies["USER_TASKS"]["userTasks"]),
+        rebalance_statuses=polled, responses=len(client.statuses),
+        status_counts={str(s): sum(1 for _, x in client.statuses if x == s) for s in sorted({x for _, x in client.statuses})},
+        optimize_records=len(optimize), optimize_compile_events=[len(t["compile_events"]) for t in optimize],
+        host_calls=launches, census_calls={k: v[0] for k, v in grown.items()})
+    check(cold["proposals"] == _wire_proposals(res.proposals) and cold["numProposals"] == len(res.proposals),
+          "api: PROPOSALS over HTTP differ from the in-process rebalance's")
+    for name, body in (("PROPOSALS_warm", warm), ("REBALANCE", rebalance)):
+        check(body["proposals"] == cold["proposals"] and body["numProposals"] == cold["numProposals"],
+              f"api: {name} differs from the cold PROPOSALS")
+    check(res.residual_hard_violations == 0 and not cold["violatedHardGoals"],
+          f"api: hard goals violated {cold['violatedHardGoals']}")
+    check(len(optimize) >= 2 and not optimize[1]["compile_events"],
+          f"api: the warm optimize record {optimize[1:2]} has a compile event")
+    check(polled and polled[0] in (200, 202), f"api: REBALANCE answered {polled}")
+    for path in ("segment_sum_f32", "segment_sum_i32", "even_assign"):
+        check(launches[path] > 0, f"api: kernel path {path} never launched")
+    check({k: v[0] for k, v in grown.items()} == {k: v for k, v in launches.items() if v},
+          f"api: census calls {grown} are not the launches {launches}")
+    with tempfile.TemporaryDirectory() as workdir:
+        entry = api_entry_point(dev, workdir)
+    say("api_entry_point", lines=entry["lines"], boot_s=entry["boot_s"], ready_s=entry["ready_s"],
+        readiness=entry["health"]["state"], monitor_state=entry["state"]["MonitorState"]["state"],
+        statuses=entry["statuses"], returncode=entry["returncode"])
+    check(entry["lines"] and entry["lines"][0].startswith("cruise-control-tpu-torch device: "),
+          f"api entry point: no probe line in {entry['lines']} ({entry['stderr_tail']})")
+    if dev.type == "cuda":
+        check(entry["lines"][0].endswith(torch.cuda.get_device_name(0)),
+              f"api entry point: the probe named {entry['lines'][0]!r}")
+    check(f"({dev.type})" in entry["lines"][-1], f"api entry point served on {entry['lines'][-1]!r}")
+    check(not [s for _, s in entry["statuses"] if s >= 500], f"api entry point: 5xx {entry['statuses']}")
+    return launches
+
+
+def phase_api_harnesses(dev):
+    """Phase 21: the serving overload bench (``api/bench.py``, its pinned 200
+    clients against 4 execution slots and a queue of 8) with its app on the
+    card, then the replication fan-out bench (``replication/bench.py``, 2
+    follower processes on the CPU, 500 watchers, 10 publishes).  Each must
+    meet its harness's own contract."""
+    from cruise_control_tpu_torch.api import bench as api_bench
+    from cruise_control_tpu_torch.replication import bench as repl_bench
+
+    _reset_counts()
+    t0 = time.monotonic()
+    serving = api_bench.run_bench(device=dev)
+    serving_s = time.monotonic() - t0
+    launches = _counts()
+    say("api_bench", phase_wall_s=serving_s, host_calls=launches,
+        **{k: serving[k] for k in ("platform", "workload", "requests", "admitted", "solver_admitted", "shed",
+                                   "http_5xx", "status_counts", "other_4xx", "sheds_missing_retry_after",
+                                   "p50_admitted_s", "p95_admitted_s", "max_admitted_s", "goodput_rps", "wall_s")})
+    problems = api_bench.check_contract(serving)
+    check(not problems, f"api_bench: {problems}")
+    t0 = time.monotonic()
+    repl = repl_bench.run_bench(device=dev)
+    say("replication_bench", phase_wall_s=time.monotonic() - t0, **repl)
+    problems = repl_bench.check_contract(repl)
+    check(not problems, f"replication_bench: {problems}")
+
+
+def _strip_wall_clock(body):
+    if isinstance(body, dict):
+        return {k: _strip_wall_clock(v) for k, v in body.items() if k not in API_WALL_CLOCK_KEYS}
+    if isinstance(body, list):
+        return [_strip_wall_clock(v) for v in body]
+    return body
+
+
+def phase_api_card_vs_cpu(dev):
+    """Phase 22: the api phase's requests (PROPOSALS once) at config2_small to
+    one app on the CPU port and one on the card.  Every body but the METRICS
+    page and the flight records (timings through and through) must be
+    identical once ``API_WALL_CLOCK_KEYS`` are dropped."""
+    out = []
+    for where in (torch.device("cpu"), dev):
+        app = build_api_app(CONFIG2_SMALL, where)
+        try:
+            client = api_client(app.port)
+            t0 = time.monotonic()
+            bodies, _ = api_requests(client, warm=False)
+            wall = time.monotonic() - t0
+        finally:
+            app.stop()
+        _check_api_bodies(bodies, client.statuses, f"api_card_vs_cpu {where.type}")
+        out.append(({k: _strip_wall_clock(v) for k, v in bodies.items() if k not in ("METRICS", "TRACES")}, wall))
+    (bc, wc), (bg, wg) = out
+    differ = sorted(k for k in bc if bc[k] != bg[k])
+    say("api_card_vs_cpu", cpu_wall_s=wc, gpu_wall_s=wg, requests=sorted(bc), proposals=bg["PROPOSALS"]["numProposals"],
+        assigner_proposals=bg["PROPOSALS_assigner"]["numProposals"], differ=differ)
+    check(not differ, f"api: card bodies differ from the CPU port's: {differ}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2473,6 +2833,9 @@ def main() -> int:
     replay_launches, tick_p50_s = timed("replay_harnesses", phase_replay_harnesses, dev)
     ingest_launches = timed("ingest", phase_ingest, dev, facade_proposals, tick_p50_s)
     timed("ingest_card_vs_cpu", phase_ingest_card_vs_cpu, dev)
+    api_launches = timed("api", phase_api, dev, facade_proposals)
+    timed("api_harnesses", phase_api_harnesses, dev)
+    timed("api_card_vs_cpu", phase_api_card_vs_cpu, dev)
 
     kernels = []
     for path in ("segment_sum_f32", "segment_sum_i32"):
@@ -2494,7 +2857,7 @@ def main() -> int:
             "facade_launches": facade_launches[path], "detector_launches": detector_launches[path],
             "detector_threaded_launches": threaded_launches[path],
             "replay_launches": {run: n[path] for run, n in replay_launches.items()},
-            "ingest_launches": ingest_launches[path],
+            "ingest_launches": ingest_launches[path], "api_launches": api_launches[path],
             "traces_shapes": [{k: r[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
                                                  "library_device_ms", "library_call_ms", "bound_ms", "bound_by")}
                               for r in at_rollout],
@@ -2522,7 +2885,7 @@ def main() -> int:
         "detector_launches": detector_launches["even_assign"],
         "detector_threaded_launches": threaded_launches["even_assign"],
         "replay_launches": {run: n["even_assign"] for run, n in replay_launches.items()},
-        "ingest_launches": ingest_launches["even_assign"],
+        "ingest_launches": ingest_launches["even_assign"], "api_launches": api_launches["even_assign"],
     })
     say("total", wall_s=time.monotonic() - start, kernel_build_s=build_s, phase_walls_s=walls)
     print(json.dumps({"kernels": kernels}), flush=True)

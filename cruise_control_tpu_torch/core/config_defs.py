@@ -142,10 +142,10 @@ def analyzer_config() -> ConfigDef:
              "(TPU-specific; the depth of the parallel SortedReplicas walk).",
              in_range(lo=1))
     d.define("compile.cache.dir", Type.STRING, "", M,
-             "Directory for JAX's persistent compilation cache: restarts "
-             "deserialize the solver's compiled programs instead of paying "
-             "the ~30-program cold compile (TPU-specific; empty = env "
-             "CC_TPU_COMPILE_CACHE, unset = no persistent cache).")
+             "Directory the CUDA kernels' shared libraries are built into "
+             "and loaded from (core/compile_cache.py): a restarted server "
+             "loads the libraries it built instead of running nvcc again "
+             "(empty = build/kernels/ beside the checkout).")
     d.define("optimize.deadline.ms", Type.LONG, None, M,
              "Per-request optimize wall budget, checked between goal steps: "
              "on expiry the best-so-far placement is returned marked "

@@ -19,14 +19,16 @@ launch adds one to :data:`LAUNCHES` and reports to the profiler's census
 argmins over the brokers a partition, and the bytes of the counts, the
 earlier picks, the picks written and the per-partition and per-broker
 inputs, each once.  The kernel keeps no state between
-launches (no scratch: every buffer it touches is the caller's), so calls from
-several host threads need no lock.
+launches (no scratch: every buffer it touches is the caller's), so the launch
+itself needs no lock; the count does, since the server's request threads solve
+at once and ``+= 1`` is a read, then a write.
 """
 
 from __future__ import annotations
 
 import ctypes
 import struct
+import threading
 import time
 from typing import Dict, Tuple
 
@@ -43,6 +45,8 @@ LAUNCHES: Dict[str, int] = {"even_assign": 0}
 _MAX_BROKERS = 64 * 1024
 _LIB = None
 _PACK = struct.Struct("11q").pack
+#: guards :data:`LAUNCHES` against host threads that launch at once
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -148,7 +152,8 @@ def even_assign_cuda(
         ))
     if err != 0:
         raise RuntimeError(f"even_assign kernel launch failed: CUDA error {err}")
-    LAUNCHES["even_assign"] += 1
+    with _COUNT_LOCK:
+        LAUNCHES["even_assign"] += 1
     _census(P, counts.shape[0], pos, time.perf_counter() - t0,
             compile_events_since(mark) if mark is not None else ())
     return counts, chosen

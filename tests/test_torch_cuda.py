@@ -565,3 +565,89 @@ def test_ingest_route_rebalance_on_the_card_equals_the_cpu_port(cuda_device):
         run.cc.shutdown()
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][2] and out["cuda"][3] == 0
+
+
+@pytest.mark.cuda
+def test_app_on_the_card_answers_proposals_as_the_cpu_app(cuda_device):
+    """The served app (``CruiseControlTpuApp`` on ``cuda``, its default)
+    answers PROPOSALS over HTTP with the CPU app's body, wall-clock fields
+    aside, and the solve launched both segment-sum paths."""
+    import chip_smoke as SM
+
+    bodies = {}
+    for where in (cuda_device, torch.device("cpu")):
+        app = SM.build_api_app(SM.CONFIG2_SMALL, where)
+        try:
+            assert app.device.type == where.type and app.cruise_control.device.type == where.type
+            PS.reset_launch_counts()
+            bodies[where.type] = SM._strip_wall_clock(SM.api_client(app.port).proposals())
+            if where.type == "cuda":
+                assert PS.LAUNCHES["segment_sum_f32"] > 0 and PS.LAUNCHES["segment_sum_i32"] > 0
+        finally:
+            app.stop()
+    assert bodies["cuda"]["numProposals"] > 0 and not bodies["cuda"]["violatedHardGoals"]
+    assert bodies["cuda"] == bodies["cpu"]
+
+
+@pytest.mark.cuda
+def test_concurrent_kafka_assigner_proposals_equal_the_serial_result(cuda_device):
+    """Two kafka-assigner PROPOSALS at once, each solved on its own server
+    request thread on the card, give the serial answer, and every
+    ``even_assign`` launch is counted (the count's lock)."""
+    import sys
+    import threading
+
+    import chip_smoke as SM
+
+    app = SM.build_api_app(SM.CONFIG2_SMALL, cuda_device)
+    try:
+        PA.reset_launch_counts()
+        serial = SM.api_client(app.port).proposals(goals=SM.API_ASSIGNER_GOALS)
+        per_solve = PA.LAUNCHES["even_assign"]
+        assert per_solve > 0
+        got, errors = [None, None], []
+        barrier = threading.Barrier(2)
+
+        def worker(k):
+            try:
+                barrier.wait(timeout=60)
+                got[k] = SM.api_client(app.port).proposals(goals=SM.API_ASSIGNER_GOALS)
+            except Exception as e:     # reported below, with the thread's index
+                errors.append((k, repr(e)))
+
+        PA.reset_launch_counts()
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=worker, args=(k,)) for k in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+        finally:
+            sys.setswitchinterval(switch)
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+        assert PA.LAUNCHES["even_assign"] == 2 * per_solve
+    finally:
+        app.stop()
+    for body in got:
+        assert SM._strip_wall_clock(body) == SM._strip_wall_clock(serial)
+
+
+@pytest.mark.cuda
+def test_the_entry_point_with_the_card_hidden_exits_naming_the_device(cuda_device):
+    """With ``CUDA_VISIBLE_DEVICES=""`` the process entry point exits non-zero
+    and names the device; it does not serve on the CPU."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "cruise_control_tpu_torch", "--config",
+         os.path.join(root, "config", "cruisecontrol.properties")],
+        cwd=root, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "the CUDA device cuda:0 is not available" in proc.stderr
+    assert "serving on" not in proc.stdout

@@ -12,6 +12,7 @@ differ in the last float32 bit.
 import ast
 import dataclasses
 import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -161,19 +162,57 @@ def _imported_roots(path: pathlib.Path):
             yield node.module
 
 
+#: a module path of the JAX package, as a ``-m`` child or a class key names it
+_JAX_MODULE_PATH = re.compile(r"cruise_control_tpu(\.\w+)+")
+
+
+def _jax_module_strings(path: pathlib.Path):
+    """String constants, docstrings aside, that are a JAX-package module path:
+    a ``python -m`` child or a class key that would run the JAX package behind
+    the import walk's back."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                docstrings.add(id(first.value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docstrings
+                and _JAX_MODULE_PATH.fullmatch(node.value)):
+            yield node.value
+
+
 def test_port_imports_nothing_from_jax_or_the_jax_package():
     files = sorted(_PKG.rglob("*.py")) + [_PKG.parent / "chip_smoke.py"]
     assert len(files) > 10
     walked = {p.relative_to(_PKG).parts[0] for p in files if _PKG in p.parents}
-    assert {"analyzer", "backend", "controller", "core", "detector", "executor", "facade.py", "fleet", "model",
-            "monitor", "obs", "ops", "replication", "sim", "traces"} <= walked
+    assert {"analyzer", "api", "app.py", "backend", "client", "controller", "core", "detector", "executor",
+            "facade.py", "fleet", "model", "monitor", "obs", "ops", "replication", "sim", "traces",
+            "__main__.py"} <= walked
     bad = []
     for path in files:
         for mod in _imported_roots(path):
             root = mod.split(".")[0]
             if root in _FORBIDDEN:
                 bad.append(f"{path.relative_to(_PKG.parent)}: {mod}")
+        bad += [f"{path.relative_to(_PKG.parent)}: {s!r}" for s in _jax_module_strings(path)]
     assert not bad, bad
+
+
+def test_the_string_walk_sees_a_jax_module_path(tmp_path):
+    """The walk above refuses a ``-m`` child or a class key naming a JAX
+    module, and passes the port's own paths and docstrings."""
+    path = tmp_path / "m.py"
+    path.write_text(
+        '"""Port of ``cruise_control_tpu.app``."""\n'
+        'CMD = ["python", "-m", "cruise_control_tpu.replication.bench"]\n'
+        'KEY = "cruise_control_tpu.monitor.capacity.StaticCapacityResolver"\n'
+        'OK = ["cruise_control_tpu_torch.replication.bench", "cruise_control_tpu"]\n'
+    )
+    assert sorted(_jax_module_strings(path)) == [
+        "cruise_control_tpu.monitor.capacity.StaticCapacityResolver", "cruise_control_tpu.replication.bench",
+    ]
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -193,6 +232,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError):
         state.to(None)
     assert GoalOptimizer(device="cpu").device == torch.device("cpu")
+    from cruise_control_tpu_torch.app import CruiseControlTpuApp
+    from cruise_control_tpu_torch.core import backend_probe
+
+    props = {"anomaly.detection.interval.ms": 3_600_000, "anomaly.detection.initial.pass": False,
+             "sample.store.class": "cruise_control_tpu_torch.monitor.samplestore.NoopSampleStore"}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CruiseControlTpuApp(props)
+    monkeypatch.setattr(backend_probe, "_RESOLVED", {})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        backend_probe.ensure_live_backend()
+    assert backend_probe.ensure_live_backend("cpu") == "cpu"
+    app = CruiseControlTpuApp(props, device="cpu")
+    assert app.device == app.cruise_control.device == torch.device("cpu")
+    app.kill()
 
 
 def test_state_hash_tracks_the_placement():

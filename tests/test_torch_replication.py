@@ -3,8 +3,8 @@
 ``core/journal.py``'s live cursor (``Journal.tail`` / ``JournalTail``),
 epoch fencing, ``replication.ReplicationState`` and ``FollowerTailer``.  The
 JAX test classes of ``tests/test_replication.py`` run unchanged against the
-port (``port_test_module``: the HTTP-served ``TestFollowerServing`` waits for
-the port's app).  Then the two packages on one directory: a journal either
+port (``port_test_module``; the HTTP-served ``TestFollowerServing`` over the
+port's writer and follower apps, bound to ``device="cpu"`` explicitly).  Then the two packages on one directory: a journal either
 one writes is tailed by the other record for record, through rotations, torn
 tails and a compaction; and the same controller-WAL records folded by both
 packages' ``ReplicationState`` give the same sets, stamps and watch deltas.
@@ -20,11 +20,13 @@ import pytest
 
 from tests.torch_port_helpers import port_test_module
 
-_PORTED = port_test_module("test_replication")
+_PORTED = port_test_module("test_replication", device="cpu")
 TestJournalTail = _PORTED.TestJournalTail
 TestEpochFencing = _PORTED.TestEpochFencing
 TestReplicationState = _PORTED.TestReplicationState
 TestChaosJournalFaults = _PORTED.TestChaosJournalFaults
+repl_pair = _PORTED.repl_pair
+TestFollowerServing = _PORTED.TestFollowerServing
 
 
 def _packages():

@@ -3,8 +3,8 @@
 ``obs/selfmon.py`` (the sampler), ``obs/slo.py`` (burn-rate SLOs),
 ``detector.SelfMetricAnomalyFinder`` and ``obs/selfmon_bench.py``.  The JAX
 test classes of ``tests/test_selfmon.py`` run unchanged against the port
-(``port_test_module``; ``TestSloApi`` needs the HTTP app and waits for the
-port's).  Then one seeded registry, recorder and profiler census per package
+(``port_test_module``; ``TestSloApi`` over the port's HTTP app, bound to
+``device="cpu"`` explicitly).  Then one seeded registry, recorder and profiler census per package
 on one fake clock: the sampled series, their windows, and the SLO statuses and
 alerts are equal across packages; and the port's bench meets the JAX bench's
 acceptance on the CPU, with the port's own controller tick as denominator.
@@ -16,13 +16,15 @@ import numpy as np
 
 from tests.torch_port_helpers import port_test_module
 
-_PORTED = port_test_module("test_selfmon")
+_PORTED = port_test_module("test_selfmon", device="cpu")
 TestTimerPercentiles = _PORTED.TestTimerPercentiles
 TestBatchedAggregator = _PORTED.TestBatchedAggregator
 TestSelfMonitor = _PORTED.TestSelfMonitor
 TestFlightJsonlRotation = _PORTED.TestFlightJsonlRotation
 TestSloEngine = _PORTED.TestSloEngine
 TestSelfMetricAnomalyFinder = _PORTED.TestSelfMetricAnomalyFinder
+served_app = _PORTED.served_app
+TestSloApi = _PORTED.TestSloApi
 
 
 def _package(name: str):

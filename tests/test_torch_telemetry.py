@@ -5,7 +5,8 @@ it back strictly.  The JAX test classes ``TestExporterRender`` and
 ``TestExpositionParser`` of ``tests/test_telemetry.py`` run unchanged against
 the port (``port_test_module``), but for the gate family: the port renders
 none until it has a regression gate of its own (ROADMAP A7), and a test here
-pins that.  For one seeded registry, recorder, profiler and SLO engine the
+pins that.  ``TestServedTelemetry`` runs over the port's HTTP app (the JAX
+``tests/test_api.py`` builder, ported, bound to ``device="cpu"``).  For one seeded registry, recorder, profiler and SLO engine the
 port's page is the JAX page, line for line, less that family.  Then the
 census (``obs/profiler.py``): a CPU solve's ``cost`` block sums its kernel
 calls' reckoned work.
@@ -19,8 +20,10 @@ import torch
 
 from tests.torch_port_helpers import port_test_module
 
-_PORTED = port_test_module("test_telemetry")
+_PORTED = port_test_module("test_telemetry", device="cpu")
 TestExpositionParser = _PORTED.TestExpositionParser
+served = _PORTED.served
+TestServedTelemetry = _PORTED.TestServedTelemetry
 
 
 class TestExporterRender(_PORTED.TestExporterRender):

@@ -181,13 +181,25 @@ def assert_records_match(kind: str, count: int = None):
     assert jax_shapes and (count is None or len(jax_shapes) == count), jax_shapes
 
 
-def port_test_module(name: str):
+#: the port's constructors that take ``device``, as the JAX test sources call them
+_DEVICE_BOUND = r"(?<![\w.])(CruiseControlTpuApp|CruiseControl)\("
+
+
+def port_test_module(name: str, device=None):
     """The JAX package's test module ``tests/<name>.py`` with every
     ``cruise_control_tpu.`` module path in it (imports and dotted class names)
     pointed at ``cruise_control_tpu_torch.``: a port test file binds the
     classes it runs, whose cases then run unchanged against the port.  The
     module is compiled from the JAX file's source, so its names stay the JAX
-    test's; pytest's assertion rewriting does not apply to it."""
+    test's; pytest's assertion rewriting does not apply to it.
+
+    The JAX sources build the app and the facade with no device, and the
+    port's default is the GPU.  With ``device`` given, every call of
+    ``CruiseControlTpuApp(...)`` or ``CruiseControl(...)`` in the source gets
+    ``device=device`` explicitly; nothing in the port defaults to the CPU.
+    A ``tests.test_<x>`` module the source imports (``tests.test_api``'s
+    ``build_app``) is its ported copy on the same device."""
+    import functools
     import pathlib
     import re
     import sys
@@ -195,8 +207,15 @@ def port_test_module(name: str):
 
     path = pathlib.Path(__file__).resolve().parent / f"{name}.py"
     source = re.sub(r"\bcruise_control_tpu\.", "cruise_control_tpu_torch.", path.read_text())
+    for dep in sorted(set(re.findall(r"\btests\.(test_\w+)\b", source)) - {name}):
+        if f"tests.{dep}_on_the_port" not in sys.modules:
+            port_test_module(dep, device)
+    source = re.sub(r"\btests\.(test_\w+)\b", r"tests.\1_on_the_port", source)
     module = types.ModuleType(f"tests.{name}_on_the_port")
     module.__file__ = str(path)
+    if device is not None:
+        source = re.sub(_DEVICE_BOUND, r"_on_device(\1)(", source)
+        module.__dict__["_on_device"] = lambda cls: functools.partial(cls, device=device)
     sys.modules[module.__name__] = module
     exec(compile(source, str(path), "exec"), module.__dict__)
     return module
