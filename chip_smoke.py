@@ -177,7 +177,23 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    to an app on the CPU port and one on the card; every body but the page
    and the flight records identical once the wall-clock fields, the sensor,
    profiler and self-monitor blocks and ``bucketHit`` are dropped;
-23. the total wall with the kernels' build and each phase's wall, the
+23. parallel: config #2 at full width through ``ShardedGoalOptimizer`` on
+   4 ranks (processes started by ``parallel.run_ranks``) sharing the card
+   over gloo, every collective staged through host copies: every rank's
+   placements, leaders, proposals, violations and balancedness must equal
+   phase 4's single-device solve with no hard violation; the backend, the
+   cold and warm walls, host syncs, collectives per goal step, each rank's
+   K1 and K2 host calls (each must launch in every rank) and peak device
+   memory.  Then one rank on NCCL at config2_small must equal the
+   single-device solve there;
+24. parallel card vs CPU: the gate's mesh8 workload (32 brokers, 256
+   partitions, RF 3, seed 5, 16 goals) on 8 card ranks and on 8 gloo ranks
+   of the CPU port, every rank identical to the single-device card solve;
+   then on 4 card ranks a preferred-leader goal list through the gather path
+   (one all_gather, then the single-device solver; equal to the
+   single-device solve) and ``fast_sweep(mesh=)`` of 10 scenarios (padded
+   to 12), bit-equal to the unsharded sweep;
+25. the total wall with the kernels' build and each phase's wall, the
    ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
    ``launches`` and ``host_calls`` are the wrapper's count of host calls in
    phase 4's cold solve (phase 5's P1 for ``even_assign``), ``sim_launches``
@@ -189,7 +205,10 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    ``detector_threaded_launches`` those of its threaded pass,
    ``replay_launches`` those of each of phase 17's card runs by name, and
    ``ingest_launches`` those of phase 18's ingest and replication steps,
-   ``api_launches`` those of phase 20's requests;
+   ``api_launches`` those of phase 20's requests, ``parallel_launches``
+   those of phase 23's cold sharded solve summed over its 4 ranks (each
+   rank counted from 0 around its solve) and ``parallel_collectives`` rank
+   0's collectives in that solve;
    ``sim_shape`` and ``traces_shapes`` are phase 2's times at the sweep's and
    the rollout's call shapes; ``kernel_launches`` are the kernels
    those calls enqueued in phase 7's solve (the fixed-order path enqueues
@@ -435,10 +454,66 @@ def _kernel_cases(gen):
         (f"rollout balancedness: f32 [{TRACE_PAIRS} x 24] -> {TRACE_PAIRS}", "segment_sum_f32",
          [f32(TRACE_PAIRS * 24)], torch.arange(TRACE_PAIRS, dtype=torch.int32).repeat_interleave(24),
          TRACE_PAIRS),
-    ]
+    ] + _rank_cases(gen, CONFIG2, PARALLEL_RANKS) + _rank_cases(gen, MESH8, MESH8_RANKS, counts=False)
+
+
+#: the label every case of a rank of the sharded solve starts with
+RANK_CASE = "rank block"
+
+
+def _rank_cases(gen, spec, ranks, counts=True):
+    """A sharded solve's kernel calls in one rank (``parallel/spmd.py``) at
+    ``spec`` over ``ranks`` ranks: the snapshot's fold call, built as
+    ``chained_segment_sums`` builds it (one carry row a segment in front of
+    the rank's block, the carry float32 for the float columns and int32 for
+    the counted bool ones, ids ``arange(S)`` then the block's), and with
+    ``counts`` the rank's count partials (topic tables, rack counts, a
+    round's per-broker count)."""
+    from cruise_control_tpu_torch.model.arrays import broker_bucket
+
+    P = spec["num_partitions"]
+    n = -(-P * spec["replication_factor"] // ranks)          # rows a rank, after padding
+    B = broker_bucket(spec["num_brokers"])
+    T, racks = spec["num_topics"], spec["num_racks"]
+    tag = f"{RANK_CASE} of {ranks}, {P * spec['replication_factor']} replicas"
+
+    def block_ids(S):
+        x = torch.randint(0, S, (n,), generator=gen, dtype=torch.int32)
+        x[::997] = -1
+        return x
+
+    def f32(*shape):
+        return torch.empty(shape).exponential_(generator=gen) * 1000.0
+
+    def bits(p):
+        return torch.rand((n,), generator=gen) < p
+
+    def carried_f32(*shape):          # the previous ranks' float sums
+        return torch.cat([f32(B, *shape) * 50.0, f32(n, *shape)])
+
+    def carried_count(p):             # the previous ranks' counts, then this block's bools
+        return torch.cat([torch.randint(0, 250, (B,), generator=gen, dtype=torch.int32), bits(p).to(torch.int32)])
+
+    fold_ids = torch.cat([torch.arange(B, dtype=torch.int32), block_ids(B)])
+    cases = [(f"{tag}: fold broker call: {B} carry rows + [{n},4] + 2 i32 + 5 f32 -> S={B}", "segment_sum_f32",
+              [carried_f32(4), carried_count(0.95), carried_count(0.33), carried_f32(), carried_f32(), carried_f32(),
+               carried_f32(), carried_f32()], fold_ids, B)]
+    if counts:
+        cases += [
+            (f"{tag}: topic counts: 2 bool [{n}] -> S={B * T}", "segment_sum_i32",
+             [bits(0.95), bits(0.33)], block_ids(B * T), B * T),
+            (f"{tag}: rack counts: bool [{n}] -> S={P * racks}", "segment_sum_i32",
+             [bits(0.95)], block_ids(P * racks), P * racks),
+            (f"{tag}: a round's per-broker count: bool [{n}] -> S={B}", "segment_sum_i32",
+             [bits(0.05)], block_ids(B), B),
+        ]
+    return cases
 
 
 SWEEP_CASE = "sweep replication factors: [64 x 30000] -> 64 x 10000 = 640000"
+#: what the kernels line gives of each case at another path's shapes
+SHAPE_KEYS = ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
+              "library_device_ms", "library_call_ms", "bound_ms", "bound_by")
 #: XLA's 32-row windows over one lane's 30,000 replicas
 SWEEP_WINDOWS = -(-30_000 // 32)
 SWEEP_TOTALS_CASE = (f"sweep totals, first level: [64 x 30000,4] + [64 x 30000] -> 64 x {SWEEP_WINDOWS} = "
@@ -656,7 +731,7 @@ def phase_config2(dev):
                rounds=sum(r.rounds for r in res.goal_reports),
                balancedness=round(res.balancedness_score, 3))
     check(got == CONFIG2_TOTALS, f"config2: {got} differ from the JAX reference's {CONFIG2_TOTALS}")
-    return launches, final
+    return launches, final, res
 
 
 def phase_assign(dev):
@@ -2782,6 +2857,234 @@ def phase_api_card_vs_cpu(dev):
     check(not differ, f"api: card bodies differ from the CPU port's: {differ}")
 
 
+# -- the sharded solver ---------------------------------------------------------------
+
+#: ranks of the config #2 sharded solve; they share the one card over gloo
+PARALLEL_RANKS = 4
+#: the gate's mesh8 tier (cruise_control_tpu/obs/gate.py:142-147): 8 ranks
+MESH8 = dict(
+    num_racks=4, num_brokers=32, num_topics=8, num_partitions=256, replication_factor=3,
+    distribution="exponential", skew_brokers=8, mean_cpu=0.25, mean_disk=0.2, mean_nw_in=0.15,
+    mean_nw_out=0.15, seed=5,
+)
+MESH8_RANKS = 8
+#: the gather path's case: the JAX gather-path test's cluster
+#: (tests/test_parallel.py:205, 128 partitions on 8 brokers) under a
+#: preferred-leader goal list that moves replicas and leaders there
+GATHER = dict(
+    num_racks=4, num_brokers=8, num_topics=6, num_partitions=128, replication_factor=3,
+    distribution="exponential", skew_brokers=3, seed=23, mean_disk=0.2, mean_nw_in=0.15,
+)
+#: fast_sweep(mesh=) of these load factors and one removed broker: 10
+#: scenarios over 4 ranks, padded to 12
+PARALLEL_SWEEP_FACTORS = (0.6, 0.8, 1.0, 1.1, 1.25, 1.5, 2.0, 2.5, 3.0)
+PARALLEL_TIMEOUT_S = 600
+
+
+def _solution(final, res, num_replicas: int) -> dict:
+    """A solve's outcome as host values: placements (trimmed to the input's
+    replicas; a sharded final is padded to a multiple of the ranks), leaders,
+    proposals as (tp, old, new), violations after, balancedness."""
+    return dict(
+        replica_broker=final.replica_broker.cpu().numpy()[:num_replicas].tolist(),
+        partition_leader=final.partition_leader.cpu().numpy().tolist(),
+        proposals=[(p.tp, tuple(p.old_replicas), tuple(p.new_replicas)) for p in res.proposals],
+        violations_after=dict(res.violations_after),
+        balancedness=res.balancedness_score,
+        residual_hard_violations=res.residual_hard_violations,
+    )
+
+
+def _first_difference(got: dict, want: dict):
+    """The first key where two solutions differ, or None."""
+    return next((k for k in want if got[k] != want[k]), None)
+
+
+def parallel_rank_solve(mesh, spec, goal_kw, warm=False):
+    """One rank of a sharded solve (``run_ranks`` calls it in every rank):
+    ``ShardedGoalOptimizer.optimize`` on ``spec`` cold (and warm), with the
+    rank's kernel host calls, collectives and host wall inside them counted
+    from 0 around the cold solve (the walls around the warm one too) and
+    its peak device memory."""
+    from cruise_control_tpu_torch.parallel import ShardedGoalOptimizer
+    from cruise_control_tpu_torch.parallel.mesh import COLLECTIVE_WALL_S, COLLECTIVES, reset_collective_counts
+
+    cuda = mesh.device.type == "cuda"
+    state, ctx, maps = _case(spec, mesh.device)
+    opt = ShardedGoalOptimizer(mesh=mesh, **goal_kw)
+    if cuda:
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    _reset_counts()
+    reset_collective_counts()
+    t0 = time.monotonic()
+    final, res = opt.optimize(state, ctx, maps=maps)
+    if cuda:
+        torch.cuda.synchronize(mesh.device)
+    cold_s = time.monotonic() - t0
+    launches, collectives, cold_walls = _counts(), dict(COLLECTIVES), dict(COLLECTIVE_WALL_S)
+    warm_s = warm_walls = None
+    if warm:
+        reset_collective_counts()
+        t0 = time.monotonic()
+        _, warm_res = opt.optimize(state, ctx, maps=maps)
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+        warm_s = time.monotonic() - t0
+        warm_walls = dict(COLLECTIVE_WALL_S)
+        check(warm_res.total_moves == res.total_moves, f"rank {mesh.rank}: warm sharded solve differs from cold")
+    return dict(
+        solution=_solution(final, res, state.num_replicas), use_spmd=opt.use_spmd,
+        backend=mesh.backend, world=mesh.world, cold_wall_s=cold_s, warm_wall_s=warm_s,
+        host_syncs=res.num_host_syncs, goal_steps=len(res.goal_reports),
+        rounds=sum(r.rounds for r in res.goal_reports), launches=launches, collectives=collectives,
+        cold_collective_wall_s=cold_walls, warm_collective_wall_s=warm_walls,
+        peak_mib=torch.cuda.max_memory_allocated(mesh.device) / 2**20 if cuda else None,
+    )
+
+
+def parallel_rank_gather_and_sweep(mesh, ple_kw, sweep_spec, factors):
+    """One rank of the gather path (a preferred-leader goal list on
+    :data:`GATHER`) and of ``fast_sweep(mesh=)`` beside the same sweep
+    unsharded."""
+    from cruise_control_tpu_torch.sim import Scenario, fast_sweep
+
+    out = parallel_rank_solve(mesh, GATHER, ple_kw)
+    state, _, _ = _case(sweep_spec, mesh.device)
+    scenarios = [Scenario(name=f"x{f}", load_factor=f) for f in factors] + [
+        Scenario(name="minus1", remove_brokers=(0,))
+    ]
+    sharded = fast_sweep(state, scenarios, goal_ids=DEFAULT_GOALS, device=mesh.device, mesh=mesh)
+    whole = fast_sweep(state, scenarios, goal_ids=DEFAULT_GOALS, device=mesh.device)
+    out["sweep"] = [v.to_dict() for v in sharded.scenarios]
+    out["sweep_unsharded"] = [v.to_dict() for v in whole.scenarios]
+    return out
+
+
+def failing_rank(mesh):
+    """A rank function for the launcher's failure path (the card and CPU
+    tests): rank 1 raises while the others wait in a collective that can
+    never finish."""
+    if mesh.rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    mesh.all_gather(torch.zeros(1, device=mesh.device))
+    return mesh.rank
+
+
+def _check_ranks(label, runs, want):
+    for rank, run in enumerate(runs):
+        diff = _first_difference(run["solution"], want)
+        check(diff is None, f"{label}: rank {rank}'s {diff} differs from the single-device solve")
+        check(run["solution"]["residual_hard_violations"] == 0, f"{label}: rank {rank} leaves hard violations")
+
+
+def phase_parallel(dev, config2_final, config2_res):
+    """Config #2 at full width through ``ShardedGoalOptimizer`` on 4 ranks
+    sharing the card over gloo: the placements, leaders, proposals,
+    violations and balancedness of every rank must equal phase 4's
+    single-device card solve, with no hard violation.  Then one rank on
+    NCCL at config2_small must equal the single-device solve there.  Returns
+    the K1/K2 host calls summed over the 4 ranks and rank 0's collectives."""
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.parallel import run_ranks
+
+    heavy = dict(enable_heavy_goals=True)
+    t0 = time.monotonic()
+    runs = run_ranks(parallel_rank_solve, PARALLEL_RANKS, device="cuda", timeout_s=PARALLEL_TIMEOUT_S,
+                     args=(CONFIG2, heavy, True))
+    phase_s = time.monotonic() - t0
+    _check_ranks("parallel config2", runs, _solution(config2_final, config2_res, config2_final.num_replicas))
+    check(all(r["use_spmd"] and r["backend"] == "gloo" for r in runs), "parallel: not the SPMD path over gloo")
+    launches = {path: sum(r["launches"][path] for r in runs) for path in runs[0]["launches"]}
+    for path in ("segment_sum_f32", "segment_sum_i32"):
+        check(all(r["launches"][path] > 0 for r in runs), f"parallel: kernel path {path} never launched in a rank")
+    r0 = runs[0]
+    total = sum(r0["collectives"].values())
+    say(
+        "parallel", backend=r0["backend"], ranks=PARALLEL_RANKS, brokers=config2_final.num_brokers,
+        replicas=config2_final.num_replicas, spawn_and_solves_wall_s=phase_s,
+        cold_wall_s=[r["cold_wall_s"] for r in runs], warm_wall_s=[r["warm_wall_s"] for r in runs],
+        host_syncs=r0["host_syncs"], goal_steps=r0["goal_steps"], rounds=r0["rounds"],
+        collectives=r0["collectives"], collectives_per_goal_step=total / r0["goal_steps"],
+        collectives_per_round=total / max(r0["rounds"], 1),
+        host_calls_per_rank=[r["launches"] for r in runs], host_calls_summed=launches,
+        # the host wall inside the collectives, a fold's including its ranks'
+        # kernel calls and the waits for the ranks before it
+        warm_collective_wall_s_per_rank=[r["warm_collective_wall_s"] for r in runs],
+        warm_fold_share_per_rank=[r["warm_collective_wall_s"]["fold"] / r["warm_wall_s"] for r in runs],
+        cold_collective_wall_s_per_rank=[r["cold_collective_wall_s"] for r in runs],
+        peak_mib_per_rank=[r["peak_mib"] for r in runs],
+        total_moves=config2_res.total_moves, balancedness=config2_res.balancedness_score,
+    )
+
+    # one rank on NCCL: the communicator path on this card
+    state, ctx, maps = _case(CONFIG2_SMALL, dev)
+    final, res = GoalOptimizer(device=dev, **heavy).optimize(state, ctx, maps=maps)
+    (nccl,) = run_ranks(parallel_rank_solve, 1, device="cuda", backend="nccl", timeout_s=PARALLEL_TIMEOUT_S,
+                        args=(CONFIG2_SMALL, heavy))
+    _check_ranks("parallel nccl config2_small", [nccl], _solution(final, res, state.num_replicas))
+    check(nccl["backend"] == "nccl" and nccl["use_spmd"], "parallel: the NCCL rank did not run the SPMD path")
+    say("parallel_nccl", config="config2_small", backend=nccl["backend"], ranks=1,
+        cold_wall_s=nccl["cold_wall_s"], collectives=nccl["collectives"], host_calls=nccl["launches"],
+        peak_mib=nccl["peak_mib"])
+    return launches, r0["collectives"]
+
+
+def mesh8_card_vs_cpu(dev, ranks=MESH8_RANKS):
+    """The gate's mesh8 workload (16 goals, heavy goals on) sharded over
+    ``ranks`` ranks on the card and over as many gloo ranks on the CPU port:
+    every rank of both identical, and equal to the single-device card solve.
+    Returns the two sets of rank results."""
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.parallel import run_ranks
+
+    heavy = dict(enable_heavy_goals=True)
+    state, ctx, maps = _case(MESH8, dev)
+    final, res = GoalOptimizer(device=dev, **heavy).optimize(state, ctx, maps=maps)
+    want = _solution(final, res, state.num_replicas)
+    card = run_ranks(parallel_rank_solve, ranks, device="cuda", timeout_s=PARALLEL_TIMEOUT_S, args=(MESH8, heavy))
+    cpu = run_ranks(parallel_rank_solve, ranks, device="cpu", timeout_s=PARALLEL_TIMEOUT_S, args=(MESH8, heavy))
+    _check_ranks("mesh8 card", card, want)
+    _check_ranks("mesh8 cpu", cpu, want)
+    return card, cpu
+
+
+def phase_parallel_card_vs_cpu(dev):
+    """mesh8 on 8 card ranks and 8 CPU ranks (identical, and equal to the
+    single-device solve); then, on 4 card ranks, a preferred-leader goal
+    list through the gather path (equal to the single-device solve) and
+    ``fast_sweep(mesh=)`` (bit-equal to the unsharded sweep)."""
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.analyzer import goals_base as G
+    from cruise_control_tpu_torch.parallel import run_ranks
+
+    t0 = time.monotonic()
+    card, cpu = mesh8_card_vs_cpu(dev)
+    mesh8_s = time.monotonic() - t0
+    ple = dict(goal_ids=(G.RACK_AWARE, G.REPLICA_DISTRIBUTION, G.LEADER_REPLICA_DIST, G.PREFERRED_LEADER_ELECTION),
+               hard_ids=(G.RACK_AWARE,), enable_heavy_goals=True)
+    state, ctx, maps = _case(GATHER, dev)
+    final, res = GoalOptimizer(device=dev, **ple).optimize(state, ctx, maps=maps)
+    check(res.total_moves > 0, "gather path: the case moves nothing")
+    runs = run_ranks(parallel_rank_gather_and_sweep, PARALLEL_RANKS, device="cuda", timeout_s=PARALLEL_TIMEOUT_S,
+                     args=(ple, MESH8, PARALLEL_SWEEP_FACTORS))
+    _check_ranks("gather path", runs, _solution(final, res, state.num_replicas))
+    check(not any(r["use_spmd"] for r in runs), "gather path: a preferred-leader list ran the SPMD path")
+    check(all(r["collectives"] == {"all_gather": 1, "all_reduce": 0, "fold": 0} for r in runs),
+          "gather path: not one all_gather")
+    for rank, r in enumerate(runs):
+        check(r["sweep"] == r["sweep_unsharded"] == runs[0]["sweep_unsharded"],
+              f"fast_sweep(mesh=): rank {rank}'s verdicts differ from the unsharded sweep")
+    say(
+        "parallel_card_vs_cpu", config="mesh8", ranks=MESH8_RANKS, mesh8_wall_s=mesh8_s,
+        card_cold_wall_s=[r["cold_wall_s"] for r in card], cpu_cold_wall_s=[r["cold_wall_s"] for r in cpu],
+        card_collectives=card[0]["collectives"], card_host_calls_summed={
+            p: sum(r["launches"][p] for r in card) for p in card[0]["launches"]},
+        gather_path_goal_ids=list(ple["goal_ids"]), gather_path_moves=res.total_moves,
+        sweep_scenarios=len(runs[0]["sweep"]), sweep_ranks=PARALLEL_RANKS,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2815,7 +3118,7 @@ def main() -> int:
 
     records = timed("kernels", phase_kernels, dev)
     assign_records = timed("assign", phase_assign, dev)
-    launches, config2_final = timed("config2", phase_config2, dev)
+    launches, config2_final, config2_res = timed("config2", phase_config2, dev)
     p1_launches = timed("path", phase_paths, dev)
     sim_launches = timed("sim", phase_sim, dev, config2_final)
     profile_calls, profile_kernels = timed("profile", phase_profile, dev)
@@ -2836,12 +3139,15 @@ def main() -> int:
     api_launches = timed("api", phase_api, dev, facade_proposals)
     timed("api_harnesses", phase_api_harnesses, dev)
     timed("api_card_vs_cpu", phase_api_card_vs_cpu, dev)
+    parallel_launches, parallel_collectives = timed("parallel", phase_parallel, dev, config2_final, config2_res)
+    timed("parallel_card_vs_cpu", phase_parallel_card_vs_cpu, dev)
 
     kernels = []
     for path in ("segment_sum_f32", "segment_sum_i32"):
         rec = next(r for r in records if r["path"] == path)   # the main path's shape
         sweep = next(r for r in records if r["path"] == path and r["case"].startswith("sweep"))
         at_rollout = [r for r in records if r["path"] == path and r["case"].startswith("rollout")]
+        in_ranks = [r for r in records if r["path"] == path and r["case"].startswith(RANK_CASE)]
         kernels.append({
             "name": path, "route": "cuda", "source": KERNEL_SOURCES[path], "replaces": REPLACES[path],
             "launches": launches[path], "host_calls": launches[path],
@@ -2858,9 +3164,9 @@ def main() -> int:
             "detector_threaded_launches": threaded_launches[path],
             "replay_launches": {run: n[path] for run, n in replay_launches.items()},
             "ingest_launches": ingest_launches[path], "api_launches": api_launches[path],
-            "traces_shapes": [{k: r[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
-                                                 "library_device_ms", "library_call_ms", "bound_ms", "bound_by")}
-                              for r in at_rollout],
+            "parallel_launches": parallel_launches[path], "parallel_collectives": parallel_collectives,
+            "traces_shapes": [{k: r[k] for k in SHAPE_KEYS} for r in at_rollout],
+            "parallel_shapes": [{k: r[k] for k in SHAPE_KEYS + ("max_abs_err",)} for r in in_ranks],
             "sim_shape": {k: sweep[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
                                                 "library_device_ms", "bound_ms", "bound_by", "per_lane_calls",
                                                 "per_lane_device_ms", "per_lane_call_ms",
@@ -2886,6 +3192,7 @@ def main() -> int:
         "detector_threaded_launches": threaded_launches["even_assign"],
         "replay_launches": {run: n["even_assign"] for run, n in replay_launches.items()},
         "ingest_launches": ingest_launches["even_assign"], "api_launches": api_launches["even_assign"],
+        "parallel_launches": parallel_launches["even_assign"],
     })
     say("total", wall_s=time.monotonic() - start, kernel_build_s=build_s, phase_walls_s=walls)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,6 +17,8 @@ term is skipped in Python and builds no ``[slots, B]`` matrix.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -354,7 +356,18 @@ def accept_all(
     eff: MoveEffects,
     prior_mask: np.ndarray,
 ) -> torch.Tensor:
-    """bool[K]: every goal enabled in ``prior_mask`` accepts each slot."""
+    """bool[K]: every goal enabled in ``prior_mask`` accepts each slot.
+
+    Sharded, the batch carries its candidate-row table (``moves.rows``): the
+    kernels then run against the replicated surrogate view with the slot ids
+    translated to table positions, touching no sharded tensor."""
+    if moves.rows is not None:
+        from cruise_control_tpu_torch.analyzer.moves import batch_views
+
+        state, snap, r_ids, rb_ids = batch_views(state, snap, moves)
+        moves = dataclasses.replace(
+            moves, replica=r_ids, dst_replica=rb_ids, rows=None, view_replica=None, view_dst_replica=None,
+        )
     ok = eff.valid
     for gid, fn in _KERNELS.items():
         if _on(prior_mask, gid):
@@ -592,34 +605,43 @@ def swap_dst_matrix(
     snap: Snapshot,
     cand: torch.Tensor,           # i32[S] outgoing replica per slot (clamped)
     cand_valid: torch.Tensor,     # bool[S]
-    partner: torch.Tensor,        # i32[B] incoming partner replica per dst (clamped)
-    partner_valid: torch.Tensor,  # bool[B]
+    partner: torch.Tensor,        # i32[B|M] incoming partner replica per dst (clamped)
+    partner_valid: torch.Tensor,  # bool[B|M]
     prior_mask: np.ndarray,
+    dst_brokers=None,             # i32[M] restricts columns to these broker ids
 ) -> torch.Tensor:
-    """bool[S, B]: would every prior goal accept swapping ``cand[s]`` with the
-    column broker's ``partner``?  Threshold goals see the swap's net deltas;
-    replica counts never change in a swap."""
+    """bool[S, B|M]: would every prior goal accept swapping ``cand[s]`` with
+    the column broker's ``partner``?  Threshold goals see the swap's net
+    deltas; replica counts never change in a swap.  ``dst_brokers``
+    restricts the columns (the sharded solver's column slice); the caller
+    then passes ``partner`` / ``partner_valid`` restricted to them."""
     S = cand.shape[0]
     B = state.num_brokers
-    col_ids = torch.arange(B, dtype=I32, device=cand.device)
+    db = dst_brokers
+
+    def gb(x):
+        return x if db is None else x[db]
+
+    col_ids = torch.arange(B, dtype=I32, device=cand.device) if db is None else db
+    ncols = col_ids.shape[0]
     r = torch.where(cand_valid, cand, 0)
     q = torch.where(partner_valid, partner, 0)
     p_out = state.replica_partition[r]
     p_in = state.replica_partition[q]
     src = state.replica_broker[r]
     e_out = snap.eff_load[r]           # [S, 4]
-    e_in = snap.eff_load[q]            # [B, 4]
+    e_in = snap.eff_load[q]            # [cols, 4]
     leads_out = snap.is_leader[r]      # [S]
-    leads_in = snap.is_leader[q]       # [B]
+    leads_in = snap.is_leader[q]       # [cols]
     t_out = state.partition_topic[p_out]
     t_in = state.partition_topic[p_in]
 
-    ok = torch.ones((S, B), dtype=torch.bool, device=cand.device)
+    ok = torch.ones((S, ncols), dtype=torch.bool, device=cand.device)
 
     if _on(prior_mask, G.RACK_AWARE) or _on(prior_mask, G.KAFKA_ASSIGNER_RACK):
-        dst_rack = state.broker_rack[None, :]
+        dst_rack = gb(state.broker_rack)[None, :]
         src_rack = state.broker_rack[src][:, None]
-        occ_fwd = snap.rack_counts[p_out][:, state.broker_rack] - (src_rack == dst_rack).to(I32)
+        occ_fwd = snap.rack_counts[p_out][:, gb(state.broker_rack)] - (src_rack == dst_rack).to(I32)
         # occ_bwd[s, d] = replicas of partner[d]'s partition in slot s's source rack
         occ_bwd = snap.rack_counts[p_in][:, state.broker_rack[src]].T - (dst_rack == src_rack).to(I32)
         ok &= (occ_fwd == 0) & (occ_bwd == 0)
@@ -630,8 +652,9 @@ def swap_dst_matrix(
     if _on(prior_mask, G.KAFKA_ASSIGNER_RACK):
         pc, pos_all = _assigner_even_state(state)
         q_out = pos_all[r]                              # [S]
-        q_in = pos_all[q]                               # [B]
-        fwd = pc[q_out] + 1 <= pc[q_out, src][:, None]  # counts[q_out_s, d] vs counts[q_out_s, src_s]
+        q_in = pos_all[q]                               # [cols]
+        c_out_d = pc[q_out] if db is None else pc[q_out][:, db]
+        fwd = c_out_d + 1 <= pc[q_out, src][:, None]  # counts[q_out_s, d] vs counts[q_out_s, src_s]
         bwd = pc[q_in][:, src].T + 1 <= pc[q_in, col_ids][None, :]
         same_pos = q_out[:, None] == q_in[None, :]
         same_broker = src[:, None] == col_ids[None, :]
@@ -649,8 +672,8 @@ def swap_dst_matrix(
         if not _on(prior_mask, gid):
             continue
         net = e_out[:, None, res] - e_in[None, :, res]      # dst gains this
-        after = snap.broker_load[None, :, res] + net
-        fits = (after <= snap.cap_limits[None, :, res]) | (net <= 0.0)
+        after = gb(snap.broker_load)[None, :, res] + net
+        fits = (after <= gb(snap.cap_limits)[None, :, res]) | (net <= 0.0)
         src_after = snap.broker_load[src, res][:, None] - net
         src_fits = (src_after <= snap.cap_limits[src, res][:, None]) | (net >= 0.0)
         ok &= fits & src_fits
@@ -662,28 +685,28 @@ def swap_dst_matrix(
         cap = torch.clamp(state.broker_capacity[:, res], min=1e-9)
         net = e_out[:, None, res] - e_in[None, :, res]
         src_before = snap.broker_load[src, res][:, None]
-        dst_before = snap.broker_load[:, res][None, :]
+        dst_before = gb(snap.broker_load[:, res])[None, :]
         src_after = src_before - net
         dst_after = dst_before + net
         within_before = (src_before >= snap.res_lower[src, res][:, None]) & (
-            dst_before <= snap.res_upper[None, :, res]
+            dst_before <= gb(snap.res_upper)[None, :, res]
         )
-        ok_within = (dst_after <= snap.res_upper[None, :, res]) & (
+        ok_within = (dst_after <= gb(snap.res_upper)[None, :, res]) & (
             src_after >= snap.res_lower[src, res][:, None]
         )
-        ok_fb = dst_after / cap[None, :] <= src_before / cap[src][:, None]
+        ok_fb = dst_after / gb(cap)[None, :] <= src_before / cap[src][:, None]
         ok &= low | (net <= 0.0) | torch.where(within_before, ok_within, ok_fb)
 
     if _on(prior_mask, G.POTENTIAL_NW_OUT):
         lnw_out = state.base_load[r, Resource.NW_OUT] + state.leadership_delta[p_out, Resource.NW_OUT]
         lnw_in = state.base_load[q, Resource.NW_OUT] + state.leadership_delta[p_in, Resource.NW_OUT]
         pnw_net = lnw_out[:, None] - lnw_in[None, :]
-        pnw_after = snap.potential_nw_out[None, :] + pnw_net
-        ok &= (pnw_after <= snap.cap_limits[None, :, Resource.NW_OUT]) | (pnw_net <= 0.0)
+        pnw_after = gb(snap.potential_nw_out)[None, :] + pnw_net
+        ok &= (pnw_after <= gb(snap.cap_limits)[None, :, Resource.NW_OUT]) | (pnw_net <= 0.0)
 
     if _on(prior_mask, G.LEADER_REPLICA_DIST):
         net_lead = leads_out.to(I32)[:, None] - leads_in.to(I32)[None, :]
-        l_after = snap.leader_counts[None, :] + net_lead
+        l_after = gb(snap.leader_counts)[None, :] + net_lead
         ok &= (net_lead <= 0) | (l_after <= snap.leader_band[1]) | (
             l_after <= snap.leader_counts[src][:, None] - 1
         )
@@ -692,7 +715,7 @@ def swap_dst_matrix(
         lbi_out = torch.where(leads_out, e_out[:, Resource.NW_IN], 0.0)
         lbi_in = torch.where(leads_in, e_in[:, Resource.NW_IN], 0.0)
         lbi_net = lbi_out[:, None] - lbi_in[None, :]
-        lbi_after = snap.leader_nw_in[None, :] + lbi_net
+        lbi_after = gb(snap.leader_nw_in)[None, :] + lbi_net
         ok &= (lbi_net <= 0.0) | (lbi_after <= snap.leader_nw_in_upper) | (
             lbi_after <= snap.leader_nw_in[src][:, None]
         )

@@ -1,6 +1,6 @@
 """Optimization options and the per-round snapshot shared by goal kernels.
 
-Port of ``cruise_control_tpu/analyzer/context.py``, single-device form.
+Port of ``cruise_control_tpu/analyzer/context.py``.
 ``GoalContext`` is the tensor form of the reference's
 ``OptimizationOptions.java`` plus the :class:`BalancingConstraint`;
 ``Snapshot`` bundles every derived tensor the goal kernels read (effective
@@ -14,6 +14,13 @@ sums behind the balance bands add in the JAX reference's order
 (:func:`ops.index.xla_sums`).  The [B, T] per-topic tables are built only when
 ``enable_heavy`` is set, and the optional groups (``NEED_*``) only when the
 caller's ``needs`` names them.
+
+Under the sharded solver (``spmd``, :mod:`parallel.spmd`) the replica-axis
+tensors are this rank's block: every replica-axis reduction becomes a local
+partial (the same kernel calls on the block) and every field past the merges
+is replicated.  The sums run as ONE fold over the ranks in rank order
+(``chained_segment_sums``: the float sums round as the single-device
+row-order sums do) and the mins merge in ONE ``merge_mins``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
 from cruise_control_tpu_torch.ops.index import segment_max, segment_min, xla_sums
 from cruise_control_tpu_torch.ops.segments import segment_sums as _segment_sums
+from cruise_control_tpu_torch.parallel.spmd import chained_segment_sums, merge_mins
 
 I32 = torch.int32
 F32 = torch.float32
@@ -194,6 +202,13 @@ class Snapshot:
     topic_band: Optional[torch.Tensor] = None          # i32[2, T]
     topic_leader_counts: Optional[torch.Tensor] = None  # i32[B, T]
     enable_heavy: bool = False
+    #: replica-axis sharding (parallel.spmd.SpmdInfo): None single-device;
+    #: under the sharded solver the per-replica fields above are this rank's
+    #: rows while every reduction field is already merged and replicated
+    spmd: Optional[object] = None
+
+    def replace(self, **changes) -> "Snapshot":
+        return dataclasses.replace(self, **changes)
 
 
 #: optional snapshot groups (take_snapshot ``needs``): tables only some goal
@@ -213,14 +228,24 @@ def take_snapshot(
     ctx: GoalContext,
     enable_heavy: bool = False,
     needs: frozenset = ALL_NEEDS,
+    spmd=None,
 ) -> Snapshot:
-    """Derive one round's tensors (single device).  A group left out of
-    ``needs`` is None in the snapshot, so an unexpected reader fails loudly
-    instead of reading a stale table."""
+    """Derive one round's tensors.  A group left out of ``needs`` is None in
+    the snapshot, so an unexpected reader fails loudly instead of reading a
+    stale table.  ``spmd`` (parallel.spmd.SpmdInfo) switches the replica
+    axis to this rank's block: ``partition_leader`` holds GLOBAL replica
+    ids, and every reduction merges over the ranks."""
     dev = state.device
-    eff = A.effective_load(state)
-    lead = A.is_leader(state)
-    gidx = torch.arange(state.num_replicas, dtype=I32, device=dev)
+    if spmd is None:
+        eff = A.effective_load(state)
+        lead = A.is_leader(state)
+        gidx = torch.arange(state.num_replicas, dtype=I32, device=dev)
+    else:
+        gidx = spmd.iota()
+        lead = (state.partition_leader[state.replica_partition] == gidx) & state.replica_valid
+        delta_r = state.leadership_delta[state.replica_partition]
+        eff = state.base_load + torch.where(lead[:, None], delta_r, 0.0)
+        eff = torch.where(state.replica_valid[:, None], eff, 0.0)
     topic = state.partition_topic[state.replica_partition]
     offline = state.replica_offline_mask()
     immigrant = state.replica_broker != state.original_broker
@@ -251,19 +276,36 @@ def take_snapshot(
     if NEED_LEADER in needs:
         # leaderless partitions read replica row 0, as the JAX package does
         ltarget = torch.clamp(state.partition_leader, min=0)
-        leader_broker = rb[ltarget]
-        leader_eff = eff[ltarget]
+        if spmd is None:
+            leader_broker = rb[ltarget]
+            leader_eff = eff[ltarget]
+        else:
+            # the rank owning partition_leader[p] contributes the row, every
+            # other rank zeros: the merged sum adds to zeros only (exact)
+            loc = ltarget - spmd.offset()
+            mine = (loc >= 0) & (loc < state.num_replicas)
+            safe = torch.where(mine, loc, 0)
+            leader_broker = torch.where(mine, rb[safe], 0)
+            leader_eff = torch.where(mine[:, None], eff[safe], 0.0)
     if NEED_BROKER_SET in needs:
         want_set = ctx.broker_set_of_topic[topic]
         have_set = ctx.broker_set_of_broker[rb]
         bs_bad = rvalid & (want_set >= 0) & (have_set != want_set)
+    # the mins merge FIRST: the rack-violation rows read the merged
+    # group-first table, and their per-broker count joins the sums' merge
+    mins = {}
     if NEED_PREF in needs:
-        pref = segment_min(torch.where(rvalid, gidx, _BIG), rp, P)
-        preferred = torch.where(pref < _BIG, pref, -1)
+        mins["pref"] = segment_min(torch.where(rvalid, gidx, _BIG), rp, P)
     if NEED_RACK_FIRST in needs:
-        rack_first2 = segment_min(
+        mins["rack_first2"] = segment_min(
             torch.where(rvalid, gidx * 2 + offline.to(I32), _BIG), group, P * state.num_racks
         )
+    mins = merge_mins(spmd, mins)
+    if NEED_PREF in needs:
+        pref = mins["pref"]
+        preferred = torch.where(pref < _BIG, pref, -1)
+    if NEED_RACK_FIRST in needs:
+        rack_first2 = mins["rack_first2"]
         # a valid row that is not its (partition, rack) group's first member
         # sits in a group of size > 1: rack-violating, as is every offline row
         rack_viol = (rvalid & (gidx != rack_first2[group] // 2)) | offline
@@ -271,30 +313,61 @@ def take_snapshot(
     # every broker-keyed sum in one call: float columns in row order, the
     # bool columns counted into int32
     optional = [x.to(F32) for x in (bs_bad, rack_viol) if x is not None]
-    bload, replica_counts, leader_counts, pnw, lbi, offline_per_broker, *needs_sums = _segment_sums(
-        [
-            eff,
+    broker_columns = [
+        eff,
+        rvalid,
+        lead,
+        torch.where(
             rvalid,
-            lead,
-            torch.where(
-                rvalid,
-                state.base_load[:, Resource.NW_OUT] + state.leadership_delta[rp, Resource.NW_OUT],
-                0.0,
-            ),
-            torch.where(lead, eff[:, Resource.NW_IN], 0.0),
-            offline.to(F32),
-            *optional,
-        ],
-        rb, B,
-    )
-    broker_set_need = needs_sums.pop(0) if bs_bad is not None else None
-    rack_viol_need = needs_sums.pop(0) if rack_viol is not None else None
+            state.base_load[:, Resource.NW_OUT] + state.leadership_delta[rp, Resource.NW_OUT],
+            0.0,
+        ),
+        torch.where(lead, eff[:, Resource.NW_IN], 0.0),
+        offline.to(F32),
+        *optional,
+    ]
+    T = state.num_topics
+
+    def topic_tables():
+        return _segment_sums([rvalid, lead], rb * T + topic, B * T)
+
+    if spmd is None:
+        broker_sums = _segment_sums(broker_columns, rb, B)
     (rack_counts,) = _segment_sums([rvalid], group, P * state.num_racks)
-    dload = A.disk_load(state)
+    if spmd is None:
+        dload = A.disk_load(state)
     if D > 0:
         (d_counts,) = _segment_sums([on_disk & rvalid], state.replica_disk, D)
     else:
         d_counts = torch.zeros((0,), dtype=I32, device=dev)
+    topic_counts = topic_leader_counts = None
+    if spmd is not None:
+        if enable_heavy:
+            topic_counts, topic_leader_counts = topic_tables()
+        # ONE fold over the ranks in rank order: the broker-keyed and disk
+        # sums continue the single-device row-order sums rank after rank, so
+        # their floats round as single-device; the integer partials and the
+        # leader rows (one rank contributes each) add up exactly on the way
+        calls = [(broker_columns, rb, B)]
+        if D > 0:
+            du, disk_idx = A.disk_load_terms(state)
+            calls.append(([du], disk_idx, D))
+        optional_parts = dict(
+            leader_broker=leader_broker, leader_eff=leader_eff,
+            topic_counts=topic_counts, topic_leader_counts=topic_leader_counts,
+        )
+        parts = dict(rack_counts=rack_counts, d_counts=d_counts)
+        parts.update({k: v for k, v in optional_parts.items() if v is not None})
+        chained, merged = chained_segment_sums(spmd, calls, parts)
+        broker_sums = chained[0]
+        dload = chained[1][0] if D > 0 else torch.zeros((0,), dtype=F32, device=dev)
+        rack_counts, d_counts = merged["rack_counts"], merged["d_counts"]
+        leader_broker, leader_eff, topic_counts, topic_leader_counts = (
+            merged.get(k) for k in optional_parts
+        )
+    bload, replica_counts, leader_counts, pnw, lbi, offline_per_broker, *needs_sums = broker_sums
+    broker_set_need = needs_sums.pop(0) if bs_bad is not None else None
+    rack_viol_need = needs_sums.pop(0) if rack_viol is not None else None
 
     # cross-broker sums in the JAX reference's (XLA CPU) order: the bands
     # they set decide which brokers are over or under
@@ -344,13 +417,12 @@ def take_snapshot(
         d_lower = torch.zeros((0,), dtype=F32, device=dev)
         d_upper = torch.zeros((0,), dtype=F32, device=dev)
 
-    topic_counts = topic_band = topic_leader_counts = None
+    topic_band = None
     if enable_heavy:
-        T = state.num_topics
-        flat_bt = rb * T + topic
-        topic_counts, topic_leader_counts = (
-            x.reshape(B, T) for x in _segment_sums([rvalid, lead], flat_bt, B * T)
-        )
+        if spmd is None:
+            topic_counts, topic_leader_counts = topic_tables()
+        topic_counts = topic_counts.reshape(B, T)
+        topic_leader_counts = topic_leader_counts.reshape(B, T)
         totals = topic_counts.sum(dim=0, dtype=I32)
         avg_t = totals.to(F32) / n_alive
         mult = c.distribution_threshold_multiplier if tv else 1.0
@@ -403,6 +475,7 @@ def take_snapshot(
         topic_band=topic_band,
         topic_leader_counts=topic_leader_counts,
         enable_heavy=enable_heavy,
+        spmd=spmd,
     )
 
 

@@ -8,6 +8,15 @@ tuple of round functions ``(state, ctx, snap, prior_mask, salt) -> MoveBatch``;
 the optimizer drives each round type to convergence in order (leadership
 before replica moves, as ResourceDistributionGoal.java:380 phases them).
 Round functions only propose; the optimizer layers acceptance and admission.
+
+Sharded solver (``snap.spmd`` set): the per-replica score and eligibility
+tensors handed to the proposers are this rank's rows; the ``dst_fn`` /
+``fit_fn`` / ``gain_fn`` closures receive the merged view ``(vs, vsnap,
+cand, ...)`` and derive every per-replica value from it (broker, partition
+and disk tensors -- bands, limits, merged counts -- may be captured: they
+are replicated).  ``cols`` is this rank's destination-column slice
+(``None`` single-device).  ``src_need`` / ``dst_need`` are replicated: pure
+functions of merged snapshot fields, or one :func:`parallel.spmd.spmd_segment_sum`.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from cruise_control_tpu_torch.analyzer.proposers import (
     topk_segment_argmax,
 )
 from cruise_control_tpu_torch.core.resources import Resource
-from cruise_control_tpu_torch.ops.segments import segment_sums
+from cruise_control_tpu_torch.parallel.spmd import spmd_segment_sum
 
 RoundFn = Callable[..., MoveBatch]
 
@@ -48,6 +57,12 @@ def _bcast(row: torch.Tensor, n: int) -> torch.Tensor:
     return row[None, :].expand(n, row.shape[0])
 
 
+def _c(x: torch.Tensor, cols) -> torch.Tensor:
+    """Restrict a destination-broker-axis tensor to the rank's column slice
+    ``cols`` (``None`` single-device: the tensor passes through)."""
+    return x if cols is None else x[cols]
+
+
 def _zeros_r(state) -> torch.Tensor:
     return torch.zeros(state.num_replicas, dtype=F32, device=state.device)
 
@@ -59,17 +74,17 @@ def offline_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     """Move replicas off dead brokers/disks to rack-safe destinations under
     every capacity limit."""
 
-    def dst_fn(vs, vsnap, cand):
+    def dst_fn(vs, vsnap, cand, cols=None):
         p = vs.replica_partition[cand]
         src_rack = vs.broker_rack[vs.replica_broker[cand]]
-        dst_rack = vs.broker_rack
+        dst_rack = _c(vs.broker_rack, cols)
         occ = vsnap.rack_counts[p][:, dst_rack]
         occ = occ - (src_rack[:, None] == dst_rack[None, :]).to(I32)
         rack_ok = occ == 0
-        load_after = vsnap.broker_load[None, :, :] + vsnap.eff_load[cand][:, None, :]
-        fits = torch.all(load_after <= vsnap.cap_limits[None, :, :], dim=-1)
-        count_ok = (vsnap.replica_counts + 1 <= ctx.constraint.max_replicas_per_broker)[None, :]
-        score = _bcast(-vsnap.util_pct.amax(dim=-1), cand.shape[0])
+        load_after = _c(vsnap.broker_load, cols)[None, :, :] + vsnap.eff_load[cand][:, None, :]
+        fits = torch.all(load_after <= _c(vsnap.cap_limits, cols)[None, :, :], dim=-1)
+        count_ok = _c(vsnap.replica_counts + 1 <= ctx.constraint.max_replicas_per_broker, cols)[None, :]
+        score = _bcast(_c(-vsnap.util_pct.amax(dim=-1), cols), cand.shape[0])
         return rack_ok & fits & count_ok, score
 
     return shed_round(
@@ -85,8 +100,8 @@ def offline_round_relaxed(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     """Fallback offline repair needing only an alive destination without a
     replica of the partition."""
 
-    def dst_fn(vs, vsnap, cand):
-        score = _bcast(-vsnap.util_pct.amax(dim=-1), cand.shape[0])
+    def dst_fn(vs, vsnap, cand, cols=None):
+        score = _bcast(_c(-vsnap.util_pct.amax(dim=-1), cols), cand.shape[0])
         return torch.ones(score.shape, dtype=torch.bool, device=score.device), score
 
     return shed_round(
@@ -104,13 +119,13 @@ def offline_round_relaxed(state, ctx, snap, prior_mask, salt) -> MoveBatch:
 def rack_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     viol = G.rack_violating_replicas(state, snap)
 
-    def dst_fn(vs, vsnap, cand):
+    def dst_fn(vs, vsnap, cand, cols=None):
         p = vs.replica_partition[cand]
         src_rack = vs.broker_rack[vs.replica_broker[cand]]
-        dst_rack = vs.broker_rack
+        dst_rack = _c(vs.broker_rack, cols)
         occ = vsnap.rack_counts[p][:, dst_rack]
         occ = occ - (src_rack[:, None] == dst_rack[None, :]).to(I32)
-        return occ == 0, _bcast(-_counts_f(vsnap), cand.shape[0])
+        return occ == 0, _bcast(_c(-_counts_f(vsnap), cols), cand.shape[0])
 
     return shed_round(
         state, ctx, snap, prior_mask, salt,
@@ -128,9 +143,9 @@ def replica_capacity_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     max_r = ctx.constraint.max_replicas_per_broker
     src_need = (snap.replica_counts - max_r).to(F32)
 
-    def dst_fn(vs, vsnap, cand):
-        ok = _bcast(vsnap.replica_counts + 1 <= max_r, cand.shape[0])
-        return ok, _bcast(-_counts_f(vsnap), cand.shape[0])
+    def dst_fn(vs, vsnap, cand, cols=None):
+        ok = _bcast(_c(vsnap.replica_counts + 1 <= max_r, cols), cand.shape[0])
+        return ok, _bcast(_c(-_counts_f(vsnap), cols), cand.shape[0])
 
     return shed_round(
         state, ctx, snap, prior_mask, salt,
@@ -171,11 +186,11 @@ def _capacity_move_round(res: int) -> RoundFn:
         max_headroom = torch.max(headroom)
         load = snap.eff_load[:, res]
 
-        def dst_fn(vs, vsnap, cand):
+        def dst_fn(vs, vsnap, cand, cols=None):
             cload = vsnap.eff_load[cand, res]
             n = cand.shape[0]
-            fits = _bcast(vsnap.broker_load[:, res], n) + cload[:, None] <= _bcast(limit, n)
-            return fits, _bcast(-vsnap.util_pct[:, res], n)
+            fits = _bcast(_c(vsnap.broker_load[:, res], cols), n) + cload[:, None] <= _bcast(_c(limit, cols), n)
+            return fits, _bcast(_c(-vsnap.util_pct[:, res], cols), n)
 
         return shed_round(
             state, ctx, snap, prior_mask, salt,
@@ -195,9 +210,9 @@ def replica_dist_shed(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     up = snap.replica_band[1]
     src_need = (snap.replica_counts - up).to(F32)
 
-    def dst_fn(vs, vsnap, cand):
-        ok = _bcast(vsnap.replica_counts + 1 <= up, cand.shape[0])
-        return ok, _bcast(-_counts_f(vsnap), cand.shape[0])
+    def dst_fn(vs, vsnap, cand, cols=None):
+        ok = _bcast(_c(vsnap.replica_counts + 1 <= up, cols), cand.shape[0])
+        return ok, _bcast(_c(-_counts_f(vsnap), cols), cand.shape[0])
 
     return shed_round(
         state, ctx, snap, prior_mask, salt,
@@ -226,13 +241,13 @@ def replica_dist_relieve(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     # near-zero-gain swaps until its round cap
     min_gain = 1e-3 * snap.cap_limits[:, Resource.DISK]
 
-    def gain_fn(vs, vsnap, r_out, partner):
+    def gain_fn(vs, vsnap, r_out, partner, cols=None):
         e_out = vsnap.eff_load[r_out, Resource.DISK]
         e_in = vsnap.eff_load[partner, Resource.DISK]
         net = e_out[:, None] - e_in[None, :]
         src = vs.replica_broker[r_out]
         # heavy replicas land on count-healthy brokers only
-        return (net > min_gain[src][:, None]) & (counts >= lo)[None, :], net
+        return (net > min_gain[src][:, None]) & _c(counts >= lo, cols)[None, :], net
 
     return swap_round(
         state, ctx, snap, prior_mask, salt,
@@ -278,15 +293,15 @@ def potential_nw_out_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     headroom = torch.where(snap.dest_ok, limit - snap.potential_nw_out, NEG)
     max_headroom = torch.max(headroom)
 
-    def dst_fn(vs, vsnap, cand):
+    def dst_fn(vs, vsnap, cand, cols=None):
         lnw = (
             vs.base_load[cand, Resource.NW_OUT]
             + vs.leadership_delta[vs.replica_partition[cand], Resource.NW_OUT]
         )
         n = cand.shape[0]
-        fits = _bcast(vsnap.potential_nw_out, n) + lnw[:, None] <= _bcast(limit, n)
+        fits = _bcast(_c(vsnap.potential_nw_out, cols), n) + lnw[:, None] <= _bcast(_c(limit, cols), n)
         cap = torch.clamp(vs.broker_capacity[:, Resource.NW_OUT], min=1e-9)
-        return fits, _bcast(-(vsnap.potential_nw_out / cap), n)
+        return fits, _bcast(_c(-(vsnap.potential_nw_out / cap), cols), n)
 
     return shed_round(
         state, ctx, snap, prior_mask, salt,
@@ -329,11 +344,11 @@ def _dist_shed_round(res: int) -> RoundFn:
         headroom = torch.where(snap.dest_ok, upper - snap.broker_load[:, res], NEG)
         max_headroom = torch.max(headroom)
 
-        def dst_fn(vs, vsnap, cand):
+        def dst_fn(vs, vsnap, cand, cols=None):
             cload = vsnap.eff_load[cand, res]
             n = cand.shape[0]
-            fits = _bcast(vsnap.broker_load[:, res], n) + cload[:, None] <= _bcast(upper, n)
-            return fits, _bcast(-vsnap.util_pct[:, res], n)
+            fits = _bcast(_c(vsnap.broker_load[:, res], cols), n) + cload[:, None] <= _bcast(_c(upper, cols), n)
+            return fits, _bcast(_c(-vsnap.util_pct[:, res], cols), n)
 
         return shed_round(
             state, ctx, snap, prior_mask, salt,
@@ -387,12 +402,12 @@ def _swap_shed_round(res: int, capacity_bound: bool) -> RoundFn:
             src_need = torch.where(snap.low_util[res], 0.0, snap.broker_load[:, res] - bound)
         load = snap.eff_load[:, res]
 
-        def gain_fn(vs, vsnap, r_out, partner):
+        def gain_fn(vs, vsnap, r_out, partner, cols=None):
             e_out = vsnap.eff_load[r_out, res][:, None]
             e_in = vsnap.eff_load[partner, res][None, :]
             gain = e_out - e_in                       # net load shed from the source
-            dst_after = vsnap.broker_load[:, res][None, :] + gain
-            return (gain > 0.0) & (dst_after <= bound[None, :]), gain
+            dst_after = _c(vsnap.broker_load[:, res], cols)[None, :] + gain
+            return (gain > 0.0) & (dst_after <= _c(bound, cols)[None, :]), gain
 
         return swap_round(
             state, ctx, snap, prior_mask, salt,
@@ -426,10 +441,11 @@ def topic_dist_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     r_excess = excess[state.replica_broker, topic]
     src_need = torch.where(state.broker_alive, excess.amax(dim=1), 0.0)
 
-    def dst_fn(vs, vsnap, cand):
+    def dst_fn(vs, vsnap, cand, cols=None):
         t = vs.partition_topic[vs.replica_partition[cand]]
-        ok = bt[:, t].T + 1 <= tup[t][:, None]
-        return ok, -bt[:, t].T.to(F32)
+        btc = _c(bt, cols)
+        ok = btc[:, t].T + 1 <= tup[t][:, None]
+        return ok, -btc[:, t].T.to(F32)
 
     return shed_round(
         state, ctx, snap, prior_mask, salt,
@@ -516,10 +532,10 @@ def min_topic_leaders_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     )
 
 
-def _count_per_broker(state, mask: torch.Tensor) -> torch.Tensor:
-    """f32[B]: rows of ``mask`` per broker (an exact integer count)."""
-    (n,) = segment_sums([mask], state.replica_broker, state.num_brokers)
-    return n.to(F32)
+def _count_per_broker(state, snap, mask: torch.Tensor) -> torch.Tensor:
+    """f32[B]: rows of ``mask`` per broker (an exact integer count), merged
+    over the ranks when the replica axis is sharded."""
+    return spmd_segment_sum(snap.spmd, mask, state.replica_broker, state.num_brokers).to(F32)
 
 
 # -- JBOD intra-broker goals --------------------------------------------------------
@@ -580,6 +596,11 @@ def intra_disk_dist_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
 def preferred_leader_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     """PreferredLeaderElectionGoal: transfer leadership back to each
     partition's replica-list head where that head can take it."""
+    if snap.spmd is not None:
+        raise NotImplementedError(
+            "PreferredLeaderElectionGoal reads replica rows at preferred-leader ids; "
+            "ShardedGoalOptimizer routes such goal lists to its gather path"
+        )
     B = state.num_brokers
     dev = state.device
     k = ctx.top_k
@@ -596,7 +617,7 @@ def preferred_leader_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     )
     idx = torch.arange(state.num_replicas, dtype=I32, device=dev)
     wrong = snap.is_leader & pref_usable & (pref_of_r != idx) & snap.leader_movable
-    src_need = _count_per_broker(state, wrong)
+    src_need = _count_per_broker(state, snap, wrong)
     cands = topk_segment_argmax(_zeros_r(state), state.replica_broker, B, wrong, k)
     cand = cands.reshape(-1)
     valid = cand >= 0
@@ -622,18 +643,18 @@ def rack_dist_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     occ_r = snap.rack_counts[p_of_r, state.broker_rack[state.replica_broker]]
     viol = state.replica_valid & (occ_r > fair[p_of_r])
 
-    def dst_fn(vs, vsnap, cand):
+    def dst_fn(vs, vsnap, cand, cols=None):
         p = vs.replica_partition[cand]
         src_rack = vs.broker_rack[vs.replica_broker[cand]]
-        dst_rack = vs.broker_rack
+        dst_rack = _c(vs.broker_rack, cols)
         occ = vsnap.rack_counts[p][:, dst_rack]
         occ = occ - (src_rack[:, None] == dst_rack[None, :]).to(I32)
-        score = -occ.to(F32) - 1e-3 * _counts_f(vsnap)[None, :]
+        score = -occ.to(F32) - 1e-3 * _c(_counts_f(vsnap), cols)[None, :]
         return occ + 1 <= fair[p][:, None], score
 
     return shed_round(
         state, ctx, snap, prior_mask, salt,
-        src_need=_count_per_broker(state, viol),
+        src_need=_count_per_broker(state, snap, viol),
         cand_score=_zeros_r(state),
         cand_ok=viol & snap.movable,
         dst_fn=dst_fn,
@@ -668,10 +689,10 @@ def broker_set_round(state, ctx, snap, prior_mask, salt) -> MoveBatch:
     have = ctx.broker_set_of_broker[state.replica_broker]
     viol = state.replica_valid & (want >= 0) & (have != want)
 
-    def dst_fn(vs, vsnap, cand):
+    def dst_fn(vs, vsnap, cand, cols=None):
         want_c = ctx.broker_set_of_topic[vs.partition_topic[vs.replica_partition[cand]]]
-        elig = ctx.broker_set_of_broker[None, :] == want_c[:, None]
-        return elig, _bcast(-vsnap.util_pct.amax(dim=-1), cand.shape[0])
+        elig = _c(ctx.broker_set_of_broker, cols)[None, :] == want_c[:, None]
+        return elig, _bcast(_c(-vsnap.util_pct.amax(dim=-1), cols), cand.shape[0])
 
     return shed_round(
         state, ctx, snap, prior_mask, salt,

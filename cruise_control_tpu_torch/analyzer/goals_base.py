@@ -27,6 +27,7 @@ from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
 from cruise_control_tpu_torch.ops.index import xla_sums
 from cruise_control_tpu_torch.ops.segments import segment_sums
+from cruise_control_tpu_torch.parallel.spmd import global_iota
 
 # -- goal ids (priority-list members) ---------------------------------------------
 
@@ -183,7 +184,7 @@ def rack_violating_replicas(state: ClusterArrays, snap: Snapshot) -> torch.Tenso
     offline replica."""
     rack = state.broker_rack[state.replica_broker]
     group = state.replica_partition * state.num_racks + rack
-    gidx = torch.arange(state.num_replicas, dtype=torch.int32, device=state.device)
+    gidx = global_iota(state, snap.spmd)
     group_size = snap.rack_counts.reshape(-1)[group]
     first = snap.rack_first2[group] // 2
     crowded = (group_size > 1) & (gidx != first) & state.replica_valid
@@ -200,7 +201,16 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
 
 
 def _viol_rack_aware(state, ctx, snap):
-    return _count(rack_violating_replicas(state, snap))
+    if snap.spmd is None:
+        return _count(rack_violating_replicas(state, snap))
+    # sharded: counted from the MERGED group tables instead of a second merge
+    # over the per-replica mask.  |crowded | offline| = sum over groups of
+    # max(size - 1, 0), plus the groups whose first member is offline: the
+    # same integer (every offline non-first member is crowded already)
+    crowded = torch.clamp(snap.rack_counts.reshape(-1) - 1, min=0).sum(dtype=torch.int32)
+    first2 = snap.rack_first2
+    first_off = ((first2 < C._BIG) & (first2 % 2 == 1)).sum(dtype=torch.int32)
+    return (crowded + first_off).to(torch.float32)
 
 
 def _viol_replica_capacity(state, ctx, snap):
@@ -276,9 +286,18 @@ def _viol_topic_leader_dist(state, ctx, snap):
     return _count((snap.topic_leader_counts > lt_up[None, :]) & state.broker_alive[:, None])
 
 
+def _refuse_sharded(snap, what: str) -> None:
+    if snap.spmd is not None:
+        raise NotImplementedError(
+            f"{what} reads replica rows outside the merged candidate tables; "
+            "ShardedGoalOptimizer routes such goal lists to its gather path"
+        )
+
+
 def _viol_preferred_leader(state, ctx, snap):
     # partitions not led by their replica-list head while the head sits on an
     # alive broker
+    _refuse_sharded(snap, "PreferredLeaderElectionGoal")
     pref = snap.preferred_leader
     pref_ok = (pref >= 0) & state.broker_alive[state.replica_broker[torch.clamp(pref, min=0)]]
     return _count(pref_ok & (state.partition_leader != pref))
@@ -293,6 +312,9 @@ def _viol_rack_dist(state, ctx, snap):
 
 
 def _viol_broker_set(state, ctx, snap):
+    if snap.spmd is not None:
+        # already merged per broker in the snapshot's merge
+        return snap.broker_set_need.sum()
     want = ctx.broker_set_of_topic[state.partition_topic[state.replica_partition]]
     have = ctx.broker_set_of_broker[state.replica_broker]
     return _count(state.replica_valid & (want >= 0) & (have != want))
@@ -357,6 +379,7 @@ def assigner_position_unevenness(
 
 
 def _viol_assigner_rack(state, ctx, snap):
+    _refuse_sharded(snap, "KafkaAssignerEvenRackAwareGoal")
     # rack validity of the replicas the mode may move, the even-placement
     # objective over the brokers it may place on (excluded topics' replicas
     # still count in the per-position totals), and replicas stranded outside
@@ -374,6 +397,7 @@ def _viol_assigner_rack(state, ctx, snap):
 
 
 def _viol_assigner_disk(state, ctx, snap):
+    _refuse_sharded(snap, "KafkaAssignerDiskUsageDistributionGoal")
     # brokers whose disk utilization leaves [mean (1 - m), mean (1 + m)],
     # m = (balance threshold - 1) * margin, mean = total load / total capacity
     # over alive brokers (summed in the JAX reference's order); 0 when disk

@@ -1,11 +1,16 @@
 """Batched balancing actions and round admission.
 
-Port of ``cruise_control_tpu/analyzer/moves.py`` (single device).  A
+Port of ``cruise_control_tpu/analyzer/moves.py``.  A
 :class:`MoveBatch` is a fixed-shape batch of K candidate actions of one kind;
 invalid slots carry ``replica == -1``.  Admission keeps at most one action per
 partition per round and checks per-broker budgets against score-ordered
 cumulative deltas, so many actions per broker can land in one round while
 each stays acceptable to every prior goal.  Swaps keep one action per broker.
+
+Under the sharded solver a batch also carries its replicated candidate-row
+table (``rows``, :class:`parallel.spmd.ReplicaRows`) and each slot's position
+in it: the slot pipeline reads the table through :func:`batch_views`, and
+:func:`apply_moves` writes only the rows this rank owns.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
-from cruise_control_tpu_torch.ops.index import cumsum, segment_max, segment_min
+from cruise_control_tpu_torch.ops.index import cumsum, scatter_set, segment_max, segment_min
 
 I32 = torch.int32
 F32 = torch.float32
@@ -48,6 +53,12 @@ class MoveBatch:
     #: i32 0-d: rotating source windows this round's cap spans; the phase loop
     #: needs that many zero-move rounds in a row before it declares convergence
     windows: Optional[torch.Tensor] = None
+    #: sharded solver: the replicated candidate-row table the replica /
+    #: dst_replica ids were drawn from and each slot's position in it (-1: a
+    #: hole).  None single-device: consumers gather from the replica axis.
+    rows: Optional[object] = None
+    view_replica: Optional[torch.Tensor] = None
+    view_dst_replica: Optional[torch.Tensor] = None
 
     @property
     def num_slots(self) -> int:
@@ -76,23 +87,39 @@ class MoveEffects:
     valid: torch.Tensor        # bool[K]
 
 
+def batch_views(state: ClusterArrays, snap, moves: MoveBatch):
+    """``(vs, vsnap, r_ids, rb_ids)``: the replica axis this batch's slot ids
+    index.  Single-device the real state and snapshot with the global ids;
+    sharded the surrogate whose replica axis is the batch's row table, with
+    the slot ids translated to table positions."""
+    if moves.rows is None:
+        return state, snap, moves.replica, moves.dst_replica
+    from cruise_control_tpu_torch.parallel.spmd import surrogate_views
+
+    vs, vsnap = surrogate_views(state, snap, moves.rows)
+    return vs, vsnap, moves.view_replica, moves.view_dst_replica
+
+
 def move_effects(state: ClusterArrays, moves: MoveBatch, snap=None) -> MoveEffects:
     """Per-broker load/count deltas of each candidate action.  A moved replica
     carries its effective load (base + is_leader * delta); a leadership move
-    carries the partition's leadership delta."""
+    carries the partition's leadership delta.  ``snap`` supplies the round's
+    effective loads and, sharded, the candidate-row view."""
     if snap is None:
         eff = A.effective_load(state)
         lead = A.is_leader(state)
+        r_ids, rb_ids = moves.replica, moves.dst_replica
     else:
+        state, snap, r_ids, rb_ids = batch_views(state, snap, moves)
         eff = snap.eff_load
         lead = snap.is_leader
     ok = moves.replica >= 0
-    r = torch.where(ok, moves.replica, 0)
+    r = torch.where(ok, r_ids, 0)
     p = state.replica_partition[r]
     src = state.replica_broker[r]
     kind = moves.kind
     has_partner = moves.dst_replica >= 0
-    rb = torch.where(has_partner, moves.dst_replica, 0)
+    rb = torch.where(has_partner, rb_ids, 0)
     ldelta = state.leadership_delta[p]
     zero_f = torch.zeros_like(ldelta)
 
@@ -263,6 +290,7 @@ def admit(
 
     if eff is None:
         eff = move_effects(state, moves, snap)
+    vstate, _, r_ids, rb_ids = batch_views(state, snap, moves)
     keep = accepted & eff.valid
     # exactly one action per partition per round (partition-level invariants)
     keep = _keep_best_per_key(keep, eff.partition, moves.score, state.num_partitions)
@@ -272,7 +300,7 @@ def admit(
         nd = max(state.num_disks, 1)
         dd = torch.where(keep, moves.dst_disk, 0)
         keep = _keep_best_per_key(keep, dd, moves.score, nd)
-        src_disk = state.replica_disk[torch.where(keep, moves.replica, 0)]
+        src_disk = vstate.replica_disk[torch.where(keep, r_ids, 0)]
         sd = torch.where(keep & (src_disk >= 0), src_disk, 0)
         return _keep_best_per_key(keep, sd, moves.score, nd)
 
@@ -281,7 +309,7 @@ def admit(
         # acceptance against the pre-round snapshot exact
         k2 = _keep_best_per_key(keep, eff.dst_broker, moves.score, state.num_brokers)
         k2 = _keep_best_per_key(k2, eff.src_broker, moves.score, state.num_brokers)
-        dst_part = state.replica_partition[torch.where(moves.dst_replica >= 0, moves.dst_replica, 0)]
+        dst_part = vstate.replica_partition[torch.where(moves.dst_replica >= 0, rb_ids, 0)]
         return _keep_best_per_key(k2, dst_part, moves.score, state.num_partitions)
 
     if admit_mask is None:
@@ -310,17 +338,49 @@ def resolve_conflicts(
     return keep
 
 
-def apply_moves(state: ClusterArrays, moves: MoveBatch, keep: torch.Tensor) -> ClusterArrays:
-    """Apply the surviving slots as batched scatters."""
+def apply_moves(state: ClusterArrays, moves: MoveBatch, keep: torch.Tensor, spmd=None) -> ClusterArrays:
+    """Apply the surviving slots as batched scatters.
+
+    Sharded (``spmd``): the ids are global and each rank applies only the
+    updates that land in its own rows, with no communication; the
+    partition-axis update (``partition_leader``) is replicated and reads
+    every replica attribute from the batch's row table, so all ranks write
+    the same values.  A negative index wraps in a PyTorch (and a JAX
+    ``mode="drop"``) scatter, so an id owned by a lower rank, negative after
+    the offset shift, is sent out of range explicitly."""
     sel = torch.where(keep, moves.replica, -1)
+    if spmd is None:
+        sel_local = sel
+    else:
+        sel_local = torch.where(sel >= 0, sel - spmd.offset(), -1)
     if moves.dst_disk is not None:
-        return A.relocate_replica_disks(state, sel, moves.dst_disk)
+        return A.relocate_replica_disks(state, sel_local, moves.dst_disk)
     if moves.kind == KIND_REPLICA_MOVE:
-        return A.relocate_replicas(state, sel, moves.dst_broker)
+        return A.relocate_replicas(state, sel_local, moves.dst_broker)
     if moves.kind == KIND_LEADERSHIP:
-        p = torch.where(sel >= 0, state.replica_partition[torch.clamp(sel, min=0)], -1)
+        if moves.rows is None:
+            p = torch.where(sel >= 0, state.replica_partition[torch.clamp(sel, min=0)], -1)
+        else:
+            p = torch.where(sel >= 0, moves.rows.partition[torch.clamp(moves.view_replica, min=0)], -1)
         return A.relocate_leadership(state, p, moves.dst_replica)
     if moves.kind == KIND_SWAP:
         partner = torch.where(keep, moves.dst_replica, -1)
-        return A.swap_replicas(state, sel, partner)
+        if moves.rows is None:
+            return A.swap_replicas(state, sel, partner)
+        # each endpoint's NEW broker comes from the row table; both scatters
+        # write owner-local rows only
+        ok = (sel >= 0) & (partner >= 0)
+        n = state.num_replicas
+        ba = moves.rows.broker[torch.clamp(moves.view_replica, min=0)]
+        bb = moves.rows.broker[torch.clamp(moves.view_dst_replica, min=0)]
+        off = spmd.offset() if spmd is not None else 0
+        la = sel - off
+        lb = partner - off
+        sa = torch.where(ok & (la >= 0), la, n)
+        sb = torch.where(ok & (lb >= 0), lb, n)
+        brokers = scatter_set(state.replica_broker, sa, bb)
+        brokers = scatter_set(brokers, sb, ba)
+        disks = scatter_set(state.replica_disk, sa, -1)
+        disks = scatter_set(disks, sb, -1)
+        return state.replace(replica_broker=brokers, replica_disk=disks)
     raise ValueError(f"apply_moves: unknown move kind {moves.kind}")

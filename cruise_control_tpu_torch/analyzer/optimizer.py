@@ -350,7 +350,7 @@ def _np_mask(ids: Tuple[int, ...]) -> np.ndarray:
 def _phase_loop(
     state: ClusterArrays, ctx: GoalContext, *, round_fn: Callable, max_rounds: int,
     enable_heavy: bool, prior_ids: Tuple[int, ...], admit_ids: Tuple[int, ...],
-    needs: frozenset, syncs: HostSyncs,
+    needs: frozenset, syncs: HostSyncs, spmd=None,
 ) -> Tuple[ClusterArrays, int, int]:
     """Drive one round type to convergence: ``(state, rounds, moves)``.
 
@@ -359,19 +359,27 @@ def _phase_loop(
     salts the proposers' tie-breaking; ``needs`` names the optional snapshot
     groups the rounds read.  With capped sources a zero-move round
     only proves its window stuck, so the phase stops after as many zero-move
-    rounds in a row as the batch reports rotation ``windows``."""
+    rounds in a row as the batch reports rotation ``windows``.
+
+    ``spmd`` (parallel.spmd.SpmdInfo) runs the body on this rank's block of
+    the replica axis: the snapshot merges its reductions in one fold over
+    the ranks (and one min merge where a goal needs the per-group firsts),
+    the proposers merge candidates through the rank mesh, the
+    slot pipeline runs replicated on the row table and the apply writes
+    owner-local rows.  The round's move count and windows come from
+    replicated tensors, so every rank takes the same host-side decisions."""
     prior_mask = _np_mask(prior_ids)
     admit_mask = _np_mask(admit_ids)
     it = total = streak = 0
     windows = 1
     while streak < windows and it < max_rounds:
-        snap = take_snapshot(state, ctx, enable_heavy, needs)
+        snap = take_snapshot(state, ctx, enable_heavy, needs, spmd)
         moves = round_fn(state, ctx, snap, prior_mask, it)
         eff = move_effects(state, moves, snap)
         ok = moves.valid & accept_all(state, ctx, snap, moves, eff, prior_mask)
         keep = admit(state, ctx, snap, moves, ok, eff, admit_mask)
         n_t = keep.sum(dtype=torch.int32)
-        state = apply_moves(state, moves, keep)
+        state = apply_moves(state, moves, keep, spmd)
         w_t = moves.windows if moves.windows is not None else torch.ones_like(n_t)
         n, windows = syncs.tolist(torch.stack([n_t, w_t.to(torch.int32)]))
         streak = 0 if n > 0 else streak + 1
@@ -382,13 +390,13 @@ def _phase_loop(
 
 def _goal_step_fn(
     state: ClusterArrays, ctx: GoalContext, *, gid: int, round_fns, max_rounds: int,
-    enable_heavy: bool, prior_ids, admit_ids, syncs: HostSyncs,
+    enable_heavy: bool, prior_ids, admit_ids, syncs: HostSyncs, spmd=None,
 ):
     """One goal: its round-type phases cycled until a pass applies nothing
     (or MAX_GOAL_PASSES), plus its own violation count before and after
     (0-d tensors, left on the device)."""
     needs = G.goal_snapshot_needs(gid) | G.prior_acceptance_needs(prior_ids)
-    snap0 = take_snapshot(state, ctx, enable_heavy, needs)
+    snap0 = take_snapshot(state, ctx, enable_heavy, needs, spmd)
     before = G.violations_one(gid, state, ctx, snap0)
     rounds = moves = 0
     pass_moves, passes = 1, 0
@@ -400,13 +408,13 @@ def _goal_step_fn(
         for fn in round_fns:
             state, r, m = _phase_loop(
                 state, ctx, round_fn=fn, max_rounds=max_rounds, enable_heavy=enable_heavy,
-                prior_ids=prior_ids, admit_ids=admit_ids, needs=needs, syncs=syncs,
+                prior_ids=prior_ids, admit_ids=admit_ids, needs=needs, syncs=syncs, spmd=spmd,
             )
             rounds += r
             moves += m
             pass_moves += m
         passes += 1
-    snap1 = take_snapshot(state, ctx, enable_heavy, needs)
+    snap1 = take_snapshot(state, ctx, enable_heavy, needs, spmd)
     after = G.violations_one(gid, state, ctx, snap1)
     return state, rounds, moves, before, after
 
@@ -436,8 +444,8 @@ def _max_replication_factor(state: ClusterArrays, syncs: HostSyncs) -> int:
     return max(syncs.tolist(rf.amax()) if rf.numel() else 0, 1)
 
 
-def _violations_fn(state: ClusterArrays, ctx: GoalContext, enable_heavy: bool = False, subset=None):
-    snap = take_snapshot(state, ctx, enable_heavy, G.violation_needs(subset))
+def _violations_fn(state: ClusterArrays, ctx: GoalContext, enable_heavy: bool = False, subset=None, spmd=None):
+    snap = take_snapshot(state, ctx, enable_heavy, G.violation_needs(subset), spmd)
     return G.violations_all(state, ctx, snap, subset=subset)
 
 
@@ -486,6 +494,11 @@ class GoalOptimizer:
     (:337-344).  ``device`` is where the solve runs: ``cuda`` unless
     ``device="cpu"`` is passed; with no GPU and no explicit CPU it raises.
     """
+
+    #: the rank mesh of a sharded solve (``parallel.solver``); None here
+    mesh = None
+    #: the replica-axis sharding of the solve in progress (parallel.spmd.SpmdInfo)
+    _spmd = None
 
     def __init__(
         self,
@@ -551,6 +564,11 @@ class GoalOptimizer:
             return min(self.max_rounds_per_phase, FAST_MODE_MAX_ROUNDS)
         return self.max_rounds_per_phase
 
+    def _whole(self, state: ClusterArrays) -> ClusterArrays:
+        """The whole state of a solve in progress (a sharded solve gathers
+        its ranks' blocks; single-device the state is whole already)."""
+        return state
+
     def _offline_repair(
         self, state: ClusterArrays, ctx: GoalContext, max_rounds: int, syncs: HostSyncs
     ) -> ClusterArrays:
@@ -561,7 +579,7 @@ class GoalOptimizer:
             state, _, _ = _phase_loop(
                 state, ctx, round_fn=fn, max_rounds=max_rounds,
                 enable_heavy=self.enable_heavy_goals, prior_ids=(), admit_ids=aids,
-                needs=frozenset(), syncs=syncs,
+                needs=frozenset(), syncs=syncs, spmd=self._spmd,
             )
         return state
 
@@ -580,7 +598,7 @@ class GoalOptimizer:
         state, rounds, moves, before, after = _goal_step_fn(
             state, ctx, gid=gid, round_fns=GOAL_ROUNDS[gid], max_rounds=max_rounds,
             enable_heavy=self.enable_heavy_goals, prior_ids=prior, admit_ids=prior + (gid,),
-            syncs=syncs,
+            syncs=syncs, spmd=self._spmd,
         )
         return state, rounds, moves, before, after, None
 
@@ -638,9 +656,11 @@ class GoalOptimizer:
         t0 = time.monotonic()
         syncs = HostSyncs()
         heavy = self.enable_heavy_goals
+        spmd = self._spmd
         initial = state
-        viol0 = _violations_fn(state, ctx, heavy, self.goal_ids)
-        stats_before = S.cluster_model_stats(state)
+        viol0 = _violations_fn(state, ctx, heavy, self.goal_ids, spmd)
+        initial_whole = self._whole(initial)
+        stats_before = S.cluster_model_stats(initial_whole)
 
         max_rounds = self._max_rounds(ctx)
         state = self._offline_repair(state, ctx, max_rounds, syncs)
@@ -660,7 +680,7 @@ class GoalOptimizer:
                     break
                 g0 = time.monotonic()
                 s0 = syncs.count
-                max_rf = _max_replication_factor(initial, syncs) if gid == G.KAFKA_ASSIGNER_RACK else 1
+                max_rf = _max_replication_factor(initial_whole, syncs) if gid == G.KAFKA_ASSIGNER_RACK else 1
                 state, rounds, moves, before, after, unassigned_t = self._run_goal(
                     gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
                 )
@@ -700,7 +720,7 @@ class GoalOptimizer:
             )
             raise
 
-        violN = _violations_fn(state, ctx, heavy, self.goal_ids)
+        violN = _violations_fn(state, ctx, heavy, self.goal_ids, spmd)
         # one bulk fetch of every per-goal scalar
         scalars = [viol0, violN] + [torch.stack([b, a]) for _, b, a, _, _, _, _ in raw]
         fetched = syncs.tolist(torch.cat(scalars))
@@ -729,7 +749,8 @@ class GoalOptimizer:
         violated_hard = [
             names[g] for g in self.hard_ids if g in self.goal_ids and violN_h[g] > 0
         ]
-        initial_h = syncs.state(initial)
+        state = self._whole(state)
+        initial_h = syncs.state(initial_whole)
         final_h = syncs.state(state)
         provision = provision_verdict(final_h, ctx, violated_hard)
         proposals: List[ExecutionProposal] = []
@@ -805,7 +826,7 @@ class GoalOptimizer:
                 "num_replicas": state.num_replicas,
                 "movement": dataclasses.asdict(result.movement),
                 "cost": PROFILER.cost_since(cost_mark),
-                **obs.mesh_metadata(self.device),
+                **obs.mesh_metadata(self.device, self.mesh),
             },
             device=self.device,
         )

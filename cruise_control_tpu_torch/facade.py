@@ -338,8 +338,9 @@ class CruiseControl:
         (``sim.batch.fast_sweep``) — as-is violations, balancedness,
         satisfiability, movement floor.  ``deep=True``: a full
         ``GoalOptimizer.optimize`` per scenario (``sim.batch.deep_sweep``) —
-        post-rebalance verdicts and the real movement bill.  ``mesh`` is
-        the JAX signature's scenario sharding; the port takes only None."""
+        post-rebalance verdicts and the real movement bill.  ``mesh`` (a
+        ``parallel.mesh.Mesh``, called on every rank) shards the fast
+        sweep's scenario axis over the ranks."""
         from cruise_control_tpu_torch.sim import batch as sim_batch
 
         model = self.cluster_model()

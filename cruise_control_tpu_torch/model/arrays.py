@@ -167,14 +167,20 @@ def potential_nw_out(state: ClusterArrays) -> torch.Tensor:
     return _segment_sum(leader_nw_out, state.replica_broker, state.num_brokers)
 
 
+def disk_load_terms(state: ClusterArrays):
+    """``(du f32[R], disk i32[R])``: each replica's disk use and the logdir
+    it adds to in :func:`disk_load` (replicas off any logdir add 0 to disk 0)."""
+    du = torch.where(state.replica_valid, state.base_load[:, Resource.DISK], 0.0)
+    on_disk = state.replica_disk >= 0
+    disk_idx = torch.where(on_disk, state.replica_disk, 0)
+    return torch.where(on_disk, du, 0.0), disk_idx
+
+
 def disk_load(state: ClusterArrays) -> torch.Tensor:
     """f32[D]: disk-space utilization per JBOD logdir."""
     if state.num_disks == 0:
         return torch.zeros((0,), dtype=F32, device=state.device)
-    du = torch.where(state.replica_valid, state.base_load[:, Resource.DISK], 0.0)
-    on_disk = state.replica_disk >= 0
-    disk_idx = torch.where(on_disk, state.replica_disk, 0)
-    du = torch.where(on_disk, du, 0.0)
+    du, disk_idx = disk_load_terms(state)
     return _segment_sum(du, disk_idx, state.num_disks)
 
 

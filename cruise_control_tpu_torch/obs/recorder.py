@@ -379,14 +379,21 @@ def _platform(device=None) -> str:
     return "cuda" if torch.cuda.is_available() else "cpu"
 
 
-def mesh_metadata(device=None) -> dict:
-    """Platform and device facts attached to solver traces."""
+def mesh_metadata(device=None, mesh=None) -> dict:
+    """Platform and device facts attached to solver traces: the JAX keys
+    (``platform``, ``device_count``, ``process_count``), where a sharded
+    solve's ``process_count`` is its rank mesh's world and ``backend`` names
+    the backend that carries its collectives."""
     platform = _platform(device)
-    return {
+    out = {
         "platform": platform,
         "device_count": torch.cuda.device_count() if platform == "cuda" else 1,
         "process_count": 1,
     }
+    if mesh is not None:
+        out["process_count"] = mesh.world
+        out["backend"] = mesh.backend
+    return out
 
 
 def start_trace(kind: str, parent_id: Optional[str] = None) -> dict:

@@ -165,9 +165,9 @@ def _count_sweep(size: int, duration_s: float) -> None:
     REGISTRY.timer(SIM_SWEEP_TIMER).update(duration_s)
 
 
-def _trace_attrs(result: "SweepResult", goal_ids, device) -> dict:
+def _trace_attrs(result: "SweepResult", goal_ids, device, mesh=None) -> dict:
     """A ``"simulate"`` record's attributes, the JAX package's names
-    (``num_dispatches`` carries host syncs; the port has no mesh)."""
+    (``num_dispatches`` carries host syncs)."""
     from cruise_control_tpu_torch.core.sensors import (
         REGISTRY,
         SIM_BUCKET_HITS_COUNTER,
@@ -186,8 +186,8 @@ def _trace_attrs(result: "SweepResult", goal_ids, device) -> dict:
         "bucket_misses_total": REGISTRY.counter(SIM_BUCKET_MISSES_COUNTER).value,
         "num_goals": len(tuple(goal_ids)),
         "deep": result.deep,
-        "sharded": False,
-        **obs.mesh_metadata(device),
+        "sharded": mesh is not None,
+        **obs.mesh_metadata(device, mesh),
     }
 
 
@@ -316,13 +316,20 @@ def fast_sweep(
     ``device="cpu"``): per-scenario violation counts (those of each mutated
     cluster evaluated on its own), balancedness, hard-goal satisfiability,
     the implied minimum broker count and the offline-movement floor.  One
-    host fetch at the end.  ``mesh`` is the JAX signature's scenario-axis
-    sharding; the port has no device mesh yet and takes only ``None``."""
+    host fetch at the end.  ``mesh`` (a :class:`parallel.mesh.Mesh`; call
+    on every rank) shards the scenario axis over the ranks: each evaluates
+    its block of lanes on the mesh's device and one all_gather assembles the
+    results, bit-equal to the unsharded sweep; any other mesh (a JAX
+    device mesh, say) raises ``TypeError``."""
     from cruise_control_tpu_torch.obs import recorder as obs
     from cruise_control_tpu_torch.obs.profiler import PROFILER
+    from cruise_control_tpu_torch.parallel.mesh import Mesh
 
     if mesh is not None:
-        raise NotImplementedError("fast_sweep(mesh=...): the port has no device mesh yet")
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"fast_sweep: mesh must be a parallel.mesh.Mesh (one rank's view of its process "
+                            f"group), not {type(mesh).__name__}")
+        device = mesh.device
     token = obs.start_trace("simulate")
     cost_mark = PROFILER.mark()
     t0 = time.monotonic()
@@ -335,12 +342,18 @@ def fast_sweep(
     )
     hit = _note_shape((
         batch.size, batch.bucket, int(states.disk_broker.shape[-1]), goal_ids, enable_heavy,
+        mesh is not None,
     ))
     build_s = time.monotonic() - t0
     t1 = time.monotonic()
     syncs = HostSyncs()
-    viol = lane_violations(states, ctx, enable_heavy, goal_ids)
-    viol, sat, needed, n_off, off_bytes = host_fetch(syncs, [viol, *_sweep_reductions(states, ctx)])
+    if mesh is None:
+        viol = lane_violations(states, ctx, enable_heavy, goal_ids)
+        viol, sat, needed, n_off, off_bytes = host_fetch(syncs, [viol, *_sweep_reductions(states, ctx)])
+    else:
+        viol, sat, needed, n_off, off_bytes = _sharded_sweep(
+            states, ctx, mesh, batch.size, enable_heavy, goal_ids, syncs
+        )
     sweep_s = time.monotonic() - t1
     result = SweepResult(
         scenarios=_verdicts(batch, goal_ids, hard_ids, viol, sat, needed, n_off, off_bytes),
@@ -357,10 +370,43 @@ def fast_sweep(
             obs.Span("build-batch", "setup", build_s, 0),
             obs.Span("sweep", "sweep", sweep_s, syncs.count),
         ],
-        attrs={**_trace_attrs(result, goal_ids, states.device), "cost": PROFILER.cost_since(cost_mark)},
+        attrs={**_trace_attrs(result, goal_ids, states.device, mesh), "cost": PROFILER.cost_since(cost_mark)},
         device=states.device,
     )
     return result
+
+
+def _sharded_sweep(states: ClusterArrays, ctx: GoalContext, mesh, size: int, enable_heavy, goal_ids, syncs):
+    """The fast sweep's per-lane results with the scenario axis sharded over
+    the ranks: the stack padded to a multiple of the world by repeating lane
+    0, each rank evaluating its contiguous block of lanes (one after
+    another, as unsharded), ONE all_gather of the results (as float64, exact
+    for int32 and float32), the padding trimmed, one host fetch."""
+    pad = (-size) % mesh.world
+    if pad:
+        def pad_leaf(x):
+            return torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))])
+
+        states = states.replace(**{
+            f.name: pad_leaf(getattr(states, f.name))
+            for f in dataclasses.fields(states)
+            if isinstance(getattr(states, f.name), torch.Tensor)
+        })
+    n = (size + pad) // mesh.world
+    block = A.index_arrays(states, slice(mesh.rank * n, (mesh.rank + 1) * n))
+    viol = lane_violations(block, ctx, enable_heavy, goal_ids)
+    cols = [viol, *(t[:, None] for t in _sweep_reductions(block, ctx))]
+    local = torch.cat([c.to(torch.float64) for c in cols], dim=1)
+    merged = mesh.all_gather(local).reshape(-1, local.shape[1])[:size]
+    (table,) = host_fetch(syncs, [merged])
+    G_ = viol.shape[1]
+    return (
+        table[:, :G_].astype(np.float32),
+        table[:, G_] > 0,
+        table[:, G_ + 1].astype(np.int32),
+        table[:, G_ + 2].astype(np.int32),
+        table[:, G_ + 3].astype(np.float32),
+    )
 
 
 def _verdict_from_result(name: str, state: ClusterArrays, result) -> ScenarioVerdict:

@@ -651,3 +651,39 @@ def test_the_entry_point_with_the_card_hidden_exits_naming_the_device(cuda_devic
     assert proc.returncode != 0
     assert "the CUDA device cuda:0 is not available" in proc.stderr
     assert "serving on" not in proc.stdout
+
+
+# -- the sharded solver on the card -------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_sharded_mesh8_on_the_card_equals_the_cpu_port(cuda_device):
+    """The smoke's mesh8 step (the gate's 16-goal workload) on 4 ranks
+    sharing the card over gloo and on 4 gloo ranks on the CPU port: every
+    rank's placements, leaders, proposals, violations and balancedness
+    identical on both sides and equal to the single-device card solve (the
+    step raises otherwise)."""
+    import chip_smoke as SM
+    from cruise_control_tpu_torch.ops import _build
+
+    _build.build_all(["segment_sum"])
+    card, cpu = SM.mesh8_card_vs_cpu(cuda_device, ranks=4)
+    assert all(r["backend"] == "gloo" and r["use_spmd"] for r in card)
+    for c, h in zip(card, cpu):
+        assert c["solution"] == h["solution"]
+        assert c["launches"]["segment_sum_f32"] > 0 and c["launches"]["segment_sum_i32"] > 0
+
+
+@pytest.mark.cuda
+def test_run_ranks_raises_when_a_card_rank_fails(cuda_device):
+    """A rank that raises while its peer waits in a collective on the card:
+    ``run_ranks`` stops the peer and raises within its limit, not hangs."""
+    import time
+
+    import chip_smoke as SM
+    from cruise_control_tpu_torch.parallel import run_ranks
+
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
+        run_ranks(SM.failing_rank, 2, device="cuda", timeout_s=120)
+    assert time.monotonic() - t0 < 90

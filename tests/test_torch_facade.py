@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import backend_placement, seed_fake_backend
+from chip_smoke import backend_placement
 from cruise_control_tpu import facade as JF
 from cruise_control_tpu.analyzer import goals_base as JG
 from cruise_control_tpu.backend import FakeClusterBackend as JFake
@@ -26,12 +26,8 @@ from cruise_control_tpu.monitor import LoadMonitor as JLoadMonitor
 from cruise_control_tpu.monitor import StaticCapacityResolver as JStatic
 from cruise_control_tpu.obs import RECORDER as JRECORDER
 from cruise_control_tpu_torch import facade as PF
-from cruise_control_tpu_torch.backend import FakeClusterBackend
-from cruise_control_tpu_torch.core.resources import Resource
-from cruise_control_tpu_torch.executor import Executor
-from cruise_control_tpu_torch.monitor import BackendMetricSampler, LoadMonitor, StaticCapacityResolver
 from cruise_control_tpu_torch.obs import RECORDER
-from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+from tests import torch_parallel_tasks as T
 from tests.torch_port_helpers import assert_fields_same, assert_keys_superset
 
 WINDOW_MS = 60_000
@@ -43,29 +39,15 @@ SPEC = dict(
     mean_cpu=0.2, mean_disk=0.25, mean_nw_in=0.15, mean_nw_out=0.15, seed=5,
 )
 SIDES = {
-    "jax": (JFake, JSampler, JStatic, JLoadMonitor, JExecutor, JF.CruiseControl, JResource, {}),
-    "port": (FakeClusterBackend, BackendMetricSampler, StaticCapacityResolver, LoadMonitor, Executor,
-             PF.CruiseControl, Resource, {"device": "cpu"}),
+    "jax": ((JFake, JSampler, JStatic, JLoadMonitor, JExecutor, JF.CruiseControl, JResource), {}),
+    "port": (T.port_facade_classes(), {"device": "cpu"}),
 }
+HARD = tuple(g for g in GOALS if g in JG.HARD_GOALS)
 
 
 def build(side):
-    fake, sampler, static, monitor_cls, executor_cls, cc_cls, res, kw = SIDES[side]
-    syn = SyntheticSpec(**SPEC)
-    state, maps = generate(syn, device="cpu")
-    backend = seed_fake_backend(fake(metric_interval_ms=WINDOW_MS // 2), state, maps, syn.num_racks)
-    capacity = {res.CPU: syn.capacity_cpu, res.NW_IN: syn.capacity_nw_in,
-                res.NW_OUT: syn.capacity_nw_out, res.DISK: syn.capacity_disk}
-    monitor = monitor_cls(backend, sampler(backend), static(capacity), num_windows=3, window_ms=WINDOW_MS)
-    executor = executor_cls(backend, progress_check_interval_s=0.001,
-                            pause_sampling=monitor.pause_sampling, resume_sampling=monitor.resume_sampling)
-    cc = cc_cls(backend, monitor, executor, goal_ids=GOALS,
-                hard_ids=tuple(g for g in GOALS if g in JG.HARD_GOALS), **kw)
-    cc.start()
-    start = 28_000_000 * WINDOW_MS
-    for w in range(5):
-        monitor.sample_once(now_ms=start + w * WINDOW_MS)
-    return cc
+    classes, kw = SIDES[side]
+    return T.facade_stack(classes, SPEC, GOALS, HARD, WINDOW_MS, kw)
 
 
 def _proposals(res):
@@ -215,8 +197,22 @@ def test_sweeps_and_rollouts_run_through_the_facade_on_its_device():
     cc = build("port")
     sweep = cc.simulate([Scenario(name="as-is"), Scenario(name="x2", load_factor=2.0)])
     assert sweep.sweep_size == 2 and sweep.to_dict()["sweep"]["numDispatches"] == 1
-    with pytest.raises(NotImplementedError):
-        cc.simulate([Scenario(name="as-is")], mesh=object())
+    # the facade hands mesh= to the fast sweep: sharded over 2 gloo ranks
+    # (each rank builds this test's port stack), every rank's verdicts equal
+    # its own unsharded sweep's and the JAX facade's sweep on a 2-device mesh
+    import jax
+
+    from cruise_control_tpu.parallel import solver_mesh as jsolver_mesh
+    from cruise_control_tpu.sim import Scenario as JScenario
+    from cruise_control_tpu_torch.parallel import run_ranks
+
+    factors = (1.0, 2.0, 0.5)
+    runs = run_ranks(T.facade_sweep, 2, device="cpu", args=(SPEC, GOALS, HARD, WINDOW_MS, factors), timeout_s=300)
+    jsweep = build("jax").simulate([JScenario(name=f"x{f}", load_factor=f) for f in factors],
+                                   mesh=jsolver_mesh(jax.devices()[:2]))
+    want = [v.to_dict() for v in jsweep.scenarios]
+    for sharded, whole in runs:
+        assert len(sharded) == 3 and sharded == whole == want
     assert cc.simulate([Scenario(name="as-is")], deep=True).deep
     plan = cc.plan_capacity(load_factor=1.0)
     assert plan.min_brokers is not None

@@ -188,8 +188,8 @@ def test_port_imports_nothing_from_jax_or_the_jax_package():
     assert len(files) > 10
     walked = {p.relative_to(_PKG).parts[0] for p in files if _PKG in p.parents}
     assert {"analyzer", "api", "app.py", "backend", "client", "controller", "core", "detector", "executor",
-            "facade.py", "fleet", "model", "monitor", "obs", "ops", "replication", "sim", "traces",
-            "__main__.py"} <= walked
+            "facade.py", "fleet", "model", "monitor", "obs", "ops", "parallel", "replication", "sim",
+            "traces", "__main__.py"} <= walked
     bad = []
     for path in files:
         for mod in _imported_roots(path):

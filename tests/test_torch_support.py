@@ -442,13 +442,46 @@ def test_unbucketed_optimizer_solves_at_the_exact_broker_count(monkeypatch):
 
 # -- fast_sweep takes the JAX signature's mesh= ---------------------------------------
 
+SWEEP_SPEC = dict(num_brokers=8, num_racks=2, num_topics=2, num_partitions=24, replication_factor=2,
+                  distribution="exponential", skew_brokers=2, seed=3)
+SWEEP_FACTORS = (1.0, 1.5, 3.0)
+
 
 def test_fast_sweep_takes_mesh_none_and_refuses_a_mesh():
+    """``mesh=None`` sweeps on the given device; a mesh that is not the
+    port's rank mesh (here a bare object, as a JAX device mesh would be)
+    raises instead of sweeping unsharded."""
     from cruise_control_tpu_torch.sim import Scenario, fast_sweep
     from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
 
     state, _ = generate(SyntheticSpec(num_brokers=4, num_racks=2, num_topics=2, num_partitions=12), device="cpu")
     res = fast_sweep(state, [Scenario(name="as-is")], mesh=None, device="cpu")
     assert res.sweep_size == 1
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         fast_sweep(state, [Scenario(name="as-is")], mesh=object(), device="cpu")
+
+
+def test_fast_sweep_over_a_mesh_equals_mesh_none_and_the_jax_sweep():
+    """``fast_sweep(mesh=)`` shards the scenario axis over 2 gloo ranks (5
+    scenarios: padded to 6 by repeating scenario 0, the padding trimmed):
+    every rank's verdicts equal ``mesh=None`` and the JAX ``fast_sweep`` on a
+    2-device mesh, exactly."""
+    import jax
+
+    from cruise_control_tpu import sim as JSIM
+    from cruise_control_tpu import synthetic as JS
+    from cruise_control_tpu.analyzer import goals_base as JG
+    from cruise_control_tpu.parallel import solver_mesh
+    from cruise_control_tpu_torch.parallel import run_ranks
+    from tests import torch_parallel_tasks as T
+
+    goals = (JG.RACK_AWARE, JG.REPLICA_CAPACITY, JG.DISK_CAPACITY, JG.DISK_USAGE_DIST)
+    runs = run_ranks(T.sweep, 2, device="cpu", args=(SWEEP_SPEC, SWEEP_FACTORS + (2.0,), goals), timeout_s=300)
+    jbase, _ = JS.generate(JS.SyntheticSpec(**SWEEP_SPEC))
+    scenarios = [JSIM.Scenario(**dataclasses.asdict(s)) for s in T.sweep_scenarios(SWEEP_FACTORS + (2.0,))]
+    jres = JSIM.fast_sweep(jbase, scenarios, goal_ids=goals, mesh=solver_mesh(jax.devices()[:2]))
+    want = [v.to_dict() for v in jres.scenarios]
+    assert len(want) == 5
+    for sharded, whole, syncs in runs:
+        assert sharded == whole == want
+        assert syncs == 1
