@@ -119,7 +119,8 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
 17. replay and harnesses: ``traces.run_replay`` on the JAX replay tests'
    drift storm and quiet trace on the card and the CPU port (every step
    identical but for the host-sync counts), then the controller, fleet and
-   traces bench harnesses once each at their pinned sizes, each card run
+   traces bench harnesses once each at their pinned sizes (the fleet's at 8
+   of its 32 tenants), each card run
    with its own kernel counts; the controller harness's warm-tick host syncs
    are printed beside the JAX dispatch budget, not held to it;
 18. ingest: the config layer, the metrics ingest, the replication and the
@@ -193,7 +194,30 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    (one all_gather, then the single-device solver; equal to the
    single-device solve) and ``fast_sweep(mesh=)`` of 10 scenarios (padded
    to 12), bit-equal to the unsharded sweep;
-25. the total wall with the kernels' build and each phase's wall, the
+25. scale: BASELINE.md config #3 through ``bench_scale.run`` on the card --
+   1,000 brokers (bucket 1,024), 20 racks, 1,000 topics, 100,000
+   partitions, RF 3, seed 11, RackAware and the five capacity goals, the
+   active-broker window of 256 rotating its sources -- cold, then warm:
+   the walls, host syncs, each kernel path's host calls in the warm solve,
+   peak device memory and rounds per goal.  Fails unless the solution
+   equals the committed JAX record (``obs/baselines/SCALE_REFERENCE_config3
+   .json``: moves, per-goal rounds, moves and violations, movement,
+   balancedness, the placement's digest) with no hard violation, and both
+   segment-sum paths launched;
+26. gate: the port's regression gate on the card in its own child
+   processes, ``python -m cruise_control_tpu_torch.obs.gate --device cuda
+   --tiers config1,config2_small,exporter,traces`` against the committed
+   ``GATE_BASELINE_cuda.json`` with ``CC_TPU_GATE_WALL_SLACK`` 3 (walls
+   follow the shared host; host syncs, hard violations, balancedness,
+   builds and recorder drift stay exact); it must exit 0.  Then the
+   controller and fleet tiers' verdicts on phase 17's harness results,
+   printed as findings (their warm ticks breach the JAX dispatch budget:
+   ROADMAP C5);
+27. recovery: ``executor/recovery_bench`` on the card's host -- the JAX
+   script's pinned journal (50 executions, one interrupted, 2,000 user
+   tasks), its counts and its wall against the committed
+   ``BENCH_RECOVERY_cuda.json`` (same slack); it must exit 0;
+28. the total wall with the kernels' build and each phase's wall, the
    ``kernels`` JSON line, the ``nvidia-smi`` line, then the result line.
    ``launches`` and ``host_calls`` are the wrapper's count of host calls in
    phase 4's cold solve (phase 5's P1 for ``even_assign``), ``sim_launches``
@@ -208,7 +232,9 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    ``api_launches`` those of phase 20's requests, ``parallel_launches``
    those of phase 23's cold sharded solve summed over its 4 ranks (each
    rank counted from 0 around its solve) and ``parallel_collectives`` rank
-   0's collectives in that solve;
+   0's collectives in that solve, ``scale_launches`` those of phase 25's
+   warm config #3 solve and ``scale_shapes`` phase 2's times at config
+   #3's shapes;
    ``sim_shape`` and ``traces_shapes`` are phase 2's times at the sweep's and
    the rollout's call shapes; ``kernel_launches`` are the kernels
    those calls enqueued in phase 7's solve (the fixed-order path enqueues
@@ -222,6 +248,7 @@ Needs the CUDA toolkit's ``nvcc`` and one GPU; imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import importlib
 import json
 import os
@@ -454,7 +481,49 @@ def _kernel_cases(gen):
         (f"rollout balancedness: f32 [{TRACE_PAIRS} x 24] -> {TRACE_PAIRS}", "segment_sum_f32",
          [f32(TRACE_PAIRS * 24)], torch.arange(TRACE_PAIRS, dtype=torch.int32).repeat_interleave(24),
          TRACE_PAIRS),
-    ] + _rank_cases(gen, CONFIG2, PARALLEL_RANKS) + _rank_cases(gen, MESH8, MESH8_RANKS, counts=False)
+    ] + (_rank_cases(gen, CONFIG2, PARALLEL_RANKS) + _rank_cases(gen, MESH8, MESH8_RANKS, counts=False)
+         + _scale_cases(gen))
+
+
+#: the label every case at config #3's shapes starts with
+SCALE_CASE = "config #3"
+#: BASELINE.md config #3 (the root bench_scale.py:104-121)
+CONFIG3 = dict(num_racks=20, num_brokers=1000, num_topics=1000, num_partitions=100_000, replication_factor=3)
+
+
+def _scale_cases(gen):
+    """The snapshot's kernel calls at config #3 (``analyzer/context.py``):
+    300,000 replicas into the broker bucket of 1,024 (the load columns alone,
+    and the whole broker call: loads, 2 counted bools, 5 float columns), the
+    topic tables (bucket x topics = 1,024,000 segments) and the rack counts
+    (partitions x racks = 2,000,000)."""
+    from cruise_control_tpu_torch.model.arrays import broker_bucket
+
+    R = CONFIG3["num_partitions"] * CONFIG3["replication_factor"]
+    B = broker_bucket(CONFIG3["num_brokers"])
+    BT, PR = B * CONFIG3["num_topics"], CONFIG3["num_partitions"] * CONFIG3["num_racks"]
+
+    def ids(S):
+        x = torch.randint(0, S, (R,), generator=gen, dtype=torch.int32)
+        x[::997] = -1
+        return x
+
+    def f32(*shape):
+        return torch.empty(shape).exponential_(generator=gen) * 1000.0
+
+    def bits(p):
+        return torch.rand((R,), generator=gen) < p
+
+    rb = ids(B)
+    return [
+        (f"{SCALE_CASE}: bload [{R},4] -> S={B}", "segment_sum_f32", [f32(R, 4)], rb, B),
+        (f"{SCALE_CASE}: snapshot broker call: [{R},4] + 2 bool + 5 f32 -> S={B}", "segment_sum_f32",
+         [f32(R, 4), bits(0.95), bits(0.33), f32(R), f32(R), f32(R), bits(0.05).float(), bits(0.05).float()],
+         rb, B),
+        (f"{SCALE_CASE}: snapshot topic call: 2 bool [{R}] -> S={BT}", "segment_sum_i32",
+         [bits(0.95), bits(0.33)], ids(BT), BT),
+        (f"{SCALE_CASE}: rack counts: bool [{R}] -> S={PR}", "segment_sum_i32", [bits(0.95)], ids(PR), PR),
+    ]
 
 
 #: the label every case of a rank of the sharded solve starts with
@@ -641,12 +710,11 @@ def _valid_placement(state) -> bool:
     )
 
 
-def _solve(spec, device, maps=True):
+def _solve(spec, device):
     from cruise_control_tpu_torch.analyzer import GoalOptimizer
 
     state, ctx, idx_maps = _case(spec, device)
-    opt = GoalOptimizer(enable_heavy_goals=True, device=device)
-    return state, ctx, opt, (idx_maps if maps else None)
+    return state, ctx, GoalOptimizer(enable_heavy_goals=True, device=device), idx_maps
 
 
 def _reset_counts() -> None:
@@ -919,10 +987,16 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
+#: a device event of :func:`_profiled`: kernel or memset name, its time in µs
+DeviceEvent = collections.namedtuple("DeviceEvent", "name device_time_total")
+
+
 def _profiled(fn):
-    """One call of ``fn`` under ``torch.profiler`` (device activity only: the
-    host-op events of ~10^6 launches would take minutes to post-process):
-    ``(its result, wall s, the device events)``."""
+    """One call of ``fn`` under ``torch.profiler`` (device activity only):
+    ``(its result, wall s, the device events)``.  The events are read from
+    the profiler's raw records, with the same names and durations: building
+    its ``FunctionEvent`` list for the ~440,000 kernels of a config #2 solve
+    took most of the profile phase's 96 s on an H100 host (PERF.md §7)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -931,7 +1005,8 @@ def _profiled(fn):
         out = fn()
         torch.cuda.synchronize()
         wall_s = time.monotonic() - t0
-    return out, wall_s, [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return out, wall_s, [DeviceEvent(e.name(), e.duration_ns() / 1e3)
+                         for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
 
 
 def phase_sim(dev, config2_final):
@@ -1134,7 +1209,7 @@ def phase_profile(dev):
     the busy time by."""
     from cruise_control_tpu_torch.ops import segments as SEG
 
-    state, ctx, opt, _ = _solve(CONFIG2, dev, maps=False)
+    state, ctx, opt, _ = _solve(CONFIG2, dev)
     opt.optimize(state, ctx)
     torch.cuda.synchronize()
     SEG.reset_launch_counts()
@@ -2068,6 +2143,9 @@ def phase_detector_card_vs_cpu(dev):
 
 #: the JAX replay tests' traces (tests/test_traces.py::TestReplay)
 REPLAY_STORM = dict(phases=3, hold=3, magnitude=20.0)
+#: the fleet harness's tenants here (its pinned 32 took 57.9 s on an H100,
+#: PERF.md §7; the gate's fleet tier runs all 32)
+REPLAY_FLEET_TENANTS = 8
 REPLAY_QUIET = dict(name="flat", num_steps=6, step_s=60.0)
 
 
@@ -2110,7 +2188,8 @@ def phase_replay_harnesses(dev):
     check(1 <= rows["drift_storm"]["published"] <= REPLAY_STORM["phases"], f"replay: {rows['drift_storm']}")
     check(rows["quiet"]["published"] <= 1, f"replay: the quiet trace published {rows['quiet']['published']}")
     harness = {}
-    for name, run in (("controller", lambda: CB.run_bench(device=dev)), ("fleet", lambda: FB.run_bench(device=dev)),
+    for name, run in (("controller", lambda: CB.run_bench(device=dev)),
+                      ("fleet", lambda: FB.run_bench(num_tenants=REPLAY_FLEET_TENANTS, device=dev)),
                       ("traces", lambda: TB.run_bench(device=dev))):
         t0 = time.monotonic()
         harness[name], launches[f"{name}_harness"] = counted(run)
@@ -2119,13 +2198,13 @@ def phase_replay_harnesses(dev):
         controller_warm_tick_host_syncs=harness["controller"]["warm_tick_host_syncs"],
         controller_dispatch_budget=harness["controller"]["dispatch_budget"], host_calls=launches)
     check(harness["controller"]["published"] == CB.SHIFTS, f"controller harness: {harness['controller']}")
-    check(harness["fleet"]["published"] == FB.NUM_TENANTS * FB.SHIFTS, f"fleet harness: {harness['fleet']}")
+    check(harness["fleet"]["published"] == REPLAY_FLEET_TENANTS * FB.SHIFTS, f"fleet harness: {harness['fleet']}")
     check(harness["traces"]["warm_host_syncs"] == 1, f"traces harness: {harness['traces']}")
     for name, h in harness.items():
         check(h["warm_compile_events"] == 0, f"{name} harness: kernel builds when warm: {h}")
     for name, calls in launches.items():
         check(calls["segment_sum_f32"] > 0, f"{name}: the fixed-order segment sum never launched on the card")
-    return launches, harness["controller"]["reaction_p50_s"]
+    return launches, harness
 
 
 # -- phases 18-19: the metrics ingest, the replication and the self-monitoring --
@@ -3085,6 +3164,73 @@ def phase_parallel_card_vs_cpu(dev):
     )
 
 
+# -- phases 25-27: the scale ladder, the regression gate, the recovery bench ---
+
+#: the gate phase's tiers and its wall slack (walls follow the shared host)
+GATE_TIERS = "config1,config2_small,exporter,traces"
+GATE_WALL_SLACK = "3"
+GATE_TIMEOUT_S = 900
+
+
+def phase_scale(dev):
+    """Config #3's default goal subset through ``bench_scale.run`` on the
+    card, cold then warm, held to the committed JAX record.  Returns the
+    kernel host calls of the warm solve (counted from 0 just before it)."""
+    from cruise_control_tpu_torch import bench_scale
+
+    line, artifact = bench_scale.run(device=dev)
+    with open(bench_scale.reference_path("config3")) as f:
+        reference = json.load(f)
+    diffs = bench_scale.differences(artifact, reference)
+    launches = line["host_calls"]
+    say("scale", workload=line["metric"], cold_wall_s=line["first_run_s"], warm_wall_s=line["value"],
+        host_syncs=line["num_host_syncs"], host_calls=launches, peak_device_mib=line["peak_device_mib"],
+        generate_s=artifact["generate_s"], total_moves=line["total_moves"], total_rounds=line["total_rounds"],
+        balancedness=line["balancedness"], residual_hard_violations=line["residual_hard_violations"],
+        max_active_brokers=artifact["max_active_brokers"], digest=line["digest"],
+        goals=[[r["name"], r["rounds"], r["moves"], r["violations_before"], r["violations_after"]]
+               for r in artifact["goal_reports"]],
+        reference_jax_cpu_wall_s=reference.get("jax_cpu_wall_s"), differences=diffs)
+    check(not diffs, f"scale: config #3 differs from the JAX record: {diffs[:5]}")
+    check(line["residual_hard_violations"] == 0.0, f"scale: {line['residual_hard_violations']} hard violations left")
+    for path in ("segment_sum_f32", "segment_sum_i32"):
+        check(launches[path] > 0, f"scale: {path} never launched in the warm config #3 solve")
+    return launches
+
+
+def phase_gate(dev, harness):
+    """The port's gate on the card over :data:`GATE_TIERS` in its own child
+    processes against the committed card baseline; then the controller and
+    fleet tiers' verdicts on phase 17's harness results."""
+    from cruise_control_tpu_torch.obs import gate
+
+    env = dict(os.environ, CC_TPU_GATE_WALL_SLACK=GATE_WALL_SLACK)
+    proc = subprocess.run(
+        [sys.executable, "-m", "cruise_control_tpu_torch.obs.gate", "--device", str(dev), "--tiers", GATE_TIERS],
+        env=env, cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=GATE_TIMEOUT_S,
+    )
+    say("gate", tiers=GATE_TIERS, wall_slack=float(GATE_WALL_SLACK), rc=proc.returncode,
+        output=proc.stdout.strip().splitlines(), stderr_tail=proc.stderr.strip().splitlines()[-5:],
+        controller_tier=gate.controller_record(harness["controller"], dev),
+        fleet_tier=gate.fleet_record(harness["fleet"], dev))
+    check(proc.returncode == 0, f"gate: exit {proc.returncode} over {GATE_TIERS}")
+
+
+def phase_recovery():
+    """``recovery_bench`` on this host against the committed card-host
+    baseline (same wall slack as the gate)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "cruise_control_tpu_torch.executor.recovery_bench", "--device", "cuda"],
+        env=dict(os.environ, CC_TPU_GATE_WALL_SLACK=GATE_WALL_SLACK), cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=GATE_TIMEOUT_S,
+    )
+    lines = proc.stdout.strip().splitlines()
+    say("recovery", rc=proc.returncode, result=json.loads(lines[-1]) if lines else None,
+        verdict=proc.stderr.strip().splitlines()[-3:])
+    check(proc.returncode == 0, f"recovery: exit {proc.returncode}: {proc.stderr.strip()[-500:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3133,14 +3279,17 @@ def main() -> int:
     timed("facade_card_vs_cpu", phase_facade_card_vs_cpu, dev)
     detector_launches, threaded_launches = timed("detector", phase_detector, dev)
     timed("detector_card_vs_cpu", phase_detector_card_vs_cpu, dev)
-    replay_launches, tick_p50_s = timed("replay_harnesses", phase_replay_harnesses, dev)
-    ingest_launches = timed("ingest", phase_ingest, dev, facade_proposals, tick_p50_s)
+    replay_launches, harness = timed("replay_harnesses", phase_replay_harnesses, dev)
+    ingest_launches = timed("ingest", phase_ingest, dev, facade_proposals, harness["controller"]["reaction_p50_s"])
     timed("ingest_card_vs_cpu", phase_ingest_card_vs_cpu, dev)
     api_launches = timed("api", phase_api, dev, facade_proposals)
     timed("api_harnesses", phase_api_harnesses, dev)
     timed("api_card_vs_cpu", phase_api_card_vs_cpu, dev)
     parallel_launches, parallel_collectives = timed("parallel", phase_parallel, dev, config2_final, config2_res)
     timed("parallel_card_vs_cpu", phase_parallel_card_vs_cpu, dev)
+    scale_launches = timed("scale", phase_scale, dev)
+    timed("gate", phase_gate, dev, harness)
+    timed("recovery", phase_recovery)
 
     kernels = []
     for path in ("segment_sum_f32", "segment_sum_i32"):
@@ -3167,6 +3316,9 @@ def main() -> int:
             "parallel_launches": parallel_launches[path], "parallel_collectives": parallel_collectives,
             "traces_shapes": [{k: r[k] for k in SHAPE_KEYS} for r in at_rollout],
             "parallel_shapes": [{k: r[k] for k in SHAPE_KEYS + ("max_abs_err",)} for r in in_ranks],
+            "scale_launches": scale_launches[path],
+            "scale_shapes": [{k: r[k] for k in SHAPE_KEYS + ("max_abs_err",)} for r in records
+                             if r["path"] == path and r["case"].startswith(SCALE_CASE)],
             "sim_shape": {k: sweep[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
                                                 "library_device_ms", "bound_ms", "bound_by", "per_lane_calls",
                                                 "per_lane_device_ms", "per_lane_call_ms",
@@ -3192,7 +3344,7 @@ def main() -> int:
         "detector_threaded_launches": threaded_launches["even_assign"],
         "replay_launches": {run: n["even_assign"] for run, n in replay_launches.items()},
         "ingest_launches": ingest_launches["even_assign"], "api_launches": api_launches["even_assign"],
-        "parallel_launches": parallel_launches["even_assign"],
+        "parallel_launches": parallel_launches["even_assign"], "scale_launches": scale_launches["even_assign"],
     })
     say("total", wall_s=time.monotonic() - start, kernel_build_s=build_s, phase_walls_s=walls)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,10 +3,11 @@
 Port of ``cruise_control_tpu/obs/exporter.py``.  The metric names keep the
 JAX package's ``PREFIX`` (``cruise_control_tpu``) and its HELP texts: they
 are the scrape contract of ``docs/SLOS.md``, and for one registry, recorder,
-profiler and SLO engine the page is the JAX exporter's text.  One family is
-left out: ``cruise_control_tpu_gate_baseline``, which the JAX exporter reads
-from its regression gate's committed baseline of JAX CPU numbers; the port
-renders it once it has a gate and a baseline of its own.  The
+profiler and SLO engine the page is the JAX exporter's text but for the
+samples of ``cruise_control_tpu_gate_baseline``: the port's family carries
+the port's own committed gate baseline (``obs/gate.py``) for the process's
+device -- ``GATE_BASELINE_cuda.json`` where a card is present, else
+``GATE_BASELINE_cpu.json`` -- under the JAX labels.  The
 ``executable_*`` families carry the hand-written kernels' census
 (``obs/profiler.py``): reckoned operations and bytes of the kernels alone,
 where the JAX families carry XLA's cost analysis of whole programs.
@@ -35,6 +36,8 @@ drop.
 
 from __future__ import annotations
 
+import json
+import os
 import re
 import time
 from typing import Dict, List, Optional, Tuple
@@ -168,6 +171,35 @@ def _render_profiler(families: Dict[str, _Family], profiler) -> None:
             mem.add({"device": row["device"], "stat": stat}, row.get(stat))
 
 
+_GATE_CACHE: Optional[Tuple[str, float, dict]] = None
+_GATE_METRICS = (
+    "wall_s", "cold_s", "num_dispatches", "balancedness",
+    "residual_hard_violations",
+)
+
+
+def _gate_baseline() -> dict:
+    """The committed gate baseline of the process's device (``cuda`` where a
+    card is present), cached (mtime-checked) -- operators alert when a live
+    sensor drifts from the number the repo promised."""
+    global _GATE_CACHE
+    import torch
+
+    from cruise_control_tpu_torch.obs.gate import _repo_root, baseline_path
+
+    path = os.path.join(_repo_root(), baseline_path("cuda" if torch.cuda.is_available() else "cpu"))
+    try:
+        mtime = os.path.getmtime(path)
+        if _GATE_CACHE is not None and _GATE_CACHE[:2] == (path, mtime):
+            return _GATE_CACHE[2]
+        with open(path) as f:
+            doc = json.load(f)
+        _GATE_CACHE = (path, mtime, doc)
+        return doc
+    except (OSError, json.JSONDecodeError):
+        return {}
+
+
 def _render_readiness(families: Dict[str, _Family], registry) -> None:
     """First-class readiness/recovery metrics (the k8s-dashboard contract):
     ``cruise_control_tpu_ready`` is THE signal a fleet scheduler keys on, so
@@ -188,6 +220,14 @@ def _render_readiness(families: Dict[str, _Family], registry) -> None:
         families[f"{PREFIX}_recovery_records_replayed"].add(
             {}, snap[RECOVERY_RECORDS_GAUGE]
         )
+
+
+def _render_gate(families: Dict[str, _Family]) -> None:
+    fam = families[f"{PREFIX}_gate_baseline"]
+    for tier, m in sorted(_gate_baseline().get("tiers", {}).items()):
+        for metric in _GATE_METRICS:
+            if metric in m and m[metric] is not None:
+                fam.add({"tier": tier, "metric": metric}, m[metric])
 
 
 def _render_slo(families: Dict[str, _Family], engine) -> None:
@@ -265,6 +305,9 @@ _FAMILY_DEFS = {
     f"{PREFIX}_device_memory_bytes": (
         "gauge", "Device memory_stats() sampled at trace boundaries"
     ),
+    f"{PREFIX}_gate_baseline": (
+        "gauge", "Committed regression-gate baseline numbers per tier"
+    ),
     f"{PREFIX}_ready": (
         "gauge",
         "1 once the startup ladder (recovering/monitor_warming) reached ready",
@@ -339,6 +382,7 @@ def render_prometheus(
     _render_recorder(families, recorder)
     _render_profiler(families, profiler)
     _render_readiness(families, registry)
+    _render_gate(families)
     if slo_engine is not None:
         _render_slo(families, slo_engine)
     if selfmon is not None and selfmon_window is not None and selfmon_window > 0:

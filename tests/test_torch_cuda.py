@@ -687,3 +687,53 @@ def test_run_ranks_raises_when_a_card_rank_fails(cuda_device):
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
         run_ranks(SM.failing_rank, 2, device="cuda", timeout_s=120)
     assert time.monotonic() - t0 < 90
+
+
+@pytest.mark.cuda
+def test_gate_config1_tier_on_the_card_equals_the_cpu_port(cuda_device):
+    """The gate's config1 tier on the card: the CPU port's moves and
+    balancedness, no hard violation, its record's spans summing to its host
+    syncs (the card's count includes its states' copies to the host, which a
+    CPU solve does not make: ``HostSyncs.state``), and no kernel build in the
+    warm run."""
+    from cruise_control_tpu_torch.obs import gate
+
+    card = gate.run_tier("config1", device="cuda")
+    cpu = gate.run_tier("config1", device="cpu")
+    assert card["platform"] == "cuda" and cpu["platform"] == "cpu"
+    for key in ("total_moves", "balancedness", "residual_hard_violations", "residual_soft_violations", "num_goals"):
+        assert card[key] == cpu[key], key
+    assert card["span_dispatch_sum"] == card["num_dispatches"] >= cpu["num_dispatches"]
+    assert card["residual_hard_violations"] == 0.0 and card["warm_compile_events"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bload", "broker call", "topic tables", "rack counts"])
+def test_kernels_at_config3_shapes_equal_the_cpu_sequential_sum(cuda_device, case):
+    """K1 and K2 at config #3's snapshot shapes (300,000 replicas; broker
+    bucket 1,024; topic tables 1,024 x 1,000; rack counts 100,000 x 20),
+    bitwise against the CPU's sequential sum."""
+    R, B, BT, PR = 300_000, 1024, 1_024_000, 2_000_000
+    rng = np.random.default_rng(len(case))
+
+    def ids(S):
+        x = rng.integers(0, S, size=R).astype(np.int32)
+        x[::997] = -1
+        return x
+
+    def f32(*shape):
+        return (rng.exponential(size=shape) * 1000).astype(np.float32)
+
+    def bits(p):
+        return rng.random(R) < p
+
+    if case == "bload":
+        _card_vs_cpu([f32(R, 4)], ids(B), B, cuda_device, "segment_sum_f32")
+    elif case == "broker call":
+        cols = [f32(R, 4), bits(0.95), bits(0.33), f32(R), f32(R), f32(R),
+                bits(0.05).astype(np.float32), bits(0.05).astype(np.float32)]
+        _card_vs_cpu(cols, ids(B), B, cuda_device, "segment_sum_f32")
+    elif case == "topic tables":
+        _card_vs_cpu([bits(0.95), bits(0.33)], ids(BT), BT, cuda_device, "segment_sum_i32")
+    else:
+        _card_vs_cpu([bits(0.95)], ids(PR), PR, cuda_device, "segment_sum_i32")

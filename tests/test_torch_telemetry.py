@@ -3,11 +3,11 @@
 ``obs/exporter.py`` renders the telemetry plane as Prometheus text and parses
 it back strictly.  The JAX test classes ``TestExporterRender`` and
 ``TestExpositionParser`` of ``tests/test_telemetry.py`` run unchanged against
-the port (``port_test_module``), but for the gate family: the port renders
-none until it has a regression gate of its own (ROADMAP A7), and a test here
-pins that.  ``TestServedTelemetry`` runs over the port's HTTP app (the JAX
+the port (``port_test_module``); the gate family carries the port's own
+committed gate baseline (``obs/gate.py``) for the process's device, and a
+test here pins its label set.  ``TestServedTelemetry`` runs over the port's HTTP app (the JAX
 ``tests/test_api.py`` builder, ported, bound to ``device="cpu"``).  For one seeded registry, recorder, profiler and SLO engine the
-port's page is the JAX page, line for line, less that family.  Then the
+port's page is the JAX page, line for line, but for that family's samples.  Then the
 census (``obs/profiler.py``): a CPU solve's ``cost`` block sums its kernel
 calls' reckoned work.
 """
@@ -27,18 +27,35 @@ TestServedTelemetry = _PORTED.TestServedTelemetry
 
 
 class TestExporterRender(_PORTED.TestExporterRender):
-    #: the JAX exporter reads its gate's committed baseline of JAX CPU numbers
-    test_gate_baseline_rendered = None
-
     def test_no_gate_family_until_the_port_has_a_gate(self):
+        """The port has its gate: the family is on the page, one sample a
+        (tier, metric) of the port's committed baseline for this process's
+        device, with the JAX exporter's metrics."""
         from cruise_control_tpu_torch.core.sensors import SensorRegistry
         from cruise_control_tpu_torch.obs.exporter import parse_exposition, render_prometheus
         from cruise_control_tpu_torch.obs.profiler import DeviceProfiler
         from cruise_control_tpu_torch.obs.recorder import FlightRecorder
 
         text = render_prometheus(registry=SensorRegistry(), recorder=FlightRecorder(), profiler=DeviceProfiler())
-        assert "gate_baseline" not in text
-        assert "cruise_control_tpu_gate_baseline" not in parse_exposition(text)
+        samples = parse_exposition(text)["cruise_control_tpu_gate_baseline"]["samples"]
+        assert {tuple(sorted(dict(labels))) for labels, _ in samples} == {("metric", "tier")}
+        assert {(dict(labels)["tier"], dict(labels)["metric"]): v for labels, v in samples} == _port_gate_samples()
+
+
+def _port_gate_samples() -> dict:
+    """(tier, metric) -> value of the port's committed gate baseline for this
+    process's device (the CPU without a card), for the metrics the JAX
+    exporter renders."""
+    import json
+    import os
+
+    from cruise_control_tpu.obs.exporter import _GATE_METRICS
+    from cruise_control_tpu_torch.obs import gate
+
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    doc = json.load(open(os.path.join(gate._repo_root(), gate.baseline_path(device))))
+    return {(tier, metric): float(m[metric]) for tier, m in doc["tiers"].items()
+            for metric in _GATE_METRICS if m.get(metric) is not None}
 
 
 def _package(name: str):
@@ -110,11 +127,19 @@ def _drop_family(text: str, family: str) -> str:
 
 
 def test_the_page_equals_the_jax_page_less_the_gate_family():
+    """Line for line the JAX page, but for the gate family's samples: the
+    same HELP and TYPE, and the JAX labels over the port's own baseline."""
     jax_page, port_page = _seeded_page("jax"), _seeded_page("port")
     gate = "cruise_control_tpu_gate_baseline"
-    assert gate in jax_page and gate not in port_page
-    assert port_page == _drop_family(jax_page, gate)
+    assert _drop_family(port_page, gate) == _drop_family(jax_page, gate)
+    heads = [ln for ln in port_page.split("\n") if ln.startswith(("# HELP " + gate, "# TYPE " + gate))]
+    assert heads == [ln for ln in jax_page.split("\n") if ln.startswith(("# HELP " + gate, "# TYPE " + gate))]
     parsed = _package("port").exporter.parse_exposition(port_page)
+    jax_labels = {tuple(sorted(dict(labels))) for labels, _ in
+                  _package("jax").exporter.parse_exposition(jax_page)[gate]["samples"]}
+    assert {tuple(sorted(dict(labels))) for labels, _ in parsed[gate]["samples"]} == jax_labels
+    assert {(dict(labels)["tier"], dict(labels)["metric"]): v
+            for labels, v in parsed[gate]["samples"]} == _port_gate_samples()
     assert {"cruise_control_tpu_slo_alert_firing", "cruise_control_tpu_executable_flops_total",
             "cruise_control_tpu_selfmon_window_value", "cruise_control_tpu_ready"} <= set(parsed)
 

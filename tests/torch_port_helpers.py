@@ -181,8 +181,10 @@ def assert_records_match(kind: str, count: int = None):
     assert jax_shapes and (count is None or len(jax_shapes) == count), jax_shapes
 
 
-#: the port's constructors that take ``device``, as the JAX test sources call them
-_DEVICE_BOUND = r"(?<![\w.])(CruiseControlTpuApp|CruiseControl)\("
+#: the port's callables that take ``device``, as the JAX test sources call
+#: them: the app's and the facade's constructors, the gate's ``run_tier`` and
+#: its command line ``gate_mod.main``
+_DEVICE_BOUND = r"(?<![\w.])(CruiseControlTpuApp|CruiseControl|(?:gate_mod\.)?run_tier|gate_mod\.main)\("
 
 
 def port_test_module(name: str, device=None):
@@ -193,9 +195,10 @@ def port_test_module(name: str, device=None):
     module is compiled from the JAX file's source, so its names stay the JAX
     test's; pytest's assertion rewriting does not apply to it.
 
-    The JAX sources build the app and the facade with no device, and the
-    port's default is the GPU.  With ``device`` given, every call of
-    ``CruiseControlTpuApp(...)`` or ``CruiseControl(...)`` in the source gets
+    The JAX sources build the app and the facade and run the gate with no
+    device, and the port's default is the GPU.  With ``device`` given, every
+    call of ``CruiseControlTpuApp(...)``, ``CruiseControl(...)``, the gate's
+    ``run_tier(...)`` or ``gate_mod.main(...)`` in the source gets
     ``device=device`` explicitly; nothing in the port defaults to the CPU.
     A ``tests.test_<x>`` module the source imports (``tests.test_api``'s
     ``build_app``) is its ported copy on the same device."""
