@@ -17,9 +17,14 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    beside their plain version and one ``index_add_`` a lane) and a rollout
    step's calls (16 pairs' replication factors, one lane's totals call, the
    balancedness of 16 pairs),
-   the skewed case (all rows in one segment) and the snapshot's multi-column
-   calls: every output bitwise equal to the CPU's sequential sum (floats; ints
-   exact), two launches bitwise equal.  For the kernel, the plain version and
+   the skewed case (all rows in one segment), the snapshot's multi-column
+   calls, and the snapshot's calls at config #3 and on the JBOD ladder
+   (2,500 brokers: 750,000 rows into 4,096 brokers and 5,000 logdirs;
+   config #4: 3M rows into 16,384 brokers and 20,000 logdirs, its topic
+   tables of 32,768,000 and rack counts of 40,000,000 segments; timed over 10
+   calls): every output bitwise equal to the CPU's sequential sum (floats; ints
+   exact), two launches bitwise equal, and every fixed-order call of 100,000
+   rows or more into 1,024 segments or more planned on 132 blocks or more.  For the kernel, the plain version and
    one ``index_add_`` call (a yardstick the port never calls): ``device_ms``,
    the summed kernel and memset durations of one call under
    ``torch.profiler`` (median of 30); ``call_ms``, CUDA events around 200
@@ -203,7 +208,10 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    equals the committed JAX record (``obs/baselines/SCALE_REFERENCE_config3
    .json``: moves, per-goal rounds, moves and violations, movement,
    balancedness, the placement's digest) with no hard violation, and both
-   segment-sum paths launched;
+   segment-sum paths launched.  Then config #4's goal list (18 goals, heavy
+   goals on, two logdirs a broker) at 48 brokers and 1,500 partitions on
+   the card and on the CPU port: fails unless both equal the committed JAX
+   record (``SCALE_REFERENCE_config4_small.json``);
 26. gate: the port's regression gate on the card in its own child
    processes, ``python -m cruise_control_tpu_torch.obs.gate --device cuda
    --tiers config1,config2_small,exporter,traces`` against the committed
@@ -482,7 +490,7 @@ def _kernel_cases(gen):
          [f32(TRACE_PAIRS * 24)], torch.arange(TRACE_PAIRS, dtype=torch.int32).repeat_interleave(24),
          TRACE_PAIRS),
     ] + (_rank_cases(gen, CONFIG2, PARALLEL_RANKS) + _rank_cases(gen, MESH8, MESH8_RANKS, counts=False)
-         + _scale_cases(gen))
+         + _scale_cases(gen) + _ladder_cases(gen))
 
 
 #: the label every case at config #3's shapes starts with
@@ -524,6 +532,59 @@ def _scale_cases(gen):
          [bits(0.95), bits(0.33)], ids(BT), BT),
         (f"{SCALE_CASE}: rack counts: bool [{R}] -> S={PR}", "segment_sum_i32", [bits(0.95)], ids(PR), PR),
     ]
+
+
+#: the label every case at the JBOD ladder's shapes starts with
+LADDER_CASE = "JBOD ladder"
+#: the ladder's rungs (``bench_scale.workload(config4=True, ...)``): 2,500
+#: brokers with 250,000 partitions, and config #4 (BASELINE.md: 10,000
+#: brokers, 1M partitions, 2,000 topics, 40 racks, RF 3, two logdirs a broker)
+LADDER = (dict(brokers=2_500, partitions=250_000), dict(brokers=10_000, partitions=1_000_000))
+LADDER_TOPICS, LADDER_RACKS, LADDER_DISKS = 2_000, 40, 2
+
+
+def _ladder_cases(gen):
+    """The snapshot's kernel calls on the JBOD ladder (``analyzer/context.py``,
+    ``model/arrays.disk_load``): K1 over every replica into the broker bucket
+    (the load columns alone and the whole broker call) and into the logdirs
+    (two a broker; padding the broker axis leaves them as they are); at config #4,
+    K2's topic tables (bucket x topics = 32,768,000 segments) and rack counts
+    (partitions x racks = 40,000,000)."""
+    from cruise_control_tpu_torch.model.arrays import broker_bucket
+
+    cases = []
+    for rung in LADDER:
+        R, B = 3 * rung["partitions"], broker_bucket(rung["brokers"])
+        D = LADDER_DISKS * rung["brokers"]
+        tag = f"{LADDER_CASE}, {rung['brokers']} brokers"
+
+        def ids(S):
+            x = torch.randint(0, S, (R,), generator=gen, dtype=torch.int32)
+            x[::997] = -1
+            return x
+
+        def f32(*shape):
+            return torch.empty(shape).exponential_(generator=gen) * 1000.0
+
+        def bits(p):
+            return torch.rand((R,), generator=gen) < p
+
+        rb = ids(B)
+        cases += [
+            (f"{tag}: bload [{R},4] -> S={B}", "segment_sum_f32", [f32(R, 4)], rb, B),
+            (f"{tag}: snapshot broker call: [{R},4] + 2 bool + 5 f32 -> S={B}", "segment_sum_f32",
+             [f32(R, 4), bits(0.95), bits(0.33), f32(R), f32(R), f32(R), bits(0.05).float(), bits(0.05).float()],
+             rb, B),
+            (f"{tag}: disk load [{R}] -> S={D}", "segment_sum_f32", [f32(R)], ids(D), D),
+        ]
+        if rung is LADDER[-1]:
+            BT, PR = B * LADDER_TOPICS, rung["partitions"] * LADDER_RACKS
+            cases += [
+                (f"{tag}: snapshot topic call: 2 bool [{R}] -> S={BT}", "segment_sum_i32",
+                 [bits(0.95), bits(0.33)], ids(BT), BT),
+                (f"{tag}: rack counts: bool [{R}] -> S={PR}", "segment_sum_i32", [bits(0.95)], ids(PR), PR),
+            ]
+    return cases
 
 
 #: the label every case of a rank of the sharded solve starts with
@@ -637,8 +698,9 @@ def phase_kernels(dev):
             lambda: SEG.segment_sums_plain(cols, ids, S),
             lambda: lib_out.index_add_(0, lib_ids, flat),
         ]
-        # the one call for all lanes of the sweep's totals runs ~0.25 s: few reps
-        reps = 3 if label == SWEEP_TOTALS_CASE else None
+        # the one call for all lanes of the sweep's totals runs ~0.25 s, the
+        # ladder's calls read up to 3M rows: few reps
+        reps = 3 if label == SWEEP_TOTALS_CASE else 10 if label.startswith(LADDER_CASE) else None
         dev_ms, phases = device_ms(fns, calls=reps or 30)
         calls = [call_ms(fn, calls=reps or 200) for fn in fns]
         lat = latency_ms(fns[0], reps=reps or 30)
@@ -690,6 +752,11 @@ def phase_kernels(dev):
             bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
             device_ms_by_kernel=phases, **per_lane,
         )
+        if path == "segment_sum_f32":
+            # the fixed-order pass plan: blocks from the rows and the card
+            rec["plan"] = plan = SEG.segment_sums_plan(ids.numel(), S, dev)
+            check(ids.numel() < 100_000 or S < 1_024 or plan["blocks"] >= 132,
+                  f"{label}: the fixed-order plan launches {plan['blocks']} blocks")
         say("kernels", **rec)
         records.append(rec)
     return records
@@ -3172,10 +3239,17 @@ GATE_WALL_SLACK = "3"
 GATE_TIMEOUT_S = 900
 
 
+#: config #4's goal list (18 goals, heavy goals on, two logdirs a broker) cut
+#: to 48 brokers and 1,500 partitions: ``SCALE_REFERENCE_config4_small.json``
+CONFIG4_SMALL = dict(config4=True, brokers=48, partitions=1500)
+
+
 def phase_scale(dev):
     """Config #3's default goal subset through ``bench_scale.run`` on the
-    card, cold then warm, held to the committed JAX record.  Returns the
-    kernel host calls of the warm solve (counted from 0 just before it)."""
+    card, cold then warm, held to the committed JAX record; then config #4's
+    goal list at :data:`CONFIG4_SMALL` on the card and on the CPU port, both
+    held to its JAX record.  Returns the kernel host calls of config #3's
+    warm solve (counted from 0 just before it)."""
     from cruise_control_tpu_torch import bench_scale
 
     line, artifact = bench_scale.run(device=dev)
@@ -3195,6 +3269,24 @@ def phase_scale(dev):
     check(line["residual_hard_violations"] == 0.0, f"scale: {line['residual_hard_violations']} hard violations left")
     for path in ("segment_sum_f32", "segment_sum_i32"):
         check(launches[path] > 0, f"scale: {path} never launched in the warm config #3 solve")
+
+    with open(bench_scale.reference_path("config4_small")) as f:
+        reference = json.load(f)
+    t = time.monotonic()
+    card, card_art = bench_scale.run(**CONFIG4_SMALL, warmup=False, device=dev)
+    card_s = time.monotonic() - t
+    t = time.monotonic()
+    cpu, cpu_art = bench_scale.run(**CONFIG4_SMALL, warmup=False, device="cpu")
+    cpu_s = time.monotonic() - t
+    diffs = bench_scale.differences(card_art, reference)
+    say("scale_config4_small", workload=card["metric"], goals=card["goals"], card_wall_s=card_s,
+        cpu_port_wall_s=cpu_s, total_moves=card["total_moves"], total_rounds=card["total_rounds"],
+        host_syncs=card["num_host_syncs"], host_calls=card["host_calls"], digest=card["digest"],
+        cpu_port_digest=cpu["digest"], reference_digest=reference["digest"],
+        residual_hard_violations=card["residual_hard_violations"], differences=diffs)
+    check(not diffs, f"scale: config #4's goal list at 48 brokers differs from the JAX record: {diffs[:5]}")
+    check(card["digest"] == cpu["digest"], "scale: config #4's goal list at 48 brokers: card != CPU port")
+    check(bench_scale.differences(cpu_art, reference) == [], "scale: the CPU port differs from the JAX record")
     return launches
 
 
@@ -3319,6 +3411,8 @@ def main() -> int:
             "scale_launches": scale_launches[path],
             "scale_shapes": [{k: r[k] for k in SHAPE_KEYS + ("max_abs_err",)} for r in records
                              if r["path"] == path and r["case"].startswith(SCALE_CASE)],
+            "ladder_shapes": [{k: r[k] for k in SHAPE_KEYS + ("max_abs_err",)} for r in records
+                              if r["path"] == path and r["case"].startswith(LADDER_CASE)],
             "sim_shape": {k: sweep[k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
                                                 "library_device_ms", "bound_ms", "bound_by", "per_lane_calls",
                                                 "per_lane_device_ms", "per_lane_call_ms",

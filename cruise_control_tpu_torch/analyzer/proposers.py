@@ -69,17 +69,49 @@ def _i32(x, device) -> torch.Tensor:
     return torch.full((), x, dtype=I32, device=device)
 
 
-def _pair_jitter(a: torch.Tensor, b: torch.Tensor, salt=0) -> torch.Tensor:
-    """f32 in (-TIEBREAK, 0]: deterministic jitter from an (a, b, salt) index
-    tuple (broadcasting).  Every operand is int32 so the hash wraps exactly as
-    the JAX package's does; ``>>`` is arithmetic on int32."""
+def _pair_hash(a: torch.Tensor, b, salt=0) -> torch.Tensor:
+    """i32 in [0, 1023]: the jitter's hash of an (a, b, salt) index tuple
+    (broadcasting).  Every operand is int32 so the hash wraps exactly as the
+    JAX package's does; ``>>`` is arithmetic on int32."""
     dev = a.device
     a = a.to(I32)
     b = _i32(b, dev)
     s = _i32(salt, dev)
     h = a * _i32(1103515245, dev) + b * _i32(40503, dev) + s * _i32(1013904223, dev)
-    h = torch.bitwise_and(h ^ (h >> 7), _i32(1023, dev))
-    return -TIEBREAK * h.to(F32) / 1024.0
+    return torch.bitwise_and(h ^ (h >> 7), _i32(1023, dev))
+
+
+def _pair_jitter(a: torch.Tensor, b, salt=0) -> torch.Tensor:
+    """f32 in (-TIEBREAK, 0]: deterministic jitter from an (a, b, salt) index
+    tuple (broadcasting), rounded on its own, as the JAX function returns it.
+    The rounds add it to their scores through :func:`_plus_jitter`."""
+    return -TIEBREAK * _pair_hash(a, b, salt).to(F32) / 1024.0
+
+
+#: the jitter's one factor, as XLA folds ``-TIEBREAK * h / 1024``: the
+#: float32 constant over 1,024 (exact)
+_JITTER_STEP = float(np.float32(-TIEBREAK)) / 1024.0
+
+
+def _plus_jitter(x: torch.Tensor, a: torch.Tensor, b, salt=0) -> torch.Tensor:
+    """``x + _pair_jitter(a, b, salt)`` rounded as the JAX package's compiled
+    rounds compute it.  XLA folds the jitter's two constant factors into one
+    and fuses the product into the add, a fused multiply-add with a single
+    rounding: f32(x + h * _JITTER_STEP).  The plain sum rounds the jitter
+    first and differs in the last bit for about one element in 8,000, which
+    flips a near-tie in an argmax (the ReplicaDistributionGoal swap rounds at
+    1,000 brokers).  The product is exact in float64; the sum is rounded to
+    odd in float64 (TwoSum gives its exact error) and then to float32, which
+    rounds once, exactly, on the CPU and on the card alike."""
+    x64 = x.to(torch.float64)
+    p = _pair_hash(a, b, salt).to(torch.float64) * _JITTER_STEP
+    s = x64 + p
+    bb = s - x64
+    err = (x64 - (s - bb)) + (p - bb)
+    even = torch.bitwise_and(s.view(torch.int64), 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even & torch.isfinite(s), torch.nextafter(s, toward), s)
+    return s.to(F32)
 
 
 def topk_segment_argmax(
@@ -264,7 +296,7 @@ def shed_round(
     # occupancy claims only from valid slots: an inactive broker's candidate
     # must not steal the partition slot from an active source
     elig = elig & ~SP.slice_cols(col0 is not None, occupied, col0, cols.shape[0])
-    score = score + _pair_jitter(cand_safe[:, None], cols[None, :], salt)
+    score = _plus_jitter(score, cand_safe[:, None], cols[None, :], salt)
     score = torch.where(elig, score, NEG)
     dst, found = _pick_dst(spmd, score, col0)
 
@@ -338,7 +370,7 @@ def fill_round(
         vs, ctx, vsnap, cv0_cols, c0_valid_cols, prior_mask, dst_brokers=cap_rows
     ).T
     fits = fits & ~occ.T
-    sscore = sscore + _pair_jitter(row_brokers[:, None], cols[None, :], salt)
+    sscore = _plus_jitter(sscore, row_brokers[:, None], cols[None, :], salt)
     sscore = torch.where(fits, sscore, NEG)
 
     # top-k donor columns per destination row
@@ -427,11 +459,11 @@ def leadership_shed_round(
         & leadership_target_ok(state, ctx, snap, prior_mask)
     )
     # per-partition jitter among equal-scored takeover brokers
-    tb = _pair_jitter(state.replica_partition, state.replica_broker, salt)
+    jittered = _plus_jitter(follower_score, state.replica_partition, state.replica_broker, salt)
     if spmd is None:
-        best_follower = segment_argmax(follower_score + tb, state.replica_partition, P, take_ok)
+        best_follower = segment_argmax(jittered, state.replica_partition, P, take_ok)
     else:
-        best_follower = SP.argmax_ids_merge(spmd, follower_score + tb, state.replica_partition, P, take_ok)
+        best_follower = SP.argmax_ids_merge(spmd, jittered, state.replica_partition, P, take_ok)
 
     has_follower = best_follower[state.replica_partition] >= 0
     give_ok = leader_ok & snap.is_leader & has_follower
@@ -564,8 +596,9 @@ def swap_round(
     # one incoming partner per destination broker, rotated across rounds
     # (jitter keyed on the global replica index so in-segment ties rotate)
     gidx = SP.global_iota(state, spmd)
-    pj = _pair_jitter(gidx, 97, salt)
-    partner_k, partner_rows = _topk_with_rows(state, snap, in_score + pj, state.replica_broker, B, in_ok, 1)
+    partner_k, partner_rows = _topk_with_rows(
+        state, snap, _plus_jitter(in_score, gidx, 97, salt), state.replica_broker, B, in_ok, 1
+    )
     partner = partner_k[0]
     partner_valid = partner >= 0
     partner_safe = torch.where(partner_valid, partner, 0)
@@ -643,7 +676,7 @@ def swap_round(
         vs, ctx, vsnap, cv_safe, valid, pv_cols, pvalid_cols, prior_mask, dst_brokers=dst_cols
     )
 
-    score = gain + _pair_jitter(cand_safe[:, None], cols[None, :], salt)
+    score = _plus_jitter(gain, cand_safe[:, None], cols[None, :], salt)
     score = torch.where(ok, score, NEG)
     dst, found = _pick_dst(spmd, score, col0)
 
@@ -707,7 +740,7 @@ def intra_disk_round(
     same_broker = state.disk_broker[None, :] == vs.replica_broker[cv_safe][:, None]
     not_self = cols[None, :] != src_disk_of_slot[:, None]
     elig = elig & same_broker & not_self & snap.disk_usable[None, :] & valid[:, None]
-    score = score + _pair_jitter(cand_safe[:, None], cols[None, :], salt)
+    score = _plus_jitter(score, cand_safe[:, None], cols[None, :], salt)
     score = torch.where(elig, score, NEG)
     dst, found = _argmax_rows(score)
 

@@ -21,10 +21,14 @@ kernel path's host calls in the measured run, peak device memory, and a
 digest (sha256) of the final ``replica_broker`` and ``partition_leader``;
 ``--out`` writes the JAX artifact's keys besides, and the movement with its
 data volumes summed exactly (``movement_exact``).  ``--check REF`` holds the
-solution against a committed reference record (``reference_path``): every
+solution against a reference record, a path or the name of a committed one
+(``reference_path``: ``--check 2500b``): every
 key of :func:`solution` must be equal, or the run exits 1 naming each
 difference.  The references are the JAX package's solves of the same specs
-on a CPU (``tests/torch_scale_reference.py`` writes them).
+on a CPU (``tests/torch_scale_reference.py`` writes them).  A progress
+reference (``goal_progress``: a JAX run's per-goal lines for the first goals
+of the list, ``SCALE_REFERENCE_config4_hard_goals.json``) holds those goals'
+rounds, moves and violations after (:func:`progress_differences`).
 """
 
 from __future__ import annotations
@@ -186,6 +190,22 @@ def differences(doc: dict, reference: dict) -> list:
     return out
 
 
+def progress_differences(doc: dict, reference: dict) -> list:
+    """Each goal of a progress reference -- a run's ``--progress-out`` lines
+    under ``goal_progress``, the first goals of the list -- whose name,
+    rounds, moves or violations after differ from ``doc``'s goal report at
+    the same place."""
+    reports = doc.get("goal_reports") or []
+    out = []
+    for i, want in enumerate(reference["goal_progress"]):
+        got = reports[i] if i < len(reports) else {}
+        pairs = [(got.get("name"), want["goal"])] + [(got.get(k), want[k]) for k in ("rounds", "moves",
+                                                                                     "violations_after")]
+        if any(g != w for g, w in pairs):
+            out.append(f"goal {i} {want['goal']}: {[g for g, _ in pairs]} != reference {[w for _, w in pairs]}")
+    return out
+
+
 def run(
     config4: bool = False,
     full_goals: bool = False,
@@ -299,7 +319,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--progress-out", default=None,
                     help="append one JSON line per finished goal (implies --profile)")
     ap.add_argument("--check", default=None, metavar="REF",
-                    help="hold the solution to this reference record; exit 1 on any difference")
+                    help="hold the solution to this reference record (a path, or a name: "
+                         "SCALE_REFERENCE_<name>.json beside the gate's baselines); exit 1 on any difference")
     args = ap.parse_args(argv)
 
     line, artifact = run(
@@ -313,9 +334,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         with open(args.out, "w") as f:
             json.dump(artifact, f, indent=1)
     if args.check:
-        with open(args.check) as f:
+        path = args.check if os.path.exists(args.check) else reference_path(args.check)
+        with open(path) as f:
             reference = json.load(f)
-        diffs = differences(artifact, reference)
+        compare = progress_differences if "goal_progress" in reference else differences
+        diffs = compare(artifact, reference)
         if diffs:
             print(f"bench_scale: {len(diffs)} difference(s) from {args.check}:", file=sys.stderr)
             for d in diffs:

@@ -11,28 +11,34 @@
 //
 //  * cc_segment_sums, the fixed-order path (any float field).  Every float output is the
 //    left-to-right f32 sum of its rows in row order -- bitwise the sequential CPU
-//    scatter-add, on every launch.  No float atomics, no tensor cores, no FMA.  Three
-//    kernels, enqueued by one host call, make a stable counting sort and then walk it:
-//      group_count: blocks of 8 warps; a warp owns a run of 64 consecutive rows and
-//        takes them 32 at a time in row order.  Lanes with equal ids are found with
-//        ballots (one per id bit: __match_any_sync is slow when many warps of one SM
-//        issue it); the lowest lane of each group adds the group's size to the warp's
-//        counter for that segment in shared memory.  Each block writes its per-segment
-//        and per-warp counts.
-//      group_scatter: each block reads all blocks' counts to find where its rows of each
-//        segment begin (no separate scan kernel) and its warps' counts to give each warp
-//        its cursors, then writes every column of each row to its place:
+//    scatter-add, on every launch.  No float atomics, no tensor cores, no FMA.  Four
+//    kernels, enqueued by one host call, make a stable counting sort and then walk it.
+//    The rows are cut into blocks in row order; the block count comes from the rows and
+//    the card (two blocks an SM when there are rows enough), not from the segment count:
+//      group_count: a block's 8 warps take its rows 32 at a time.  Lanes with equal ids
+//        are found with ballots (one per id bit: __match_any_sync is slow when many warps
+//        of one SM run it); the lowest lane of each group adds the group's size to the
+//        block's counter for that segment in shared memory (integer atomics).  Each block
+//        writes its per-segment counts: blocks x S ints.
+//      group_offsets: one block per 32 segments scans the counts in block order within
+//        each segment (in place: a block's count becomes its rows of that segment in the
+//        blocks before it) and the last block to finish scans the segment totals in
+//        segment order into each segment's first position.  Integers, so exact in any
+//        schedule.
+//      group_scatter: each block counts its warps' rows again into a counter a segment a
+//        warp in shared memory, adds its own block's offsets and the segment starts to
+//        make each warp's cursors, then writes every column of each row to its place:
 //        sorted[c][position], a segment's rows contiguous and in ascending row order.
-//        The kernel is a chain of dependent steps, so every load it can issue early
-//        (ids, values, counts) is issued at its start.
+//        Shared memory (224 KB) sets the warps: 8 up to S = 7,168, 3 at S = 16,384.
 //      group_walk: one warp per (segment, 32 columns); lane c streams column c of the
 //        segment's sorted rows and adds them in order, the next 64 rows in flight while
 //        it adds the current 64, so the serial add chain overlaps the loads.  Integer
 //        columns add as int32 in the same pass.
 //    Work is O(R * C + S * blocks) instead of the O(R * S / 32) compares of a scan per
-//    segment.  The counters of a pass live in shared memory, which holds 28,672
-//    segments; above that the call takes the segment range in chunks of that size, one
-//    pass of the three kernels each (every pass reads all rows and keeps its chunk's).
+//    segment.  The count kernel's counters live in shared memory, which holds 28,672
+//    segments a pass at two scatter warps; above that the call takes the segment range in
+//    chunks of that size, one pass of the four kernels each (every pass reads all rows and
+//    keeps its chunk's).
 //  * cc_segment_counts, the integer path (integer fields only): exact int32 sums.  Block g
 //    owns a range of segments: it reads every id, adds its own rows' values into a shared
 //    memory histogram with shared atomics (exact in any order) and stores its bins.  Every
@@ -41,7 +47,7 @@
 // Bound on the card: at the solver's shapes (R = 30,000 rows, S = 128 brokers, 4 to 11
 // columns) a call reads R * (4 + 4 * C) bytes, about 0.6-1.4 MB, and writes S * C * 4 bytes:
 // under half a microsecond of HBM time, and the adds never bind.  What bounds the
-// fixed-order path is latency: three dependent kernels of a few dependent memory round
+// fixed-order path is latency: four dependent kernels of a few dependent memory round
 // trips each, the scatter's 4-byte stores to scattered places, and in the walk the
 // longest segment's serial add chain (one segment holding all R rows is R dependent
 // adds).  The caller allocates outputs and scratch; nothing here allocates, and every
@@ -60,11 +66,13 @@ constexpr int kWalk = 64;             // rows a walk lane has in flight
 constexpr int kGroupThreads = 256;    // the count and scatter blocks: 8 warps
 constexpr int kThreads = 1024;        // the integer blocks
 constexpr int kIdsAhead = 2;          // id loads a grouping warp keeps in flight
-constexpr int kHistCap = 8192;        // (block, segment) counts every scatter block reads
+constexpr int kMaxTiles = 264;        // blocks of a fixed-order pass: two an SM of an H100
+constexpr int kMinRows = 64;          // rows a scatter warp has at least (2 steps)
 constexpr int kMoveCols = 8;          // columns a scatter lane has in flight
 constexpr int kSmemBytes = 229376;    // dynamic shared memory a block asks for (224 KB)
 constexpr int kSmemInts = kSmemBytes / 4;
 constexpr int kPassSegments = kSmemInts / 2;  // segments one fixed-order pass holds (28,672)
+constexpr int kMaxDevices = 64;
 
 enum FieldType { kF32 = 0, kI32 = 1, kU8 = 2 };
 
@@ -95,14 +103,15 @@ __device__ __forceinline__ bool in_range(int s, int segments) {
 }
 
 // Exclusive scan of a[0, n) in place by the whole block; returns the total.  Each thread
-// scans a contiguous run; a shuffle scan over the runs joins them.
+// scans a contiguous run; a shuffle scan over the runs joins them.  `a` is in global
+// memory and was written by other blocks, so it is read through L2 (__ldcg).
 __device__ int block_exclusive_scan(int* a, int n, int* warp_sums) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const int per = (n + blockDim.x - 1) / blockDim.x;
   const int first = min(n, tid * per), last = min(n, first + per);
   int sum = 0;
-  for (int i = first; i < last; ++i) sum += a[i];
+  for (int i = first; i < last; ++i) sum += __ldcg(a + i);
   int x = sum;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
@@ -124,7 +133,7 @@ __device__ int block_exclusive_scan(int* a, int n, int* warp_sums) {
   int run = (warp > 0 ? warp_sums[warp - 1] : 0) + x - sum;
   const int total = warp_sums[nwarps - 1];
   for (int i = first; i < last; ++i) {
-    const int v = a[i];
+    const int v = __ldcg(a + i);
     a[i] = run;
     run += v;
   }
@@ -132,12 +141,33 @@ __device__ int block_exclusive_scan(int* a, int n, int* warp_sums) {
   return total;
 }
 
-// How a pass of a fixed-order call is cut: it sums segments [base, base + segments);
-// `tiles` blocks of `warps` active warps, each warp owning `span` consecutive rows;
-// `kbits` bits distinguish the segments.  Counters live in shared memory ([segment][warp]).
+// How a pass of a fixed-order call is cut: it sums segments [base, base + segments).
+// Block t of `tiles` owns rows [t * block_rows, (t + 1) * block_rows); in the scatter its
+// `warps` warps own `span` consecutive rows each, in order (the count kernel splits the
+// block's rows over all its 8 warps).  `kbits` bits distinguish the segments.
 struct Grouping {
-  int rows, base, segments, tiles, warps, span, kbits;
+  int rows, base, segments, tiles, warps, block_rows, span, kbits;
 };
+
+// The plan of one pass: blocks from the rows and the card (two a streaming
+// multiprocessor, at least kMinRows rows a scatter warp), scatter warps from shared memory
+// (one counter a segment a warp).
+Grouping plan_pass(int rows, int base, int segments, int sms) {
+  Grouping g;
+  g.rows = rows;
+  g.base = base;
+  g.segments = segments;
+  g.kbits = 0;
+  while (g.kbits < 31 && (segments - 1) >> g.kbits) ++g.kbits;
+  g.warps = max(1, min(kGroupThreads / 32, kSmemInts / segments));
+  const int max_tiles = max(1, min(kMaxTiles, 2 * sms));
+  const int per_block = g.warps * kMinRows;
+  g.tiles = max(1, min((rows + per_block - 1) / per_block, max_tiles));
+  g.block_rows = max(32, ((rows + g.tiles - 1) / g.tiles + 31) / 32 * 32);
+  g.tiles = max(1, (rows + g.block_rows - 1) / g.block_rows);
+  g.span = ((g.block_rows + g.warps - 1) / g.warps + 31) / 32 * 32;
+  return g;
+}
 
 // Row r's segment relative to the pass (out of range when it is not in the pass's).
 __device__ __forceinline__ int local_id(const int* __restrict__ ids, int r, const Grouping& g) {
@@ -145,7 +175,7 @@ __device__ __forceinline__ int local_id(const int* __restrict__ ids, int r, cons
 }
 
 // Lanes holding the same valid id, without __match_any_sync (slow when many warps of one
-// SM issue it): one ballot of validity and one per id bit.
+// SM run it): one ballot of validity and one per id bit.
 __device__ __forceinline__ unsigned peers_of(int s, bool ok, int kbits) {
   unsigned m = __ballot_sync(kFull, ok);
   for (int b = 0; b < kbits; ++b) {
@@ -156,14 +186,12 @@ __device__ __forceinline__ unsigned peers_of(int s, bool ok, int kbits) {
   return m;
 }
 
-// A warp's pass over its rows, 32 at a time in row order: `visit(s, peers, r)` for every
-// row with an in-range id.  Ids are loaded kIdsAhead steps ahead.
+// A warp's pass over rows [begin, end), 32 at a time in row order: `visit(s, peers, r)`
+// for every row with an in-range id.  Ids are loaded kIdsAhead steps ahead.
 template <typename Visit>
 __device__ __forceinline__ void warp_rows(const int* __restrict__ ids, const Grouping& g,
-                                          Visit visit) {
+                                          int begin, int end, Visit visit) {
   const int lane = threadIdx.x & 31;
-  const int w = blockIdx.x * g.warps + (threadIdx.x >> 5);
-  const int begin = min(g.rows, w * g.span), end = min(g.rows, begin + g.span);
   for (int base = begin; base < end; base += 32 * kIdsAhead) {
     int sv[kIdsAhead];
 #pragma unroll
@@ -182,52 +210,111 @@ __device__ __forceinline__ void warp_rows(const int* __restrict__ ids, const Gro
   }
 }
 
-// Count: hist[t * segments + s] = rows of block t in segment s, and
-// wcnt[(t * warps + w) * segments + s] = rows of its warp w in segment s.
-__global__ void __launch_bounds__(kGroupThreads)
-group_count(const int* __restrict__ ids, const Grouping g, int* __restrict__ hist,
-            int* __restrict__ wcnt) {
-  extern __shared__ int smem[];  // [segment][warp]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = g.segments * g.warps;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = 0;
-  __syncthreads();
-  if (warp < g.warps) {
-    warp_rows(ids, g, [&](int s, unsigned peers, int) {
-      if (lane == __ffs(peers) - 1) smem[s * g.warps + warp] += __popc(peers);
-    });
-  }
-  __syncthreads();
-  int* wc = wcnt + (size_t)blockIdx.x * g.warps * g.segments;
-  for (int s = threadIdx.x; s < g.segments; s += blockDim.x) {
-    int sum = 0;
-    for (int w = 0; w < g.warps; ++w) {
-      const int c = smem[s * g.warps + w];
-      wc[(size_t)w * g.segments + s] = c;
-      sum += c;
-    }
-    hist[(size_t)blockIdx.x * g.segments + s] = sum;
-  }
+// The rows [begin, end) of warp `w` of `nwarps` sharing block t's rows.
+__device__ __forceinline__ void warp_range(const Grouping& g, int w, int span, int* begin,
+                                           int* end) {
+  const int b0 = blockIdx.x * g.block_rows;
+  const int b1 = min(g.rows, b0 + g.block_rows);
+  *begin = min(b1, b0 + w * span);
+  *end = min(b1, *begin + span);
 }
 
-// Scatter: block t finds where its rows of each segment start (all blocks' counts of
-// the earlier segments plus the earlier blocks' counts of the same segment), gives each
-// warp its cursor, and writes every column of every row to its place in the segment's
-// list: sorted[c * rows + position], each segment's rows in ascending row order.
-// Block 0 also writes seg_start.  The kernel is a chain of dependent steps, so every
-// load it can issue early -- this warp's first ids and values, the count tables -- is
-// issued first.
+// Count: hist[t * segments + s] = rows of block t in segment s.  The block's 8 warps add
+// into one shared counter a segment (exact integer atomics: only the block's total is
+// kept).  Block 0 also clears the offsets kernel's ticket (the kernels of a stream run in
+// order, so the last call's offsets kernel is done).
+__global__ void __launch_bounds__(kGroupThreads)
+group_count(const int* __restrict__ ids, const Grouping g, int* __restrict__ hist,
+            unsigned* __restrict__ ticket) {
+  extern __shared__ int smem[];  // [segment]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *ticket = 0u;
+  for (int i = threadIdx.x; i < g.segments; i += blockDim.x) smem[i] = 0;
+  __syncthreads();
+  const int span = ((g.block_rows + kGroupThreads / 32 - 1) / (kGroupThreads / 32) + 31) / 32 * 32;
+  int begin, end;
+  warp_range(g, warp, span, &begin, &end);
+  warp_rows(ids, g, begin, end, [&](int s, unsigned peers, int) {
+    if (lane == __ffs(peers) - 1) atomicAdd(&smem[s], __popc(peers));
+  });
+  __syncthreads();
+  int* h = hist + (size_t)blockIdx.x * g.segments;
+  for (int s = threadIdx.x; s < g.segments; s += blockDim.x) h[s] = smem[s];
+}
+
+// Offsets: block j takes segments [32 j, 32 j + 32), lane = segment, and its 8 warps split
+// the blocks of the count kernel into 8 runs in block order.  Each (block, segment) count
+// becomes, in place, the rows of that segment in the blocks before it; each segment's
+// total goes to seg_start.  The last block to finish (a ticket taken after a fence) then
+// scans the totals in segment order: seg_start[s] = first sorted position of segment s,
+// seg_start[segments] = rows kept.  Integers only, so exact in any schedule.
+__global__ void __launch_bounds__(kGroupThreads)
+group_offsets(const Grouping g, int* __restrict__ hist, int* __restrict__ seg_start,
+              unsigned* __restrict__ ticket) {
+  constexpr int kParts = kGroupThreads / 32;
+  __shared__ int part[kParts][32];
+  __shared__ int warp_sums[32];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, p = threadIdx.x >> 5;
+  const int s = blockIdx.x * 32 + lane;
+  const bool ok = s < g.segments;
+  const int per = (g.tiles + kParts - 1) / kParts;
+  const int u0 = min(g.tiles, p * per), u1 = min(g.tiles, u0 + per);
+  int sum = 0;
+  if (ok) {
+    int u = u0;
+    for (; u + 8 <= u1; u += 8) {
+      int h[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) h[k] = hist[(size_t)(u + k) * g.segments + s];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sum += h[k];
+    }
+    for (; u < u1; ++u) sum += hist[(size_t)u * g.segments + s];
+  }
+  part[p][lane] = sum;
+  __syncthreads();
+  int run = 0;
+  for (int q = 0; q < p; ++q) run += part[q][lane];
+  if (ok) {
+    if (p == 0) {
+      int total = 0;
+      for (int q = 0; q < kParts; ++q) total += part[q][lane];
+      seg_start[s] = total;
+    }
+    for (int u = u0; u < u1; ++u) {
+      int* h = hist + (size_t)u * g.segments + s;
+      const int c = *h;
+      *h = run;
+      run += c;
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int kept = block_exclusive_scan(seg_start, g.segments, warp_sums);
+  if (threadIdx.x == 0) seg_start[g.segments] = kept;
+}
+
+// Scatter: block t counts its warps' rows of each segment again (in shared memory, a
+// counter a segment a warp), turns the counts into cursors -- the segment's first
+// position, plus its rows in the blocks before (group_offsets), plus its rows in the
+// warps before -- and writes every column of every row to its place in the segment's
+// list: sorted[c * rows + position], each segment's rows in ascending row order.  It
+// reads only its own block's offsets.  This warp's first ids and values are loaded
+// before the counting, so they are in flight while it runs.
 __global__ void __launch_bounds__(kGroupThreads)
 group_scatter(const int* __restrict__ ids, const Grouping g, const int* __restrict__ hist,
-              const int* __restrict__ wcnt, int* __restrict__ seg_start,
-              const __grid_constant__ Fields f, unsigned* __restrict__ sorted) {
-  extern __shared__ int smem[];  // cursors [segment][warp], then the segment starts
-  __shared__ int warp_sums[32];
+              const int* __restrict__ seg_start, const __grid_constant__ Fields f,
+              unsigned* __restrict__ sorted) {
+  extern __shared__ int cur[];  // [segment][warp]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = blockIdx.x;
-  const int w = t * g.warps + warp;
-  const int begin = min(g.rows, w * g.span), end = min(g.rows, begin + g.span);
   const bool mover = warp < g.warps;
+  int begin = 0, end = 0;
+  if (mover) warp_range(g, warp, g.span, &begin, &end);
   int sv[kIdsAhead];
   unsigned v[kIdsAhead][kMoveCols];
   auto load_ids = [&](int base) {
@@ -249,54 +336,23 @@ group_scatter(const int* __restrict__ ids, const Grouping g, const int* __restri
     load_ids(begin);
     load_values(begin, 0);
   }
-  int* cur = smem;
-  int* start = smem + g.segments * g.warps;
-  // start[s] = rows of segment s in all blocks; cur[s][w] = rows of segment s in the
-  // blocks before this one and in the warps before w of this one.  When there are fewer
-  // segments than threads, `parts` threads share each segment's blocks; their sums meet
-  // in shared memory (exact integer atomics).
-  const int parts = max(1, (int)blockDim.x / g.segments);
-  for (int i = threadIdx.x; i < g.segments * (g.warps + 1); i += blockDim.x) smem[i] = 0;
+  for (int i = threadIdx.x; i < g.segments * g.warps; i += blockDim.x) cur[i] = 0;
   __syncthreads();
-  for (int i = threadIdx.x; i < g.segments * parts; i += blockDim.x) {
-    const int s = i % g.segments, part = i / g.segments;
-    int total = 0, before = 0;
-    for (int u0 = part; u0 < g.tiles; u0 += 32 * parts) {
-      int h[32];
-#pragma unroll
-      for (int u = 0; u < 32; ++u) {
-        const int tile = u0 + u * parts;
-        h[u] = tile < g.tiles ? hist[(size_t)tile * g.segments + s] : 0;
-      }
-#pragma unroll
-      for (int u = 0; u < 32; ++u) {
-        total += h[u];
-        before += u0 + u * parts < t ? h[u] : 0;
-      }
-    }
-    atomicAdd(&start[s], total);
-    atomicAdd(&cur[s * g.warps], before);
+  if (mover) {
+    warp_rows(ids, g, begin, end, [&](int s, unsigned peers, int) {
+      if (lane == __ffs(peers) - 1) cur[s * g.warps + warp] += __popc(peers);
+    });
   }
   __syncthreads();
+  const int* off = hist + (size_t)blockIdx.x * g.segments;
   for (int s = threadIdx.x; s < g.segments; s += blockDim.x) {
-    const int* wc = wcnt + (size_t)t * g.warps * g.segments + s;
-    int c[kGroupThreads / 32];
-#pragma unroll
-    for (int k = 0; k < kGroupThreads / 32; ++k) c[k] = k < g.warps ? wc[(size_t)k * g.segments] : 0;
-    int run = cur[s * g.warps];
-#pragma unroll
-    for (int k = 0; k < kGroupThreads / 32; ++k) {
-      if (k < g.warps) cur[s * g.warps + k] = run;
-      run += c[k];
+    int run = seg_start[s] + off[s];
+    for (int w = 0; w < g.warps; ++w) {
+      const int c = cur[s * g.warps + w];
+      cur[s * g.warps + w] = run;
+      run += c;
     }
   }
-  __syncthreads();
-  const int kept = block_exclusive_scan(start, g.segments, warp_sums);
-  if (t == 0) {
-    for (int s = threadIdx.x; s < g.segments; s += blockDim.x) seg_start[s] = start[s];
-    if (threadIdx.x == 0) seg_start[g.segments] = kept;
-  }
-  for (int i = threadIdx.x; i < g.segments * g.warps; i += blockDim.x) cur[i] += start[i / g.warps];
   __syncthreads();
   if (!mover) return;
   // kIdsAhead steps at a time: first every row's position (in row order), then the
@@ -457,6 +513,22 @@ int allow_large_smem() {
   return err;
 }
 
+// Streaming multiprocessors of the current device, read once a device.
+int current_sms(int* sms) {
+  static int cache[kMaxDevices] = {0};
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < 0 || dev >= kMaxDevices)
+    return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!cache[dev]) {
+    err = (int)cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err) return err;
+  }
+  *sms = cache[dev];
+  return 0;
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  Each takes one array of int64 arguments (one ctypes
@@ -465,8 +537,8 @@ int allow_large_smem() {
 // written (empty segments get 0).  A field is 4 int64: source, output, width, FieldType.
 
 // Fixed-order sums.  args: ids, rows, segments, stream, scratch, scratch_ints, nfields,
-// fields.  The scratch holds at least
-// rows * columns + max(segments, 8192) + 65536 + segments + 1 int32.
+// fields.  With P = min(segments, 28,672), the scratch holds at least
+// rows * columns + 264 * P + P + 2 int32.
 extern "C" int cc_segment_sums(const long long* args) {
   const void* ids = (const void*)args[0];
   const int rows = (int)args[1], segments = (int)args[2];
@@ -477,39 +549,49 @@ extern "C" int cc_segment_sums(const long long* args) {
   Fields f;
   int err = read_fields(args + 7, (int)args[6], false, &f);
   if (err || (err = allow_large_smem())) return err;
-  if ((long long)rows * f.ncols + max(segments, kHistCap) + 8 * kHistCap + segments + 1 >
-      scratch_ints)
+  const int pass = min(segments, kPassSegments);
+  if ((long long)rows * f.ncols + (long long)kMaxTiles * pass + pass + 2 > scratch_ints)
     return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if ((err = current_sms(&sms))) return err;
   unsigned* sorted = static_cast<unsigned*>(scratch);
   int* hist = reinterpret_cast<int*>(sorted + (size_t)rows * f.ncols);
-  int* wcnt = hist + max(segments, kHistCap);
-  int* seg_start = wcnt + 8 * kHistCap;
+  int* seg_start = hist + (size_t)kMaxTiles * pass;
+  unsigned* ticket = reinterpret_cast<unsigned*>(seg_start + pass + 1);
   const int* id = static_cast<const int*>(ids);
-  // one pass per kPassSegments segments; a pass keeps warps + 1 ints per segment in
-  // shared memory
+  // one pass per kPassSegments segments: the count kernel keeps a counter a segment, the
+  // scatter one a segment a warp, in shared memory
   for (int base = 0; base < segments; base += kPassSegments) {
-    Grouping g;
-    g.rows = rows;
-    g.base = base;
-    g.segments = min(kPassSegments, segments - base);
-    g.kbits = 0;
-    while (g.kbits < 31 && (g.segments - 1) >> g.kbits) ++g.kbits;
-    g.warps = min(kGroupThreads / 32, kSmemInts / g.segments - 1);
-    // 2 steps a warp (the scatter's stores spread over many SMs), every block reading
-    // at most kHistCap counts
-    const int per_block = g.warps * 64;
-    g.tiles = max(1, min((rows + per_block - 1) / per_block, max(1, kHistCap / g.segments)));
-    g.span = ((rows + g.tiles * g.warps - 1) / (g.tiles * g.warps) + 31) / 32 * 32;
+    const Grouping g = plan_pass(rows, base, min(kPassSegments, segments - base), sms);
     const size_t per_segment = (size_t)g.segments * sizeof(int);
-    group_count<<<g.tiles, kGroupThreads, per_segment * g.warps, st>>>(id, g, hist, wcnt);
+    group_count<<<g.tiles, kGroupThreads, per_segment, st>>>(id, g, hist, ticket);
     if ((err = (int)cudaGetLastError())) return err;
-    group_scatter<<<g.tiles, kGroupThreads, per_segment * (g.warps + 1), st>>>(
-        id, g, hist, wcnt, seg_start, f, sorted);
+    group_offsets<<<(g.segments + 31) / 32, kGroupThreads, 0, st>>>(g, hist, seg_start, ticket);
+    if ((err = (int)cudaGetLastError())) return err;
+    group_scatter<<<g.tiles, kGroupThreads, per_segment * g.warps, st>>>(id, g, hist, seg_start,
+                                                                          f, sorted);
     if ((err = (int)cudaGetLastError())) return err;
     const dim3 grid(g.segments, (f.ncols + kGroup - 1) / kGroup);
     group_walk<<<grid, 32, 0, st>>>(sorted, rows, base, seg_start, f);
     if ((err = (int)cudaGetLastError())) return err;
   }
+  return 0;
+}
+
+// The plan of a fixed-order call on the current device, as cc_segment_sums launches it.
+// args: rows, segments.  out: passes, and the first pass's blocks, scatter warps a block,
+// rows a block.
+extern "C" int cc_segment_sums_plan(const long long* args, long long* out) {
+  const int rows = (int)args[0], segments = (int)args[1];
+  if (rows < 0 || segments <= 0) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const int err = current_sms(&sms);
+  if (err) return err;
+  const Grouping g = plan_pass(rows, 0, min(kPassSegments, segments), sms);
+  out[0] = (segments + kPassSegments - 1) / kPassSegments;
+  out[1] = g.tiles;
+  out[2] = g.warps;
+  out[3] = g.block_rows;
   return 0;
 }
 

@@ -63,7 +63,8 @@ _FIELD_TYPE = {torch.float32: _F32, torch.int32: _I32, torch.bool: _U8, torch.ui
 _FIELD_BYTES = {_F32: 4, _I32: 4, _U8: 1}
 _MAX_FIELDS = 16
 _MAX_COLS = 64
-_HIST_CAP = 8192                  # per-(segment, block) counts of the fixed-order path
+_MAX_TILES = 264                  # blocks of a fixed-order pass (two an SM of an H100)
+_PASS_SEGMENTS = 28_672           # segments one fixed-order pass holds
 _LIB = None
 _PACKERS: Dict[int, Callable[..., bytes]] = {}
 _SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -84,6 +85,8 @@ def _library() -> ctypes.CDLL:
         for fn in (lib.cc_segment_sums, lib.cc_segment_counts):
             fn.argtypes = [ctypes.c_char_p]   # the packed int64 arguments
             fn.restype = ctypes.c_int
+        lib.cc_segment_sums_plan.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_longlong)]
+        lib.cc_segment_sums_plan.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -229,9 +232,9 @@ def _launch(lib, floats, ids, R, S, columns, spec, index) -> int:
     nfields = len(spec) // 4
     if not floats:
         return lib.cc_segment_counts(_pack((ids.data_ptr(), R, S, stream, nfields, *spec)))
-    # every column in segment order, the per-(block, segment) and
-    # per-(warp, segment) counts and each segment's first row
-    n = R * columns + max(S, _HIST_CAP) + 8 * _HIST_CAP + S + 1
+    # every column in segment order, a pass's per-(block, segment) counts,
+    # each segment's first row and the offsets kernel's ticket
+    n = R * columns + (_MAX_TILES + 1) * min(S, _PASS_SEGMENTS) + 2
     scratch = _scratch(index, stream, n)
     return lib.cc_segment_sums(
         _pack((ids.data_ptr(), R, S, stream, scratch.data_ptr(), scratch.numel(), nfields, *spec))
@@ -250,7 +253,7 @@ def _scratch(index: int, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` int32 of scratch for the fixed-order path on this device
     and stream; it only grows.  Kernels on one stream run in the order they
     were enqueued, so one buffer serves every call on it as long as each
-    call's three kernels are enqueued back to back.  Host threads share the
+    call's kernels are enqueued back to back.  Host threads share the
     default stream and ``cc_segment_sums`` runs without the GIL, so the
     caller holds :data:`_LAUNCH_LOCK` from this lookup until the kernels are
     enqueued: two threads' kernels never interleave on the buffer (the
@@ -260,6 +263,22 @@ def _scratch(index: int, stream: int, n: int) -> torch.Tensor:
     if buf is None or buf.numel() < n:
         buf = _SCRATCH[key] = torch.empty(n, dtype=torch.int32, device=torch.device("cuda", index))
     return buf
+
+
+def segment_sums_plan(rows: int, segments: int, device) -> Dict[str, int]:
+    """How the fixed-order path cuts a call of ``rows`` ids into ``segments``
+    on a card (``cc_segment_sums`` launches by the same plan): the passes over
+    the segment range, and the first pass's blocks, scatter warps a block and
+    rows a block."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the fixed-order plan is a card's, got {device}")
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(device):
+        err = _library().cc_segment_sums_plan(_pack((int(rows), int(segments))), out)
+    if err != 0:
+        raise RuntimeError(f"segment-sum plan failed: CUDA error {err}")
+    return dict(zip(("passes", "blocks", "warps", "block_rows"), out))
 
 
 def segment_sums(

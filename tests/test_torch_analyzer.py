@@ -243,6 +243,70 @@ def test_pair_jitter_int32_wraparound():
     assert_same(got, want, "jitter broadcast")
 
 
+def _near_tie_rows(rng, S: int, B: int, salt: int):
+    """``(candidate ids [S], gains [S, B])``: in each row two columns of one
+    gain ``g`` (every other column far below), chosen so that ``g`` plus the
+    jitter rounded twice ties the two (the first wins) while the sum rounded
+    once puts the second first.  Which hash values can do that depends on
+    ``g``'s exponent, so each row draws its candidate id until its hashes
+    hold such a pair."""
+    hs = np.arange(1024)
+    cand = np.zeros(S, np.int32)
+    x = np.full((S, B), -1e4, np.float32)
+    cols = torch.arange(B, dtype=torch.int32)
+    for i in range(S):
+        while True:
+            c = int(rng.integers(0, 300_000))
+            hv, col = np.unique(PP._pair_hash(torch.tensor([c], dtype=torch.int32), cols, salt).numpy(),
+                                return_index=True)     # each hash value's first column
+            g = np.float32(2.0 ** rng.integers(2, 12) * (1 + rng.random()))
+            twice = (g + (np.float32(-PP.TIEBREAK) * hs.astype(np.float32)) / np.float32(1024))[hv]
+            once = (np.float64(g) + hs * PP._JITTER_STEP).astype(np.float32)[hv]
+            pairs = np.argwhere((col[:, None] < col[None, :]) & (twice[:, None] >= twice[None, :])
+                                & (once[:, None] < once[None, :]))
+            if len(pairs):
+                cand[i] = c
+                x[i, col[pairs[0]]] = g
+                break
+    return cand, x
+
+
+@pytest.mark.parametrize("near_ties", [True, False])
+def test_jitter_sums_round_as_the_compiled_jax_rounds(near_ties):
+    """ROADMAP C6: a destination score plus its jitter, as the JAX package's
+    compiled rounds compute it.  XLA folds the jitter's constants and fuses
+    the product into the add (one rounding), so the plain f32 sum differs in
+    the last bit for about one element in 8,000 -- at config #3's 300,000
+    replicas that flipped a swap round's argmax of ReplicaDistributionGoal.
+    The input: candidate replicas (ids below 300,000) against config #3's
+    1,024 broker columns; with ``near_ties`` each row holds two columns of
+    equal gain whose order only that last bit decides."""
+    rng = np.random.default_rng(6)
+    S, B, salt = (16 if near_ties else 1024), 1024, 31
+    if near_ties:
+        cand, x = _near_tie_rows(rng, S, B, salt)
+    else:
+        cand = rng.integers(0, 300_000, size=S).astype(np.int32)
+        x = (rng.standard_normal((S, B)) * 1000).astype(np.float32)
+    cols = np.arange(B, dtype=np.int32)
+    a, b = torch.from_numpy(cand)[:, None], torch.from_numpy(cols)[None, :]
+
+    @jax.jit
+    def jax_round(x, a, b):
+        score = x + JP._pair_jitter(a[:, None], b[None, :], jnp.int32(salt))
+        return score, jnp.argmax(score, axis=1).astype(jnp.int32)
+
+    want, want_dst = (np.asarray(v) for v in jax_round(jnp.asarray(x), jnp.asarray(cand), jnp.asarray(cols)))
+    got = PP._plus_jitter(torch.from_numpy(x), a, b, salt)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(PP._argmax_rows(got)[0].numpy(), want_dst)
+    # the input shows the fault: the sum rounded twice differs
+    plain = torch.from_numpy(x) + PP._pair_jitter(a, b, salt)
+    assert (plain.numpy() != want).any()
+    if near_ties:
+        assert (PP._argmax_rows(plain)[0].numpy() != want_dst).all()
+
+
 def test_stable_argsort_ties():
     scores = np.asarray([3, 1, 3, 3, 0, 1, 3, 2, 2, 3], np.float32)
     cand = np.asarray([1, 1, 0, 1, 1, 1, 1, 1, 0, 1], bool)

@@ -171,6 +171,46 @@ def test_grouping_counters_either_side_of_the_shared_memory_switch(cuda_device, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R,S", [(300_000, 1_024), (750_000, 4_096), (3_000_000, 16_384), (1_000_000, 28_673)])
+def test_fixed_order_path_at_thousands_of_segments(cuda_device, R, S):
+    """K1 at the scale ladder's broker buckets (config #3, 2,500 brokers,
+    config #4) and one segment past a pass (two passes): the loads and a
+    counted bool under one id vector, bitwise the CPU's sequential sum, two
+    launches bitwise equal, and the pass plan spread over the card."""
+    rng = np.random.default_rng(R + S)
+    seg = rng.integers(-2, S + 2, size=R).astype(np.int32)
+    seg[: R // 10] = S // 2          # one segment holds a tenth of the rows
+    vals = (rng.exponential(size=(R, 4)) * 1000).astype(np.float32)
+    flags = rng.random(R) < 0.5
+    cols = [torch.from_numpy(vals).to(cuda_device), torch.from_numpy(flags).to(cuda_device)]
+    ids = torch.from_numpy(seg).to(cuda_device)
+    PS.reset_launch_counts()
+    a = PS.segment_sums(cols, ids, S)
+    b = PS.segment_sums(cols, ids, S)
+    torch.cuda.synchronize()
+    assert PS.LAUNCHES["segment_sum_f32"] == 2
+    want = PS.segment_sums_plain([torch.from_numpy(vals), torch.from_numpy(flags)], torch.from_numpy(seg), S)
+    for x, y, w in zip(a, b, want):
+        assert torch.equal(x, y)
+        np.testing.assert_array_equal(x.cpu().numpy(), w.numpy())
+    plan = PS.segment_sums_plan(R, S, cuda_device)
+    assert plan["passes"] == (2 if S > 28_672 else 1)
+    assert plan["blocks"] >= 132, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1_024, 4_096, 16_384, 28_672])
+def test_fixed_order_plan_fills_the_card_from_100000_rows(cuda_device, S):
+    """The plan takes its blocks from the rows and the card, not from the
+    segment count: at least one a streaming multiprocessor from 100,000
+    rows, with fewer scatter warps a block as the segments grow."""
+    plan = PS.segment_sums_plan(100_000, S, cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert plan["passes"] == 1 and plan["blocks"] >= min(132, sms), plan
+    assert plan["warps"] == min(8, 57_344 // S) and plan["blocks"] * plan["block_rows"] >= 100_000
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S,cols", [(100, 64), (12_800, 40), (100_000, 3)])
 def test_int_path_wide_and_large(cuda_device, S, cols):
     """Blocks own segment ranges sized to fit shared memory: many columns,

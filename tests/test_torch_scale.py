@@ -10,7 +10,8 @@ active brokers, so the active-broker cut rotates its sources as it does at
 config #3.  The fast tests hold the port to the JAX records committed beside
 the gate's baselines (``SCALE_REFERENCE_<name>.json``, written by
 ``tests/torch_scale_reference.py`` on this tree); ``slow`` tests make them
-again from the JAX package and hold the committed ones to them.
+again from the JAX package and hold the committed ones to them, and run
+config #3's 16 goals on the CPU port against its record (ROADMAP C6).
 ``executor/recovery_bench.py`` recovers the JAX script's pinned journal to
 the same counts.
 """
@@ -30,7 +31,11 @@ from tests.torch_scale_reference import jax_record
 #: the default subset at bucket 256 with the source window cut to 64 brokers
 SMALL = dict(brokers=200, partitions=4000, max_active=64)
 #: the committed JAX records and the workloads they hold
-REFERENCES = {"bucket256": SMALL, "config3": {}}
+REFERENCES = {
+    "bucket256": SMALL, "config3": {}, "config3_fullgoals": dict(full_goals=True),
+    "config4_small": dict(config4=True, brokers=48, partitions=1500),
+    "2500b": dict(config4=True, brokers=2500, partitions=250_000),
+}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -76,6 +81,32 @@ def test_check_fails_on_a_record_with_one_move_changed(small_reference, tmp_path
     assert bench_scale.differences(json.load(open(out)), small_reference) == []
 
 
+def test_check_takes_a_committed_reference_by_name(capsys):
+    """``--check bucket256`` reads ``SCALE_REFERENCE_bucket256.json`` beside
+    the gate's baselines, as ``--check 2500b`` does on the card."""
+    argv = ["--device", "cpu", "--no-warmup", "--brokers", "200", "--partitions", "4000", "--max-active", "64"]
+    assert bench_scale.main(argv + ["--check", "bucket256"]) == 0
+    assert "equal to bucket256" in capsys.readouterr().err
+
+
+def test_progress_reference_holds_the_first_goals():
+    """The JAX package's config #4 progress (its 7 hard goals on this tree)
+    against goal reports: equal ones pass, one changed move count or a
+    missing goal is named."""
+    reference = json.load(open(bench_scale.reference_path("config4_hard_goals")))
+    progress = reference["goal_progress"]
+    assert [p["goal"] for p in progress][3:4] == ["DiskCapacityGoal"] and len(progress) == 7
+    assert progress[3]["rounds"] == 1359 and progress[3]["moves"] == 926_303
+    reports = [{"name": p["goal"], "rounds": p["rounds"], "moves": p["moves"],
+                "violations_after": p["violations_after"], "hard": True} for p in progress]
+    doc = {"goal_reports": reports + [{"name": "ReplicaDistributionGoal", "rounds": 9, "moves": 9,
+                                       "violations_after": 0.0}]}
+    assert bench_scale.progress_differences(doc, reference) == []
+    reports[3]["moves"] += 1
+    diffs = bench_scale.progress_differences({"goal_reports": reports[:6]}, reference)
+    assert len(diffs) == 2 and "DiskCapacityGoal" in diffs[0] and "CpuCapacityGoal" in diffs[1]
+
+
 def test_the_cuda_default_raises_naming_the_device_without_a_card():
     import torch
 
@@ -114,10 +145,19 @@ def test_config4_small_equals_the_jax_solve():
 
 
 @pytest.mark.slow
+def test_config3_full_goals_equals_the_jax_record():
+    """ROADMAP C6: config #3 with the 16 default goals (heavy goals on) on
+    the CPU port equals the JAX package's solve on this tree (292,905 moves,
+    2,097 rounds; minutes on a CPU)."""
+    assert bench_scale.main(["--full-goals", "--device", "cpu", "--no-warmup", "--check", "config3_fullgoals"]) == 0
+
+
+@pytest.mark.slow
 @pytest.mark.parametrize("name", sorted(REFERENCES))
 def test_committed_references_are_the_jax_solves_on_this_tree(name):
     """Make each committed record again from the JAX package (config #3:
-    minutes on a CPU) and hold the committed one to it."""
+    minutes on a CPU, 2,500 brokers: about 18 minutes) and hold the committed
+    one to it."""
     committed = json.load(open(bench_scale.reference_path(name)))
     assert bench_scale.differences(jax_record(**REFERENCES[name]), committed) == []
 
