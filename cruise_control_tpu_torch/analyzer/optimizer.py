@@ -13,10 +13,21 @@ and ``AbstractGoal.optimize``, AbstractGoal.java:82-135):
 * KafkaAssignerEvenRackAwareGoal (which must come first) is a constructive
   full placement (:mod:`.kafka_assigner`), one step instead of rounds.
 
-The JAX package compiles each phase into one ``lax.while_loop``; here the
-loops are host-driven Python with the same stopping rules.  Each round ends
-in one host synchronisation (the applied-move count and the rotation length,
-fetched together); the result reports the total as ``num_host_syncs``.
+The JAX package compiles each phase into one ``lax.while_loop`` and each
+goal, with its pass cycle, into one dispatch.  The port keeps that layout as
+a carry, a body and a condition (:class:`PhaseCarry`, :func:`phase_body`,
+:func:`phase_cond`), with two drivers of the same body:
+
+* on the card (no ``spmd``), the device loop
+  (:mod:`cruise_control_tpu_torch.analyzer.device_loop`): each phase's round
+  is captured once into a CUDA graph and a goal is one graph launch whose
+  WHILE nodes evaluate the conditions on the device; the rounds and moves
+  come back with the solve's other scalars in one fetch;
+* on the CPU, and on the sharded path (``spmd``: its gloo collectives stage
+  through the host and cannot be captured), a Python loop that reads the
+  condition once a round, one host synchronisation a round.
+
+The result reports the host waits as ``num_host_syncs``.
 """
 
 from __future__ import annotations
@@ -322,14 +333,28 @@ class BatchedResult:
 
 
 class HostSyncs:
-    """Counts the points where the host waits on the device."""
+    """Counts the points where the host waits on the device.  ``runs`` holds
+    the device-loop goals (``device_loop.GoalRun``) whose trip counts the next
+    :func:`host_fetch` brings back with its own values."""
 
     def __init__(self) -> None:
         self.count = 0
+        self.runs: list = []
 
     def tolist(self, t: torch.Tensor):
         self.count += 1
         return t.tolist()
+
+    def wait(self, event: torch.cuda.Event) -> None:
+        """Wait for the device to reach ``event`` (one counted wait)."""
+        self.count += 1
+        event.synchronize()
+
+    def settle(self) -> None:
+        """Fetch the trip counts of the device-loop goals still open (one
+        counted fetch when there are any): a walk that stops early."""
+        if self.runs:
+            host_fetch(self, [])
 
     def state(self, state: ClusterArrays) -> ClusterArrays:
         """A CPU copy of ``state`` (one wait, then plain copies)."""
@@ -347,19 +372,67 @@ def _np_mask(ids: Tuple[int, ...]) -> np.ndarray:
     return m
 
 
+@dataclasses.dataclass
+class PhaseCarry:
+    """The carry of one phase's while loop, as in the JAX package: the state
+    and int32 device scalars -- ``it`` (rounds run; it salts the proposers'
+    tie-breaking), ``total`` (moves applied), ``streak`` (zero-move rounds in
+    a row) and ``windows`` (the last round's rotation length)."""
+
+    state: ClusterArrays
+    it: torch.Tensor
+    total: torch.Tensor
+    streak: torch.Tensor
+    windows: torch.Tensor
+
+
+def phase_carry(state: ClusterArrays) -> PhaseCarry:
+    """A phase's first carry: no rounds, no moves, one window."""
+    zero = torch.zeros((), dtype=torch.int32, device=state.device)
+    return PhaseCarry(state, zero, zero, zero, torch.ones_like(zero))
+
+
+def phase_body(
+    carry: PhaseCarry, ctx: GoalContext, *, round_fn: Callable, enable_heavy: bool,
+    prior_mask: np.ndarray, admit_mask: np.ndarray, needs: frozenset, spmd=None,
+) -> PhaseCarry:
+    """One round of a phase (the JAX ``_phase_loop`` body): snapshot,
+    propose, accept against the prior goals, admit, apply.  No host read and
+    no host-to-device copy, so the device loop can capture it."""
+    state = carry.state
+    snap = take_snapshot(state, ctx, enable_heavy, needs, spmd)
+    moves = round_fn(state, ctx, snap, prior_mask, carry.it)
+    eff = move_effects(state, moves, snap)
+    ok = moves.valid & accept_all(state, ctx, snap, moves, eff, prior_mask)
+    keep = admit(state, ctx, snap, moves, ok, eff, admit_mask)
+    n = keep.sum(dtype=torch.int32)
+    state = apply_moves(state, moves, keep, spmd)
+    windows = moves.windows.to(torch.int32) if moves.windows is not None else torch.ones_like(n)
+    streak = torch.where(n > 0, torch.zeros_like(carry.streak), carry.streak + 1)
+    return PhaseCarry(state, carry.it + 1, carry.total + n, streak, windows)
+
+
+def phase_cond(carry: PhaseCarry, max_rounds: int) -> torch.Tensor:
+    """bool: the phase runs another round (the JAX ``_phase_loop`` cond).
+    With capped sources a zero-move round only proves its window stuck, so
+    the phase stops after as many zero-move rounds in a row as the batch
+    reports rotation ``windows``, or at ``max_rounds``."""
+    return (carry.streak < carry.windows) & (carry.it < max_rounds)
+
+
 def _phase_loop(
     state: ClusterArrays, ctx: GoalContext, *, round_fn: Callable, max_rounds: int,
     enable_heavy: bool, prior_ids: Tuple[int, ...], admit_ids: Tuple[int, ...],
     needs: frozenset, syncs: HostSyncs, spmd=None,
 ) -> Tuple[ClusterArrays, int, int]:
-    """Drive one round type to convergence: ``(state, rounds, moves)``.
+    """The host driver of one phase: ``(state, rounds, moves)``, rounds and
+    moves as host ints.  It reads :func:`phase_cond` once a round, with the
+    round and move counts (one host sync a round); the first test needs no
+    read, since a fresh carry passes it whenever ``max_rounds > 0``.
 
     ``prior_ids`` gates single-action acceptance; ``admit_ids`` (normally prior
-    plus the current goal) bounds the cumulative admission.  The round number
-    salts the proposers' tie-breaking; ``needs`` names the optional snapshot
-    groups the rounds read.  With capped sources a zero-move round
-    only proves its window stuck, so the phase stops after as many zero-move
-    rounds in a row as the batch reports rotation ``windows``.
+    plus the current goal) bounds the cumulative admission; ``needs`` names
+    the optional snapshot groups the rounds read.
 
     ``spmd`` (parallel.spmd.SpmdInfo) runs the body on this rank's block of
     the replica axis: the snapshot merges its reductions in one fold over
@@ -370,39 +443,33 @@ def _phase_loop(
     replicated tensors, so every rank takes the same host-side decisions."""
     prior_mask = _np_mask(prior_ids)
     admit_mask = _np_mask(admit_ids)
-    it = total = streak = 0
-    windows = 1
-    while streak < windows and it < max_rounds:
-        snap = take_snapshot(state, ctx, enable_heavy, needs, spmd)
-        moves = round_fn(state, ctx, snap, prior_mask, it)
-        eff = move_effects(state, moves, snap)
-        ok = moves.valid & accept_all(state, ctx, snap, moves, eff, prior_mask)
-        keep = admit(state, ctx, snap, moves, ok, eff, admit_mask)
-        n_t = keep.sum(dtype=torch.int32)
-        state = apply_moves(state, moves, keep, spmd)
-        w_t = moves.windows if moves.windows is not None else torch.ones_like(n_t)
-        n, windows = syncs.tolist(torch.stack([n_t, w_t.to(torch.int32)]))
-        streak = 0 if n > 0 else streak + 1
-        it += 1
-        total += n
-    return state, it, total
+    carry = phase_carry(state)
+    go, it, total = max_rounds > 0, 0, 0
+    while go:
+        carry = phase_body(
+            carry, ctx, round_fn=round_fn, enable_heavy=enable_heavy, prior_mask=prior_mask,
+            admit_mask=admit_mask, needs=needs, spmd=spmd,
+        )
+        go, it, total = syncs.tolist(torch.stack([
+            phase_cond(carry, max_rounds).to(torch.int32), carry.it, carry.total,
+        ]))
+    return carry.state, it, total
 
 
 def _goal_step_fn(
     state: ClusterArrays, ctx: GoalContext, *, gid: int, round_fns, max_rounds: int,
     enable_heavy: bool, prior_ids, admit_ids, syncs: HostSyncs, spmd=None,
 ):
-    """One goal: its round-type phases cycled until a pass applies nothing
-    (or MAX_GOAL_PASSES), plus its own violation count before and after
-    (0-d tensors, left on the device)."""
-    needs = G.goal_snapshot_needs(gid) | G.prior_acceptance_needs(prior_ids)
+    """One goal on the host driver: its round-type phases cycled until a pass
+    applies nothing (or MAX_GOAL_PASSES), plus its own violation count before
+    and after (0-d tensors, left on the device).  Rounds and moves are host
+    ints, known from the phases' per-round reads."""
+    needs = _goal_needs(gid, prior_ids)
     snap0 = take_snapshot(state, ctx, enable_heavy, needs, spmd)
     before = G.violations_one(gid, state, ctx, snap0)
     rounds = moves = 0
     pass_moves, passes = 1, 0
-    # a single phase already ran to convergence: a second pass would be a
-    # zero-move rotation, so single-phase goals make one pass
-    max_passes = 1 if len(round_fns) == 1 else MAX_GOAL_PASSES
+    max_passes = _max_passes(round_fns)
     while pass_moves > 0 and passes < max_passes:
         pass_moves = 0
         for fn in round_fns:
@@ -417,6 +484,45 @@ def _goal_step_fn(
     snap1 = take_snapshot(state, ctx, enable_heavy, needs, spmd)
     after = G.violations_one(gid, state, ctx, snap1)
     return state, rounds, moves, before, after
+
+
+def _goal_needs(gid: int, prior_ids) -> frozenset:
+    """The snapshot groups a goal's rounds read: its own and its priors' acceptance."""
+    return G.goal_snapshot_needs(gid) | G.prior_acceptance_needs(prior_ids)
+
+
+def _goal_phases(gid: int, round_fns, prior_ids, admit_ids) -> list:
+    """A goal's phases for the device loop: ``(round_fn, prior_ids,
+    admit_ids, needs)`` each."""
+    needs = _goal_needs(gid, prior_ids)
+    return [(fn, tuple(prior_ids), tuple(admit_ids), needs) for fn in round_fns]
+
+
+def _max_passes(round_fns) -> int:
+    """The pass cycle's cap.  A single phase already ran to convergence: a
+    second pass would be a zero-move rotation, so single-phase goals make one
+    pass."""
+    return 1 if len(round_fns) == 1 else MAX_GOAL_PASSES
+
+
+def _goal_step_device(
+    loops, state: ClusterArrays, ctx: GoalContext, *, gid: int, round_fns, max_rounds: int,
+    enable_heavy: bool, prior_ids, admit_ids, syncs: HostSyncs,
+):
+    """One goal on the device driver (``device_loop.DeviceLoops``): the same
+    phases and pass cycle as :func:`_goal_step_fn`, as one graph launch.
+    Returns ``(state, rounds, moves, before, after)``, all but the state as
+    0-d device tensors; the launch's trip counts wait in ``syncs.runs`` for
+    the solve's next :func:`host_fetch`."""
+    needs = _goal_needs(gid, prior_ids)
+    before = G.violations_one(gid, state, ctx, take_snapshot(state, ctx, enable_heavy, needs))
+    state, run = loops.run(
+        state, ctx, _goal_phases(gid, round_fns, prior_ids, admit_ids), enable_heavy=enable_heavy, max_passes=_max_passes(round_fns),
+        max_rounds=max_rounds, name=G.GOAL_NAMES[gid],
+    )
+    syncs.runs.append(run)
+    after = G.violations_one(gid, state, ctx, take_snapshot(state, ctx, enable_heavy, needs))
+    return state, run.rounds, run.moves, before, after
 
 
 def _assigner_step_fn(state: ClusterArrays, ctx: GoalContext, *, max_rf: int, enable_heavy: bool):
@@ -462,11 +568,22 @@ def host_fetch(syncs: HostSyncs, values: Sequence) -> list:
     """Host values of a list of tensors and Python numbers: the numbers as
     they are, every tensor in ONE host fetch (through float64, which holds
     int32 and float32 exactly), each back as a numpy array of its own dtype
-    and shape."""
+    and shape.
+
+    The trip counts of the device-loop goals in ``syncs.runs`` ride along in
+    the same fetch, and each goal's captured kernel calls are then added to
+    the wrappers' counters and the census, times its trips."""
+    runs, syncs.runs = syncs.runs, []
     tensors = [v for v in values if isinstance(v, torch.Tensor)]
-    if not tensors:
+    trips = [r.trips for r in runs]
+    if not tensors and not trips:
         return list(values)
-    flat = syncs.tolist(torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]))
+    flat = syncs.tolist(torch.cat([t.reshape(-1).to(torch.float64) for t in tensors + trips]))
+    k = sum(t.numel() for t in tensors)
+    for r in runs:
+        n = r.trips.numel()
+        r.account(flat[k:k + n])
+        k += n
     out, k = [], 0
     for v in values:
         if isinstance(v, torch.Tensor):
@@ -569,12 +686,33 @@ class GoalOptimizer:
         its ranks' blocks; single-device the state is whole already)."""
         return state
 
+    def _device_loops(self):
+        """The device driver of this solve's loops (``device_loop.DeviceLoops``),
+        or None for the host driver: the device loop runs on the card unless
+        the solve is sharded (``spmd``), whose collectives stage through the
+        host and cannot be captured."""
+        if self.device.type != "cuda" or self._spmd is not None:
+            return None
+        from cruise_control_tpu_torch.analyzer.device_loop import device_loops
+
+        return device_loops(self.device)
+
     def _offline_repair(
         self, state: ClusterArrays, ctx: GoalContext, max_rounds: int, syncs: HostSyncs
     ) -> ClusterArrays:
         """The pre-phases that relocate offline replicas: the strict pass bounds
-        cumulative admission by the hard goals, the relaxed pass by nothing."""
+        cumulative admission by the hard goals, the relaxed pass by nothing.
+        On the device driver both are one launch (one pass of two phases)."""
         hard_in_list = tuple(g for g in self.hard_ids if g in self.goal_ids)
+        loops = self._device_loops()
+        if loops is not None:
+            phases = [(offline_round, (), hard_in_list, frozenset()), (offline_round_relaxed, (), (), frozenset())]
+            state, run = loops.run(
+                state, ctx, phases, enable_heavy=self.enable_heavy_goals, max_passes=1,
+                max_rounds=max_rounds, name="offline_repair",
+            )
+            syncs.runs.append(run)
+            return state
         for fn, aids in ((offline_round, hard_in_list), (offline_round_relaxed, ())):
             state, _, _ = _phase_loop(
                 state, ctx, round_fn=fn, max_rounds=max_rounds,
@@ -589,12 +727,20 @@ class GoalOptimizer:
     ):
         """One goal of a walk, with ``prior`` the goals before it:
         ``(state, rounds, moves, before, after, unassigned)``.  ``before`` and
-        ``after`` are 0-d device tensors; the kafka-assigner step (a full
-        placement mode, one step, ``max_rf`` position passes) leaves ``moves``
-        and ``unassigned`` on the device too, and ``unassigned`` is None for
-        every other goal."""
+        ``after`` are 0-d device tensors; the device loop leaves ``rounds`` and
+        ``moves`` on the device too, and so does the kafka-assigner step (a full
+        placement mode, one step, ``max_rf`` position passes) with ``moves``
+        and ``unassigned``; ``unassigned`` is None for every other goal."""
         if gid == G.KAFKA_ASSIGNER_RACK:
             return _assigner_step_fn(state, ctx, max_rf=max_rf, enable_heavy=self.enable_heavy_goals)
+        loops = self._device_loops()
+        if loops is not None:
+            state, rounds, moves, before, after = _goal_step_device(
+                loops, state, ctx, gid=gid, round_fns=GOAL_ROUNDS[gid], max_rounds=max_rounds,
+                enable_heavy=self.enable_heavy_goals, prior_ids=prior, admit_ids=prior + (gid,),
+                syncs=syncs,
+            )
+            return state, rounds, moves, before, after, None
         state, rounds, moves, before, after = _goal_step_fn(
             state, ctx, gid=gid, round_fns=GOAL_ROUNDS[gid], max_rounds=max_rounds,
             enable_heavy=self.enable_heavy_goals, prior_ids=prior, admit_ids=prior + (gid,),
@@ -674,6 +820,10 @@ class GoalOptimizer:
         prior: Tuple[int, ...] = ()
         try:
             for gid in self.goal_ids:
+                if self.deadline_s is not None and syncs.runs:
+                    # the device loop's goals run ahead of the host: the
+                    # wall is read once the last of them has ended
+                    syncs.wait(syncs.runs[-1].done)
                 if self.deadline_s is not None and time.monotonic() - t0 >= self.deadline_s:
                     # stop the walk; goals already walked keep their reports
                     degraded = True
@@ -694,7 +844,8 @@ class GoalOptimizer:
                 is_hard = gid in self.hard_ids
                 after_host = None
                 if profile_goals or (raise_on_hard_failure and is_hard):
-                    after_host = syncs.tolist(after)
+                    after_host, rounds, moves = host_fetch(syncs, [after, rounds, moves])
+                    after_host, rounds, moves = float(after_host), int(rounds), int(moves)
                 if raise_on_hard_failure and is_hard and after_host > 0:
                     raise OptimizationFailure(
                         f"{G.GOAL_NAMES[gid]} unsatisfied: {after_host:.0f} violations remain"
@@ -705,6 +856,7 @@ class GoalOptimizer:
                     on_goal_done(G.GOAL_NAMES[gid], rounds, moves, after_host, dur)
                 prior = prior + (gid,)
         except OptimizationFailure as e:
+            syncs.settle()
             # the spans walked so far plus the refusing goal, so the span
             # syncs still sum to the reported total
             obs.finish_trace(
@@ -722,22 +874,21 @@ class GoalOptimizer:
 
         violN = _violations_fn(state, ctx, heavy, self.goal_ids, spmd)
         # one bulk fetch of every per-goal scalar
-        scalars = [viol0, violN] + [torch.stack([b, a]) for _, b, a, _, _, _, _ in raw]
-        fetched = syncs.tolist(torch.cat(scalars))
-        viol0_h = fetched[: G.NUM_GOALS]
-        violN_h = fetched[G.NUM_GOALS: 2 * G.NUM_GOALS]
-        per_goal = fetched[2 * G.NUM_GOALS:]
+        viol0_h, violN_h, *per_goal = host_fetch(
+            syncs, [viol0, violN] + [x for _, b, a, r, m, _, _ in raw for x in (b, a, r, m)]
+        )
 
         reports: List[GoalReport] = []
         total_moves = 0
-        for i, (gid, _, _, rounds, moves, dur, _) in enumerate(raw):
+        for i, (gid, _, _, _, _, dur, _) in enumerate(raw):
+            before, after, rounds, moves = per_goal[4 * i:4 * i + 4]
             reports.append(
                 GoalReport(
                     goal_id=gid,
                     name=G.GOAL_NAMES[gid],
                     is_hard=gid in self.hard_ids,
-                    violations_before=float(per_goal[2 * i]),
-                    violations_after=float(per_goal[2 * i + 1]),
+                    violations_before=float(before),
+                    violations_after=float(after),
                     rounds=int(rounds),
                     moves_applied=int(moves),
                     duration_s=dur,
@@ -816,9 +967,9 @@ class GoalOptimizer:
                 "balancedness": result.balancedness_score,
                 "provision_status": result.provision.status,
                 "degraded": result.degraded,
-                # the JAX package's dispatch layout flags: the port's goal
-                # steps are host-driven loops with no device-side stamps
-                "fused_dispatch": False,
+                # the JAX package's dispatch layout flags: on the device loop
+                # a goal is one launch; no device-side stamps
+                "fused_dispatch": self._device_loops() is not None,
                 "fast_mode": bool(ctx.fast_mode),
                 "stamps_supported": False,
                 "num_brokers": state.num_brokers,
@@ -903,7 +1054,7 @@ class GoalOptimizer:
 
         # one bulk fetch of every lane's scalars, then host copies of both stacks
         flat = host_fetch(syncs, [
-            x for v0, vN, raw in lanes for x in (v0, vN, *(y for r in raw for y in r[2:5]))
+            x for v0, vN, raw in lanes for x in (v0, vN, *(y for r in raw for y in r[1:5]))
         ])
         initial_h, final_h = syncs.state(states), syncs.state(final)
         duration = time.monotonic() - t0
@@ -914,9 +1065,9 @@ class GoalOptimizer:
             viol0_h, violN_h = flat[k], flat[k + 1]
             k += 2
             reports = []
-            for gid, rounds, _, _, _, wall in raw:
-                moves, before, after = flat[k:k + 3]
-                k += 3
+            for gid, _, _, _, _, wall in raw:
+                rounds, moves, before, after = flat[k:k + 4]
+                k += 4
                 reports.append(GoalReport(
                     goal_id=gid, name=names[gid], is_hard=gid in self.hard_ids,
                     violations_before=float(before), violations_after=float(after),
@@ -1020,15 +1171,15 @@ class GoalOptimizer:
             _max_replication_factor(state, syncs) if G.KAFKA_ASSIGNER_RACK in drifted else 1
         )
         state, raw = self._incremental_walk(state, ctx, drifted, int(max_rounds), max_rf, syncs)
-        violN, *moves = host_fetch(
-            syncs, [_violations_fn(state, ctx, heavy, self.goal_ids)] + [m for _, _, m in raw]
+        violN, *counts = host_fetch(
+            syncs, [_violations_fn(state, ctx, heavy, self.goal_ids)] + [x for _, r, m in raw for x in (r, m)]
         )
         return state, IncrementalResult(
             goals_run=[G.GOAL_NAMES[g] for g, _, _ in raw],
             violations_before=viol0,
             violations_after=violN,
-            total_moves=int(sum(int(m) for m in moves)),
-            total_rounds=int(sum(r for _, r, _ in raw)),
+            total_moves=int(sum(int(m) for m in counts[1::2])),
+            total_rounds=int(sum(int(r) for r in counts[0::2])),
             num_host_syncs=syncs.count,
             duration_s=time.monotonic() - t0,
         )
@@ -1070,19 +1221,19 @@ class GoalOptimizer:
             raws.append(raw)
             viols.append(_violations_fn(state, ctx, heavy, self.goal_ids))
         final = A.stack_arrays(finals)
-        fetched = host_fetch(syncs, viols + [m for raw in raws for _, _, m in raw])
+        fetched = host_fetch(syncs, viols + [x for raw in raws for _, r, m in raw for x in (r, m)])
         duration = time.monotonic() - t0
         k = S
         results: List[IncrementalResult] = []
         for i, raw in enumerate(raws):
-            moves = fetched[k:k + len(raw)]
-            k += len(raw)
+            counts = fetched[k:k + 2 * len(raw)]
+            k += 2 * len(raw)
             results.append(IncrementalResult(
                 goals_run=[G.GOAL_NAMES[g] for g, _, _ in raw if g in drifted_by_lane[i]],
                 violations_before=viol0[i],
                 violations_after=fetched[i],
-                total_moves=int(sum(int(m) for m in moves)),
-                total_rounds=int(sum(r for _, r, _ in raw)),
+                total_moves=int(sum(int(m) for m in counts[1::2])),
+                total_rounds=int(sum(int(r) for r in counts[0::2])),
                 num_host_syncs=syncs.count,
                 duration_s=duration,
             ))
@@ -1104,17 +1255,40 @@ class GoalOptimizer:
         ``max_rounds`` is accepted for the JAX signature and unused."""
         self._build_kernels()
         HostSyncs().tolist(self.violations(state, ctx))
+        self._warm_loops(state, ctx, max_rounds)
 
     def warm_batched_incremental_programs(
         self, states: ClusterArrays, ctx: GoalContext, max_rounds: int
     ) -> None:
         """:meth:`warm_incremental_programs` for a stack: builds the CUDA
-        kernels (on the card) and runs one probe of every lane."""
+        kernels (on the card), runs one probe of every lane and captures
+        the walk's goals at a lane's shapes."""
         self._build_kernels()
         HostSyncs().tolist(self.batched_violations(states, ctx))
+        self._warm_loops(A.index_arrays(states.to(self.device), 0), ctx, max_rounds)
+
+    def _warm_loops(self, state: ClusterArrays, ctx: GoalContext, max_rounds: int) -> None:
+        """On the device driver, capture every goal of the walk at ``state``'s
+        shapes and ``max_rounds`` (each capture runs one round eagerly and
+        discards it: ``state`` stays as it is), as the JAX warm start compiles
+        every program a tick can touch."""
+        loops = self._device_loops()
+        if loops is None:
+            return
+        state, ctx = state.to(self.device), ctx.to(self.device)
+        prior: Tuple[int, ...] = ()
+        for gid in self.goal_ids:
+            if gid != G.KAFKA_ASSIGNER_RACK:
+                round_fns = GOAL_ROUNDS[gid]
+                loops.prepare(
+                    state, ctx, _goal_phases(gid, round_fns, prior, prior + (gid,)),
+                    enable_heavy=self.enable_heavy_goals, max_passes=_max_passes(round_fns),
+                    max_rounds=int(max_rounds), name=G.GOAL_NAMES[gid],
+                )
+            prior = prior + (gid,)
 
     def _build_kernels(self) -> None:
         if self.device.type == "cuda":
             from cruise_control_tpu_torch.ops import _build
 
-            _build.build_all(["segment_sum", "even_assign"])
+            _build.build_all(["segment_sum", "even_assign", "graph_loop"])

@@ -191,7 +191,7 @@ def _partition_occupancy(
     flat = rows.long() * (ncols + 1) + cols.long()
     if spmd is None:
         occupied = torch.zeros((S + 1) * (ncols + 1), dtype=torch.bool, device=dev)
-        occupied[flat] = True
+        occupied.index_fill_(0, flat, True)
         occupied = occupied.view(S + 1, ncols + 1)[:S, :ncols]
         return occupied | ~unique[:, None]
     partial = torch.zeros((S + 1) * (ncols + 1), dtype=I32, device=dev)
@@ -379,14 +379,13 @@ def fill_round(
         donor_scores, donor_cols = SP.coltopk_merge(spmd, sscore, col0, k)
     replicas, views, dsts, needs = [], [], [], []
     n_cands = torch.clamp((cands_k >= 0).sum(dim=0, dtype=I32), min=1)   # per donor
-    rows_idx = torch.arange(M, dtype=torch.int64, device=dev)
     masked = sscore
     salt_t = _i32(salt, dev)
     for j in range(k):
         if donor_cols is None:
             donor, found = _argmax_rows(masked)
             masked = masked.clone()
-            masked[rows_idx, donor.long()] = NEG
+            masked.scatter_(1, donor.long()[:, None], NEG)
         else:
             donor = donor_cols[j]
             found = donor_scores[j] > NEG / 2

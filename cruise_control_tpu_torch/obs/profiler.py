@@ -65,8 +65,11 @@ class ExecutableProfile:
 
     program: str                      # the kernel, e.g. "segment_sum_f32"
     signature: str                    # human-readable shape summary
-    calls: int = 0
-    total_call_s: float = 0.0         # host wall of the calls, not device time
+    calls: int = 0                    # kernel calls the device ran, replays included
+    #: of ``calls``, those replayed inside a device loop's captured rounds
+    #: (no host wall of their own)
+    graph_calls: int = 0
+    total_call_s: float = 0.0         # host wall of the host calls, not device time
     last_call_s: float = 0.0
     compile_events: int = 0           # nvcc builds attributed to this kernel
     compile_s: float = 0.0
@@ -140,6 +143,25 @@ class DeviceProfiler:
                 entry.compile_s += sum(e.get("duration_s", 0.0) for e in events)
             self._count_locked(entry, 1)
         return entry, fresh
+
+    def on_graph_calls(
+        self, program: str, key: tuple, signature: Callable[[], Tuple[str, float, float]], calls: int,
+    ) -> None:
+        """Record ``calls`` replays of a call captured in a device loop's
+        round (``ops.graph_loop``): counted like host calls, with no wall."""
+        if not self.enabled or calls <= 0:
+            return
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                summary, ops, nbytes = signature()
+                entry = self._entries[key] = ExecutableProfile(
+                    program=program, signature=summary, flops=float(ops),
+                    bytes_accessed=float(nbytes), analysis="ok",
+                )
+            entry.calls += calls
+            entry.graph_calls += calls
+            self._count_locked(entry, calls)
 
     def _count_locked(self, entry: ExecutableProfile, calls: int) -> None:
         t = self._totals

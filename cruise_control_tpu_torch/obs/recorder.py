@@ -167,11 +167,15 @@ _COMPILE_LOCK = threading.Lock()
 _COMPILE_LOG_CAP = 4096
 
 
-def record_compile_event(event: str, duration_s: float) -> None:
-    """Append one build event (``ops/_build.py`` calls this once per ``nvcc``)."""
+def record_compile_event(event: str, duration_s: float, kind: Optional[str] = None) -> None:
+    """Append one build event (``ops/_build.py`` calls this once per ``nvcc``;
+    the device loop once per goal graph it captures, ``kind="capture"``)."""
     global _COMPILE_BASE
+    entry = {"event": event, "duration_s": float(duration_s)}
+    if kind is not None:
+        entry["kind"] = kind
     with _COMPILE_LOCK:
-        _COMPILE_LOG.append({"event": event, "duration_s": float(duration_s)})
+        _COMPILE_LOG.append(entry)
         drop = len(_COMPILE_LOG) - _COMPILE_LOG_CAP
         if drop > 0:
             del _COMPILE_LOG[:drop]

@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from cruise_control_tpu_torch.ops import graph_loop
 from cruise_control_tpu_torch.ops.segments import segment_sums
 
 _BLOCK = 16
@@ -173,7 +174,8 @@ def xla_sums(columns: Sequence[torch.Tensor], lanes: Optional[int] = None) -> Li
         for l0 in range(0, L, per_call):
             k = min(per_call, L - l0)
             part = cols if k == L else [c[l0 * n:(l0 + k) * n] for c in cols]
-            parts.append(segment_sums(part, _window_ids(n, cols[0].device, k), k * windows))
+            ids = graph_loop.keep_alive(_window_ids(n, cols[0].device, k))   # a cached entry may be evicted
+            parts.append(segment_sums(part, ids, k * windows))
         cols = parts[0] if len(parts) == 1 else [torch.cat(x) for x in zip(*parts)]
         if windows == 1:
             return [c[0] for c in cols] if lanes is None else cols

@@ -29,7 +29,11 @@ integers keep their dtype and a bool column comes back as "any row".
 
 CPU tensors take the plain version; CUDA tensors launch a kernel or raise.
 Each host call that launches adds one to :data:`LAUNCHES` for its path, and
-the number of value tensors it carried to :data:`FIELDS`.  Each such call
+the number of value tensors it carried to :data:`FIELDS`.  A call made while
+the device loop captures a round (``ops.graph_loop``) launches nothing then:
+it is recorded, and counted once for every replay after the solve fetches its
+trip counts, so the counts stay the kernel calls the device ran; those derived
+replays are also kept apart in :data:`REPLAYED`.  Each such call
 (on the CPU: each call of the plain version where a kernel would have
 launched) also reports to the profiler's census
 (:meth:`~cruise_control_tpu_torch.obs.profiler.DeviceProfiler.on_call`)
@@ -50,12 +54,15 @@ import torch
 
 from cruise_control_tpu_torch.obs.profiler import PROFILER
 from cruise_control_tpu_torch.obs.recorder import compile_events_since, compile_mark
-from cruise_control_tpu_torch.ops import _build
+from cruise_control_tpu_torch.ops import _build, graph_loop
 
 #: host calls that launched a kernel path since :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"segment_sum_f32": 0, "segment_sum_i32": 0}
 #: value tensors those calls carried (one call per tensor would make this many)
 FIELDS: Dict[str, int] = {"segment_sum_f32": 0, "segment_sum_i32": 0}
+#: of :data:`LAUNCHES`, the calls replayed inside device loop graphs: each
+#: captured call times its round's fetched trip count, not counted at a launch
+REPLAYED: Dict[str, int] = {"segment_sum_f32": 0, "segment_sum_i32": 0}
 
 _INT32_MAX = 2**31 - 1
 _F32, _I32, _U8 = 0, 1, 2          # the kernel's field types
@@ -73,7 +80,7 @@ _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for d in (LAUNCHES, FIELDS):
+    for d in (LAUNCHES, FIELDS, REPLAYED):
         for k in d:
             d[k] = 0
 
@@ -91,9 +98,10 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def _census(path: str, rows: int, segments: int, layout: tuple, wall_s: float, events=()) -> None:
-    """Report one host call to the profiler's census: ``layout`` is the
-    value columns' ``(field type, width)`` pairs as the kernel reads them."""
+def _census(path: str, rows: int, segments: int, layout: tuple, wall_s: float, events=(), graph_calls: int = 0) -> None:
+    """Report one host call to the profiler's census, or ``graph_calls``
+    replays of a captured one: ``layout`` is the value columns' ``(field
+    type, width)`` pairs as the kernel reads them."""
     key = (path, rows, segments, layout)
 
     def describe():
@@ -101,7 +109,10 @@ def _census(path: str, rows: int, segments: int, layout: tuple, wall_s: float, e
         nbytes = 4 * rows + rows * sum(w * _FIELD_BYTES[k] for k, w in layout) + 4 * segments * columns
         return f"[{rows}] ids, {columns} columns -> {segments} segments", rows * columns, nbytes
 
-    PROFILER.on_call(path, key, describe, wall_s, events)
+    if graph_calls:
+        PROFILER.on_graph_calls(path, key, describe, graph_calls)
+    else:
+        PROFILER.on_call(path, key, describe, wall_s, events)
 
 
 def _plain_census(columns: Sequence[torch.Tensor], rows: int, segments: int, wall_s: float) -> None:
@@ -217,14 +228,31 @@ def segment_sums_cuda(
         else:  # the launch goes to the current device's stream
             with torch.cuda.device(index):
                 err = _launch(lib, floats, ids, R, S, total, spec, index)
-        if err == 0:
+        rec = graph_loop.recording()
+        if err == 0 and rec is None:
             LAUNCHES[path] += 1
             FIELDS[path] += len(spec) // 4
     if err != 0:
         raise RuntimeError(f"segment-sum kernel launch failed: CUDA error {err}")
+    if rec is not None:
+        # captured into a device loop's round: counted per replay instead
+        rec.calls.append(_replays(path, len(spec) // 4, R, S, tuple(layout)))
+        return outs
     _census(path, R, S, tuple(layout), time.perf_counter() - t0,
             compile_events_since(mark) if mark is not None else ())
     return outs
+
+
+def _replays(path: str, fields: int, rows: int, segments: int, layout: tuple):
+    """The counts of one captured call, added ``times`` over (no host wall)."""
+    def account(times: int) -> None:
+        with _LAUNCH_LOCK:
+            LAUNCHES[path] += times
+            REPLAYED[path] += times
+            FIELDS[path] += fields * times
+        _census(path, rows, segments, layout, 0.0, graph_calls=times)
+
+    return account
 
 
 def _launch(lib, floats, ids, R, S, columns, spec, index) -> int:
@@ -257,12 +285,23 @@ def _scratch(index: int, stream: int, n: int) -> torch.Tensor:
     default stream and ``cc_segment_sums`` runs without the GIL, so the
     caller holds :data:`_LAUNCH_LOCK` from this lookup until the kernels are
     enqueued: two threads' kernels never interleave on the buffer (the
-    detector's threads and the anomaly handler solve at the same time)."""
+    detector's threads and the anomaly handler solve at the same time).
+
+    Under a device loop's capture the buffer must exist already (the eager
+    round before each capture sizes it, outside the graphs' pool), and the
+    captured round holds it (``graph_loop.keep_alive``): a larger buffer
+    may replace it here, and the old one lives on for the graphs that read
+    it."""
     key = (index, stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < n:
+        if graph_loop.recording() is not None:
+            raise RuntimeError(
+                f"segment sums: no scratch of {n} int32 for the stream under capture "
+                "(the eager round before a capture allocates it)"
+            )
         buf = _SCRATCH[key] = torch.empty(n, dtype=torch.int32, device=torch.device("cuda", index))
-    return buf
+    return graph_loop.keep_alive(buf)
 
 
 def segment_sums_plan(rows: int, segments: int, device) -> Dict[str, int]:
