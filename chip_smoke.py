@@ -13,16 +13,19 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    the solver's shapes (among them the assigner's 8 x 128 position counts, the
    sweep's 64 x 10,000 replication factors and the first level of its float
    totals, 64 x 938 windows, each as one call and as 64 per-lane calls; the
-   one float call is timed over 3 calls, not 30 or 200; the per-lane calls
-   beside their plain version and one ``index_add_`` a lane) and a rollout
-   step's calls (16 pairs' replication factors, one lane's totals call, the
-   balancedness of 16 pairs),
+   per-lane calls beside their plain version and one ``index_add_`` a lane) and a rollout
+   step's calls (16 pairs' replication factors, the 16 pairs' totals in one
+   call, beside one call a pair, the balancedness of 16 pairs),
    the skewed case (all rows in one segment), the snapshot's multi-column
    calls, and the snapshot's calls at config #3 and on the JBOD ladder
    (2,500 brokers: 750,000 rows into 4,096 brokers and 5,000 logdirs;
    config #4: 3M rows into 16,384 brokers and 20,000 logdirs, its topic
    tables of 32,768,000 and rack counts of 40,000,000 segments; timed over 10
-   calls): every output bitwise equal to the CPU's sequential sum (floats; ints
+   calls), and the lane-form snapshot's calls, one for every lane of S1's
+   64 and of the rollout's 16 (the broker loads into 64 x 128 and 16 x 128
+   segments, the topic tables into 64 x 2,560 and 16 x 2,560, the rack
+   counts into 64 x 100,000 and 16 x 100,000; each beside one call a lane):
+   every output bitwise equal to the CPU's sequential sum (floats; ints
    exact), two launches bitwise equal, and every fixed-order call of 100,000
    rows or more into 1,024 segments or more planned on 132 blocks or more.  For the kernel, the plain version and
    one ``index_add_`` call (a yardstick the port never calls): ``device_ms``,
@@ -59,8 +62,11 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
 6. sim: the what-if planner and the incremental solves on the JAX sweep
    harness's cluster (100 brokers, 10,000 partitions, RF 3, light load) at
    full width -- S1 ``fast_sweep`` of its 64 scenarios cold, warm and warm
-   under ``torch.profiler`` (host calls per lane, the batch-wide integer call
-   at 640,000 segments, the device idle share; every lane must equal the CPU
+   under ``torch.profiler`` (host calls per sweep: the batch-wide sums, the
+   integer call at 640,000 segments and one float call a level among them,
+   and the lane-form evaluation, one snapshot and one violation pass for
+   every lane; each must be the same at 8 lanes as at 64; the device idle share;
+   every lane must equal the CPU
    port's sweep of all 64 and lanes s0-s7 its sweep of those 8, and the
    batch-wide float totals of every lane the CPU port's bitwise), S2 ``deep_sweep`` of s0-s3 (valid
    placements; lane 0 equal to its direct solve), S3 ``plan_capacity`` at
@@ -88,11 +94,19 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    batched incremental solves), identical on card and CPU;
 9. traces: trace rollouts (``traces.rollout``) on the sim cluster at full
    width -- the JAX traces harness's 4 traces x 4 policies (16 pairs, 64
-   steps: 1,024 lane evaluations, bucket 128) cold, warm and warm under
-   ``torch.profiler``; host calls per step and per lane step, the device
-   idle share, the violation-free pairs and the winners; then
+   steps: 1,024 lane evaluations, bucket 128) cold (the step captured) and
+   warm, the 64 steps one counted loop's graph launch
+   (``csrc/graph_loop.cu``, the JAX ``lax.scan``); the kernels' host calls
+   and the calls replayed in the graph per rollout and per step; the CPU
+   port's rollout and the host loop on the card (the counted loop's plain
+   version), each equal bitwise; the warm rollout profiled in a child
+   process (the kernels it ran beside the eager rollout's 331,799, the
+   device's busy time between two bounds); the violation-free pairs and the
+   winners; then
    ``horizon_requirements`` on the spike trace.  Fails unless a warm rollout
-   makes exactly one host sync and both kernel paths launch;
+   is one launch of its time loop with one host sync and no segment-sum
+   host call, its control kernels count one a step and one to start, and
+   both kernel paths ran in it;
 10. controller: a ``ContinuousController`` warm-started from phase 4's
    solved config #2 placement (a port ``ClusterModel`` built from it; the
    smoke's ``SmokeFacade`` serves the loads), S4's shift (topics 0-9 x 1.3)
@@ -273,7 +287,10 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    warm config #3 solve and ``scale_shapes`` phase 2's times at config
    #3's shapes;
    ``sim_shape`` and ``traces_shapes`` are phase 2's times at the sweep's and
-   the rollout's call shapes; ``kernel_launches`` are the kernels
+   the rollout's call shapes, ``lane_shapes`` at the lane-form snapshot's;
+   ``count_ctl``'s ``launches`` are the control kernels of phase 9's warm
+   rollout as they counted themselves on the device, its ``host_calls`` the
+   counted loop's graph launches; ``kernel_launches`` are the kernels
    those calls enqueued in phase 7's solve (the fixed-order path enqueues
    three per pass), beside that solve's own host calls.
 
@@ -342,6 +359,7 @@ KERNEL_SOURCES = {
     "segment_sum_i32": "cruise_control_tpu_torch/csrc/segment_sum.cu",
     "even_assign": "cruise_control_tpu_torch/csrc/even_assign.cu",
     "graph_loop": "cruise_control_tpu_torch/csrc/graph_loop.cu",
+    "count_ctl": "cruise_control_tpu_torch/csrc/graph_loop.cu",
 }
 REPLACES = {
     "segment_sum_f32": "cruise_control_tpu/ops/segments.py:98 (segment_sum_pallas, pallas_call :127)",
@@ -350,6 +368,8 @@ REPLACES = {
                    "_assign_position, :61; not a Pallas kernel)",
     "graph_loop": "cruise_control_tpu/analyzer/optimizer.py:436-453 (the lax.while_loop of _phase_loop) and "
                   ":559-587 (the goal's pass cycle in _goal_step_fn); not Pallas kernels",
+    "count_ctl": "cruise_control_tpu/traces/rollout.py:151 (the lax.scan over time of _rollout_kernel_fn); "
+                 "not a Pallas kernel",
 }
 #: config #2's default path in the JAX reference (BASELINE config #2)
 CONFIG2_TOTALS = dict(total_moves=24_019, inter_broker_moves=22_245, leadership_moves=7_497,
@@ -505,24 +525,64 @@ def _kernel_cases(gen):
          sweep_ids(), SIM_SCENARIOS * 10_000),
         # the first level of the sweep's float totals (sim.batch.sweep_totals):
         # every lane's must-serve load and offline bytes into XLA's 32-row
-        # windows, each lane's windows after the last lane's, as one call; the
-        # sweep makes it one call a lane (ops.index.LANE_CALL_WINDOWS)
+        # windows, each lane's windows after the last lane's, as one call, as
+        # the sweep makes it (ops.index.LANE_CALL_WINDOWS); beside it one call a lane
         (SWEEP_TOTALS_CASE, "segment_sum_f32",
          [f32(SIM_SCENARIOS * R, 4), f32(SIM_SCENARIOS * R)],
          _window_ids(R, torch.device("cpu"), SIM_SCENARIOS), SIM_SCENARIOS * SWEEP_WINDOWS),
         # a rollout step's calls (traces/rollout.py) at the harness's 16 pairs:
-        # every pair's replication factors, one lane's first level of the
-        # satisfiability totals (each step makes 16), the balancedness over
-        # the 24 goals of every pair
+        # every pair's replication factors, the first level of every pair's
+        # satisfiability totals in one call, the balancedness over the 24
+        # goals of every pair
         (f"rollout replication factors: bool [{TRACE_PAIRS} x 30000] -> {TRACE_PAIRS} x 10000", "segment_sum_i32",
          [torch.ones(TRACE_PAIRS * R, dtype=torch.bool)], sweep_ids(TRACE_PAIRS), TRACE_PAIRS * 10_000),
-        (f"rollout totals, one lane's call: [30000,4] + [30000] -> {SWEEP_WINDOWS} windows", "segment_sum_f32",
-         [f32(R, 4), f32(R)], _window_ids(R, torch.device("cpu")), SWEEP_WINDOWS),
+        (ROLLOUT_TOTALS_CASE, "segment_sum_f32", [f32(TRACE_PAIRS * R, 4), f32(TRACE_PAIRS * R)],
+         _window_ids(R, torch.device("cpu"), TRACE_PAIRS), TRACE_PAIRS * SWEEP_WINDOWS),
         (f"rollout balancedness: f32 [{TRACE_PAIRS} x 24] -> {TRACE_PAIRS}", "segment_sum_f32",
          [f32(TRACE_PAIRS * 24)], torch.arange(TRACE_PAIRS, dtype=torch.int32).repeat_interleave(24),
          TRACE_PAIRS),
     ] + (_rank_cases(gen, CONFIG2, PARALLEL_RANKS) + _rank_cases(gen, MESH8, MESH8_RANKS, counts=False)
-         + _scale_cases(gen) + _ladder_cases(gen))
+         + _scale_cases(gen) + _ladder_cases(gen) + _lane_cases(gen))
+
+
+#: the label every case of a lane-form snapshot starts with
+LANE_CASE = "lane-stacked"
+#: the stacks the lane-form snapshot takes on the main paths: S1's sweep and the rollout's pairs
+LANE_STACKS = (("S1", SIM_SCENARIOS), ("rollout", TRACE_PAIRS))
+
+
+def _lane_cases(gen):
+    """The lane-form snapshot's kernel calls (``analyzer/context.py`` over a
+    stack) on the sim cluster (30,000 replicas a lane, bucket 128, 20 topics,
+    10,000 partitions x 10 racks): S1's 64 lanes and the rollout's 16, one
+    call for every lane with each lane's ids offset past the last lane's
+    segments -- K1 the broker loads, K2 the topic tables and the rack counts.
+    Every lane's ids are lane 0's plus the offset, so the per-lane calls
+    beside each case take lane 0's ids."""
+    R, B = 30_000, 128
+    BT, PR = B * SIM["num_topics"], SIM["num_partitions"] * SIM["num_racks"]
+    cases = []
+    for tag, lanes in LANE_STACKS:
+        rows = lanes * R
+
+        def ids(n):
+            x = torch.randint(0, n, (R,), generator=gen, dtype=torch.int32)
+            x[::997] = -1
+            offset = torch.arange(lanes, dtype=torch.int32)[:, None] * n
+            return torch.where(x >= 0, offset + x, -1).reshape(-1)
+
+        def bits(p):
+            return torch.rand((rows,), generator=gen) < p
+
+        cases += [
+            (f"{LANE_CASE} {tag}: bload [{rows},4] -> {lanes} x {B} = {lanes * B}", "segment_sum_f32",
+             [torch.empty((rows, 4)).exponential_(generator=gen) * 1000.0], ids(B), lanes * B),
+            (f"{LANE_CASE} {tag}: topic tables: 2 bool [{rows}] -> {lanes} x {BT} = {lanes * BT}", "segment_sum_i32",
+             [bits(0.95), bits(0.33)], ids(BT), lanes * BT),
+            (f"{LANE_CASE} {tag}: rack counts: bool [{rows}] -> {lanes} x {PR} = {lanes * PR}", "segment_sum_i32",
+             [bits(0.95)], ids(PR), lanes * PR),
+        ]
+    return cases
 
 
 #: the label every case at config #3's shapes starts with
@@ -680,8 +740,24 @@ SHAPE_KEYS = ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
 SWEEP_WINDOWS = -(-30_000 // 32)
 SWEEP_TOTALS_CASE = (f"sweep totals, first level: [64 x 30000,4] + [64 x 30000] -> 64 x {SWEEP_WINDOWS} = "
                      f"{SIM_SCENARIOS * SWEEP_WINDOWS} windows")
-#: the sweep cases and one lane's segments in each
-SWEEP_LANE_SEGMENTS = {SWEEP_CASE: 10_000, SWEEP_TOTALS_CASE: SWEEP_WINDOWS}
+ROLLOUT_TOTALS_CASE = (f"rollout totals, first level: [{TRACE_PAIRS} x 30000,4] + [{TRACE_PAIRS} x 30000] -> "
+                       f"{TRACE_PAIRS} x {SWEEP_WINDOWS} = {TRACE_PAIRS * SWEEP_WINDOWS} windows")
+#: the cases of one call for many lanes: (lanes, one lane's segments) by label prefix
+SWEEP_LANE_SEGMENTS = {SWEEP_CASE: (SIM_SCENARIOS, 10_000), SWEEP_TOTALS_CASE: (SIM_SCENARIOS, SWEEP_WINDOWS),
+                       ROLLOUT_TOTALS_CASE: (TRACE_PAIRS, SWEEP_WINDOWS)}
+
+
+def lane_stack(label: str):
+    """(lanes, one lane's segments) of a case that is one call for many
+    lanes (the sweep's batch-wide calls and the lane-form snapshot's), else
+    None."""
+    for prefix, split in SWEEP_LANE_SEGMENTS.items():
+        if label.startswith(prefix):
+            return split
+    for tag, lanes in LANE_STACKS:
+        if label.startswith(f"{LANE_CASE} {tag}:"):
+            return lanes, int(label.rsplit(" = ", 1)[1]) // lanes
+    return None
 
 
 def sweep_ids(lanes: int = SIM_SCENARIOS):
@@ -730,41 +806,41 @@ def phase_kernels(dev):
             lambda: SEG.segment_sums_plain(cols, ids, S),
             lambda: lib_out.index_add_(0, lib_ids, flat),
         ]
-        # the one call for all lanes of the sweep's totals runs ~0.25 s, the
-        # ladder's calls read up to 3M rows: few reps
-        reps = 3 if label == SWEEP_TOTALS_CASE else 10 if label.startswith(LADDER_CASE) else None
+        # the ladder's calls read up to 3M rows: few reps
+        reps = 10 if label.startswith(LADDER_CASE) else None
         dev_ms, phases = device_ms(fns, calls=reps or 30)
         calls = [call_ms(fn, calls=reps or 200) for fn in fns]
         lat = latency_ms(fns[0], reps=reps or 30)
         width = flat.shape[1]
         per_lane = {}
-        lane_segments = next((n for k, n in SWEEP_LANE_SEGMENTS.items() if label.startswith(k)), None)
-        if lane_segments:
+        lane_split = lane_stack(label)
+        if lane_split:
             # beside it, one call per lane (lane 0's ids are every lane's, less the offset)
-            lane_ids = ids.view(SIM_SCENARIOS, -1)[0]
-            lane_cols = [c.view(SIM_SCENARIOS, -1, *c.shape[1:]) for c in cols]
+            lanes, lane_segments = lane_split
+            lane_ids = ids.view(lanes, -1)[0]
+            lane_cols = [c.view(lanes, -1, *c.shape[1:]) for c in cols]
 
             def per_lane_fn():
                 return [SEG.segment_sums([c[i] for c in lane_cols], lane_ids, lane_segments)
-                        for i in range(SIM_SCENARIOS)]
+                        for i in range(lanes)]
 
             def per_lane_plain():
                 return [SEG.segment_sums_plain([c[i] for c in lane_cols], lane_ids, lane_segments)
-                        for i in range(SIM_SCENARIOS)]
+                        for i in range(lanes)]
 
-            lane_flat = flat.view(SIM_SCENARIOS, -1, width)
+            lane_flat = flat.view(lanes, -1, width)
             lane_lib_ids = lane_ids.clamp(min=0).long()
             lane_out = torch.zeros((lane_segments, width), dtype=lib_dtype, device=dev)
 
             def per_lane_library():
-                for i in range(SIM_SCENARIOS):
+                for i in range(lanes):
                     lane_out.index_add_(0, lane_lib_ids, lane_flat[i])
 
             outs = per_lane_fn()
             check(all(torch.equal(torch.cat([o[j] for o in outs]), x) for j, x in enumerate(a)),
                   f"{label}: per-lane calls differ")
             (pl_dev, pl_plain, pl_lib), _ = device_ms([per_lane_fn, per_lane_plain, per_lane_library], calls=10)
-            per_lane = dict(per_lane_calls=SIM_SCENARIOS, per_lane_device_ms=pl_dev,
+            per_lane = dict(per_lane_calls=lanes, per_lane_device_ms=pl_dev,
                             per_lane_call_ms=call_ms(per_lane_fn, calls=20),
                             per_lane_latency_ms=latency_ms(per_lane_fn, reps=10),
                             per_lane_plain_device_ms=pl_plain,
@@ -1206,27 +1282,41 @@ def phase_sim(dev, config2_final):
     base, _ = generate(SyntheticSpec(**SIM), device="cpu")
     scs = make_scenarios(SIM_SCENARIOS)
 
-    # S1: the fast sweep, cold then warm
+    # S1: the fast sweep, cold then warm; then warm at 8 lanes (the host calls must not grow with the lanes)
     _reset_counts()
     t0 = time.monotonic()
     cold = sim.fast_sweep(base, scs, device=dev)
     _sync(dev)
     cold_s = time.monotonic() - t0
     calls = _counts()
+    _reset_counts()
     t0 = time.monotonic()
     warm = sim.fast_sweep(base, scs, device=dev)
     _sync(dev)
     warm_s = time.monotonic() - t0
+    warm_calls = _counts()
+    _reset_counts()
+    t0 = time.monotonic()
+    sim.fast_sweep(base, scs[:8], device=dev)
+    _sync(dev)
+    warm8_s, calls8 = time.monotonic() - t0, _counts()
     prof, prof_s, events = _profiled(lambda: sim.fast_sweep(base, scs, device=dev))
     busy_s = sum(e.device_time_total for e in events) / 1e6
-    # the batch-wide sums alone: one integer call at the sweep shape
+    # the batch-wide sums alone (one integer call at the sweep shape; the float
+    # totals one call a level for all lanes), at 64 lanes and at 8; the rest
+    # is the lane-form evaluation, one snapshot and one violation pass for all
+    # lanes; neither's host calls may grow with the lanes
+    batch_calls, evaluation = [], []
+    for lanes, total in ((scs, warm_calls), (scs[:8], calls8)):
+        batch = sim.build_batch(base, lanes, device=dev)
+        ctx = GoalContext.build(base.num_topics, batch.bucket[0], device=dev)
+        _reset_counts()
+        SB._sweep_reductions(batch.states, ctx)
+        _sync(dev)
+        batch_calls.append(_counts())
+        evaluation.append({p: total[p] - batch_calls[-1][p] for p in ("segment_sum_f32", "segment_sum_i32")})
     batch = sim.build_batch(base, scs, device=dev)
     ctx = GoalContext.build(base.num_topics, batch.bucket[0], device=dev)
-    _reset_counts()
-    SB._sweep_reductions(batch.states, ctx)
-    _sync(dev)
-    batch_calls = _counts()
-    per_lane = {p: (calls[p] - batch_calls[p]) / SIM_SCENARIOS for p in ("segment_sum_f32", "segment_sum_i32")}
     # the CPU port: every lane's verdict, and the batch-wide totals bitwise
     t0 = time.monotonic()
     cpu64 = sim.fast_sweep(base, scs, device="cpu")
@@ -1237,7 +1327,9 @@ def phase_sim(dev, config2_final):
     same_totals = [torch.equal(x.cpu(), y) for x, y in zip(*totals)]
     say("sim", step="S1 fast_sweep", scenarios=len(scs), bucket=list(cold.bucket),
         cold_wall_s=cold_s, warm_wall_s=warm_s, num_host_syncs=warm.num_host_syncs,
-        host_calls=calls, host_calls_batch_wide=batch_calls, host_calls_per_lane=per_lane,
+        host_calls=calls, host_calls_per_sweep=warm_calls, host_calls_at_8_lanes=calls8, warm_wall_8_lanes_s=warm8_s,
+        host_calls_batch_wide=batch_calls[0], host_calls_batch_wide_at_8_lanes=batch_calls[1],
+        host_calls_evaluation=evaluation[0], host_calls_evaluation_at_8_lanes=evaluation[1],
         profiled_wall_s=prof_s, device_busy_s=busy_s, device_idle_share=1.0 - busy_s / prof_s,
         kernel_launches=len(events), cpu_port_wall_s=cpu64_s,
         satisfiable=sum(v.satisfiable for v in warm.scenarios),
@@ -1250,8 +1342,11 @@ def phase_sim(dev, config2_final):
     check([v.to_dict() for v in cold.scenarios[:8]] == [v.to_dict() for v in cpu8.scenarios],
           "S1: lanes s0-s7 differ from the CPU port's sweep of them")
     check(all(same_totals), f"S1: batch-wide totals differ from the CPU port's ({same_totals})")
-    check(batch_calls["segment_sum_i32"] == 1 and calls["segment_sum_i32"] > SIM_SCENARIOS,
-          f"S1: the sweep-shape integer call did not launch once ({batch_calls})")
+    check(batch_calls[0]["segment_sum_i32"] == 1 and evaluation[0]["segment_sum_i32"] > 0,
+          f"S1: the sweep-shape integer call did not launch once ({batch_calls[0]})")
+    check(evaluation[0] == evaluation[1] and all(calls8[p] == warm_calls[p] for p in evaluation[0]),
+          f"S1: the kernels' host calls grow with the lanes: {calls8} at 8, {warm_calls} at 64 "
+          f"(the evaluation's {evaluation[1]}, {evaluation[0]})")
 
     # S2: the deep sweep of s0-s3; lane 0 against a direct solve on the card
     t0 = time.monotonic()
@@ -1583,18 +1678,82 @@ def _same_rollout(a, b) -> bool:
                     for k in a.series))
 
 
+#: the 16 x 64 rollout before its time loop was one device program (each step
+#: eager, each lane evaluated alone): its wall and the kernels the profiler
+#: traced on an NVIDIA H100 80GB HBM3 at 700.00 W
+TRACE_BEFORE = dict(wall_s=6.754, kernel_launches=331_799)
+#: what the counted loop's control kernel reads and writes a step: the step
+#: index and its own count, each once
+COUNT_CTL_BYTES = 16
+
+
+def traces_profile_child() -> None:
+    """Phase 9's profile in a process of its own (``python -c "import
+    chip_smoke; chip_smoke.traces_profile_child()"``): the rollout cold (its
+    step captured) and warm, then warm once under ``torch.profiler`` with
+    CUDA events around the counted loop's launch; prints one JSON object.
+    A fresh process, as :func:`profile_child`: a profiled replay of graphs
+    built after an earlier profiler session faults."""
+    from cruise_control_tpu_torch.ops import graph_loop as GL
+    from cruise_control_tpu_torch.ops import segments as SEG
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+    from cruise_control_tpu_torch.traces import rollout
+
+    dev = torch.device("cuda")
+    base, _ = generate(SyntheticSpec(**SIM), device="cpu")
+    traces, policies = trace_workload()
+    for _ in range(2):
+        rollout(base, traces, policies, bucket_brokers=TRACE_BUCKET, device=dev)
+    torch.cuda.synchronize()
+    windows = []
+    launch = GL.CountedLoop.launch
+
+    def timed_launch(loop, stream):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        launch(loop, stream)
+        end.record(stream)
+        windows.append((start, end))
+
+    SEG.reset_launch_counts()
+    GL.reset_launch_counts()
+    GL.CountedLoop.launch = timed_launch
+    try:
+        res, wall_s, kernels = _profiled(lambda: rollout(base, traces, policies, bucket_brokers=TRACE_BUCKET,
+                                                         device=dev))
+    finally:
+        GL.CountedLoop.launch = launch
+    print(json.dumps(dict(
+        wall_s=wall_s, graph_s=sum(a.elapsed_time(b) for a, b in windows) / 1e3, windows=len(windows),
+        kernels=[list(e) for e in kernels], segments=dict(SEG.LAUNCHES), graphs=dict(GL.LAUNCHES),
+        num_host_syncs=res.num_host_syncs, steps=res.num_steps,
+    )), flush=True)
+
+
 def phase_traces(dev):
     """Trace rollouts on the card at the sim cluster's full width: the JAX
     traces harness's 4 traces x 4 policies (16 pairs, 64 steps: 1,024 lane
-    evaluations, bucket 128), cold, warm and warm under ``torch.profiler``;
-    the host calls per step and per lane; then ``horizon_requirements`` on the
-    spike trace.  Fails unless a warm rollout makes one host sync, both
-    kernel paths launch and the three rollouts agree.  Returns the host calls
-    of one warm rollout."""
-    from cruise_control_tpu_torch.analyzer import GoalContext
-    from cruise_control_tpu_torch.analyzer import goals_base as G
+    evaluations, bucket 128), cold (the step captured) and warm, each step
+    one lane-form evaluation of the 16 pairs and the 64 steps one counted
+    loop's graph launch; the kernels' host calls and the calls replayed in
+    the graph (derived: the captured step's calls times the steps), per
+    rollout and per step; then the same rollout on the CPU port (equal
+    bitwise) and through the plain version of the counted loop, the host
+    loop on the card (equal bitwise, its wall), the plain control (one
+    eager step-index add) timed; the warm rollout profiled in a child
+    process (:func:`traces_profile_child`): the kernels it ran beside the
+    331,799 of the eager rollout, and the device's busy time between the
+    graph window (above) and the traced kernels (below); then
+    ``horizon_requirements`` on
+    the spike trace.  Fails unless a warm rollout is one launch of its time
+    loop with one host sync and no segment-sum host call, the control
+    kernels counted on the device are the loop's layout (one a step and one
+    to start), both kernel paths ran in it and every rollout agrees.
+    Returns the warm rollout's calls (host and replayed) and the counted
+    loop's record for the ``kernels`` line."""
+    from cruise_control_tpu_torch.ops import graph_loop as GL
+    from cruise_control_tpu_torch.ops import segments as SEG
     from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
-    from cruise_control_tpu_torch.sim import batch as SB
     from cruise_control_tpu_torch.traces import horizon_requirements, rollout
 
     # the package exports a function named ``rollout`` over the module's name
@@ -1602,58 +1761,95 @@ def phase_traces(dev):
 
     base, _ = generate(SyntheticSpec(**SIM), device="cpu")
     traces, policies = trace_workload()
+
+    def run(where=dev):
+        return rollout(base, traces, policies, bucket_brokers=TRACE_BUCKET, device=where)
+
     _reset_counts()
+    GL.reset_launch_counts()
     t0 = time.monotonic()
-    cold = rollout(base, traces, policies, bucket_brokers=TRACE_BUCKET, device=dev)
+    cold = run()
     _sync(dev)
     cold_s = time.monotonic() - t0
     cold_calls = _counts()
     _reset_counts()
+    GL.reset_launch_counts()
     t0 = time.monotonic()
-    warm = rollout(base, traces, policies, bucket_brokers=TRACE_BUCKET, device=dev)
+    warm = run()
     _sync(dev)
     warm_s = time.monotonic() - t0
-    calls = _counts()
-    prof, prof_s, events = _profiled(
-        lambda: rollout(base, traces, policies, bucket_brokers=TRACE_BUCKET, device=dev))
-    busy_s = sum(e.device_time_total for e in events) / 1e6
-    # the batch-wide calls of one step: the satisfiability sums and the balancedness
-    full, B_pad = R._full_headroom_state(base, TRACE_BUCKET, TRACE_BUCKET)
-    full = full.to(dev)
-    ctx = GoalContext.build(base.num_topics, B_pad, device=dev)
+    calls, replayed, loop = _counts(), dict(SEG.REPLAYED), dict(GL.LAUNCHES)
+    host_calls = {p: calls[p] - replayed[p] for p in ("segment_sum_f32", "segment_sum_i32")}
     N, T = warm.num_pairs, warm.num_steps
-    n = torch.full((N,), base.num_brokers, dtype=torch.int32, device=dev)
-    states = R._step_cluster(full, base.num_brokers, n, torch.ones(N, device=dev),
-                             torch.ones((N, base.num_topics), device=dev))
-    _reset_counts()
-    SB._sweep_reductions(states, ctx)
-    R._balancedness(torch.zeros((N, G.NUM_GOALS), device=dev), torch.ones(G.NUM_GOALS, device=dev))
-    _sync(dev)
-    step_calls = _counts()
-    per_step = {p: calls[p] / T for p in ("segment_sum_f32", "segment_sum_i32")}
-    per_lane = {p: (calls[p] - T * step_calls[p]) / (N * T) for p in ("segment_sum_f32", "segment_sum_i32")}
+    # the CPU port, and the plain version of the counted loop: the host loop on the card
+    t0 = time.monotonic()
+    cpu = run(torch.device("cpu"))
+    cpu_s = time.monotonic() - t0
+    time_loop = R._time_loop
+    R._time_loop = lambda inputs, outputs, step, T_, dev_, key, syncs: R._host_loop(inputs, outputs, step, T_, dev_)
+    try:
+        run()
+        _sync(dev)
+        t0 = time.monotonic()
+        host_loop = run()
+        _sync(dev)
+        host_loop_s = time.monotonic() - t0
+    finally:
+        R._time_loop = time_loop
+    step = torch.zeros(2, dtype=torch.int32, device=dev)
+    plain_ms = call_ms(lambda: step[GL.STEP].add_(1))
+    # the warm rollout profiled in a fresh process
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.traces_profile_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=600,
+    )
+    check(proc.returncode == 0, f"traces: the profile child exited {proc.returncode}: {proc.stderr.strip()[-800:]}")
+    m = json.loads(proc.stdout.strip().splitlines()[-1])
+    kernels = [DeviceEvent(*e) for e in m["kernels"]]
+    in_graph = {e.correlation for e in kernels if "count_ctl" in e.name}
+    outside = [e for e in kernels if e.correlation not in in_graph]
+    busy_upper_s = m["graph_s"] + sum(e.device_time_total for e in outside) / 1e6
+    busy_traced_s = sum(e.device_time_total for e in kernels) / 1e6
+    ctl = [e.device_time_total for e in kernels if "count_ctl" in e.name]
+    ran = m["graphs"]["step_nodes"] + m["graphs"]["count_ctl"] + len(outside)
     t0 = time.monotonic()
     horizon = horizon_requirements(base, traces[2], device=dev)
     _sync(dev)
     horizon_s = time.monotonic() - t0
     say("traces", pairs=N, steps=T, lane_evaluations=N * T, bucket=list(warm.bucket),
-        cold_wall_s=cold_s, warm_wall_s=warm_s, ms_per_lane_step=warm_s / (N * T) * 1e3,
-        num_host_syncs=warm.num_host_syncs, cold_host_calls=cold_calls, host_calls=calls,
-        host_calls_per_step=per_step, host_calls_batch_wide_per_step=step_calls,
-        host_calls_per_lane_step=per_lane, profiled_wall_s=prof_s, device_busy_s=busy_s,
-        device_idle_share=1.0 - busy_s / prof_s, kernel_launches=len(events),
+        cold_wall_s=cold_s, warm_wall_s=warm_s, warm_wall_before_s=TRACE_BEFORE["wall_s"],
+        ms_per_step=warm_s / T * 1e3, num_host_syncs=warm.num_host_syncs, count_loop_launches=loop["count_loop"],
+        count_ctl_kernels=loop["count_ctl"], count_ctl_by_layout=loop["count_ctl_by_layout"],
+        step_work_nodes_derived=loop["step_nodes"], cold_calls=cold_calls, host_calls=host_calls,
+        replayed_calls_derived=replayed, calls_per_step={p: calls[p] / T for p in host_calls},
+        cpu_port_wall_s=cpu_s, host_loop_wall_s=host_loop_s, plain_control_ms=plain_ms,
+        profiled_wall_s=m["wall_s"], kernels_ran=ran, kernels_ran_before=TRACE_BEFORE["kernel_launches"],
+        traced_kernels=len(kernels), traced_outside_graph=len(outside), graph_device_s=m["graph_s"],
+        graph_window_occupancy=busy_upper_s / m["wall_s"], device_busy_upper_s=busy_upper_s,
+        device_busy_traced_s=busy_traced_s,
+        device_idle_share_bounds=[1.0 - busy_upper_s / m["wall_s"], 1.0 - busy_traced_s / m["wall_s"]],
+        count_ctl_traced=len(ctl), count_ctl_device_ms=sum(ctl) / 1e3 / len(ctl) if ctl else None,
         violation_free_pairs=sum(v.violation_free for v in warm.verdicts), winners=warm.winners(),
         verdicts=_rollout_rows(warm),
         horizon=dict(horizon, wall_s=horizon_s))
-    check(warm.num_host_syncs == 1 and cold.num_host_syncs == 1 and prof.num_host_syncs == 1,
+    check(warm.num_host_syncs == 1 and cold.num_host_syncs == 1 and m["num_host_syncs"] == 1,
           f"traces: {warm.num_host_syncs} host syncs in a warm rollout, want 1")
-    check(_same_rollout(cold, warm) and _same_rollout(cold, prof), "traces: rollouts of the same inputs differ")
+    check(loop["count_loop"] == 1 and m["windows"] == 1,
+          f"traces: {loop['count_loop']} launches of the time loop in a warm rollout, want 1")
+    check(loop["count_ctl"] == loop["count_ctl_by_layout"] == T + 1,
+          f"traces: {loop['count_ctl']} control kernels on the device, {loop['count_ctl_by_layout']} by the layout")
+    check(all(n == 0 for n in host_calls.values()), f"traces: segment-sum host calls in a warm rollout: {host_calls}")
     for path in ("segment_sum_f32", "segment_sum_i32"):
-        check(calls[path] >= T, f"traces: kernel path {path} launched {calls[path]} times in {T} steps")
+        check(replayed[path] >= T, f"traces: kernel path {path} ran {replayed[path]} times in {T} steps")
+    check(_same_rollout(cold, warm), "traces: rollouts of the same inputs differ")
+    check(_same_rollout(warm, cpu), "traces: the card's rollout differs from the CPU port's")
+    check(_same_rollout(warm, host_loop), "traces: the counted loop differs from the host loop on the card")
     check(all(np.isfinite(warm.series["viol"]).ravel()), "traces: non-finite violation counts")
     check(horizon["horizonSteps"] == TRACE_STEPS and horizon["numHostSyncs"] == 1,
           f"horizon: {horizon}")
-    return calls
+    return calls, dict(launches=loop["count_ctl"], host_calls=loop["count_loop"], max_abs_err=0.0,
+                       ms=sum(ctl) / 1e3 / len(ctl) if ctl else None, plain_ms=plain_ms,
+                       rollout_s=warm_s, host_loop_rollout_s=host_loop_s)
 
 
 class SmokeFacade:
@@ -1883,10 +2079,29 @@ def _fleet_tick(state, maps, loads, factors, dev):
 def phase_fleet(dev, config2_final, maps):
     """Four tenants of config #2's solved cluster with S4's four shifts, one
     fleet tick on the card; each tenant's standing set must equal its own
-    standalone controller's tick."""
+    standalone controller's tick.  The drift probe's lanes and kernel host
+    calls are printed (one lane-form evaluation of the four tenants)."""
+    from cruise_control_tpu_torch.analyzer import optimizer as O
+    from cruise_control_tpu_torch.model import arrays as A
+
     loads = partition_loads(config2_final, maps)
+    probe = {}
+    batched_violations = O.GoalOptimizer.batched_violations
+
+    def counted_probe(opt, states, ctx):
+        """The drift probe: one lane-form evaluation of the group's stack."""
+        before = _counts()
+        out = batched_violations(opt, states, ctx)
+        after = _counts()
+        probe.update(lanes=A.num_lanes(states), host_calls={p: after[p] - before[p] for p in after})
+        return out
+
     _reset_counts()
-    fleet, attrs, wall = _fleet_tick(config2_final, maps, loads, SHIFT_FACTORS, dev)
+    O.GoalOptimizer.batched_violations = counted_probe
+    try:
+        fleet, attrs, wall = _fleet_tick(config2_final, maps, loads, SHIFT_FACTORS, dev)
+    finally:
+        O.GoalOptimizer.batched_violations = batched_violations
     calls = _counts()
     t0 = time.monotonic()
     solos = [_standalone_tick(config2_final, maps, loads, f, dev)[0] for f in SHIFT_FACTORS]
@@ -1898,8 +2113,9 @@ def phase_fleet(dev, config2_final, maps):
         published=attrs and attrs["published"], num_host_syncs=attrs and attrs["num_host_syncs"],
         span_s={s.name: s.duration_s for s in fleet.last_spans if s.name != "publish"},
         goals_run=[s.attrs.get("goals_run") for s in fleet.last_spans if s.name == "optimize"],
-        proposals=[len(s.proposals) if s else 0 for s in sets], host_calls=calls)
+        proposals=[len(s.proposals) if s else 0 for s in sets], host_calls=calls, probe=probe)
     check(attrs is not None and attrs["published"] == len(SHIFT_FACTORS), f"fleet: {attrs}")
+    check(probe.get("lanes") == len(SHIFT_FACTORS), f"fleet: the drift probe evaluated {probe}")
     for i, (s, solo) in enumerate(zip(sets, solos)):
         check(s is not None and _set_key(s) == _set_key(solo),
               f"fleet: tenant t{i}'s set differs from its standalone tick")
@@ -3610,7 +3826,7 @@ def main() -> int:
     profile_calls, profile_kernels, loop_ctl = timed("profile", phase_profile, dev)
     small_final = timed("card_vs_cpu", phase_card_vs_cpu, dev)
     timed("sim_card_vs_cpu", phase_sim_card_vs_cpu, dev, small_final)
-    traces_launches = timed("traces", phase_traces, dev)
+    traces_launches, count_loop = timed("traces", phase_traces, dev)
     config2_maps = _case(CONFIG2, "cpu")[2]
     controller_launches = timed("controller", phase_controller, dev, config2_final, config2_maps)
     timed("fleet", phase_fleet, dev, config2_final, config2_maps)
@@ -3656,6 +3872,9 @@ def main() -> int:
             "ingest_launches": ingest_launches[path], "api_launches": api_launches[path],
             "parallel_launches": parallel_launches[path], "parallel_collectives": parallel_collectives,
             "traces_shapes": [{k: r[k] for k in SHAPE_KEYS} for r in at_rollout],
+            "lane_shapes": [{k: r[k] for k in SHAPE_KEYS + ("max_abs_err", "per_lane_calls", "per_lane_device_ms",
+                                                            "per_lane_call_ms", "per_lane_library_device_ms")}
+                            for r in records if r["path"] == path and r["case"].startswith(LANE_CASE)],
             "parallel_shapes": [{k: r[k] for k in SHAPE_KEYS + ("max_abs_err",)} for r in in_ranks],
             "scale_launches": scale_launches[path],
             "scale_shapes": [{k: r[k] for k in SHAPE_KEYS + ("max_abs_err",)} for r in records
@@ -3682,6 +3901,19 @@ def main() -> int:
         "bound_ms": LOOP_CTL_BYTES / H100_HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         "goal_ms": device_loop["goal_ms"], "plain_goal_ms": device_loop["plain_goal_ms"],
         "profiled_kernel_launches": loop_ctl["launches"],
+    })
+    # the rollout's time loop: one graph launch a rollout, the one-thread
+    # control kernel once to start and once a step (counted on the device);
+    # "plain" is the host loop's step-index add, and no PyTorch call computes it
+    kernels.append({
+        "name": "count_ctl", "route": "cuda", "source": KERNEL_SOURCES["count_ctl"],
+        "replaces": REPLACES["count_ctl"],
+        "launches": count_loop["launches"], "host_calls": count_loop["host_calls"],
+        "kernel_launches": count_loop["launches"], "kernel_launches_host_calls": count_loop["host_calls"],
+        "max_abs_err": count_loop["max_abs_err"],
+        "ms": count_loop["ms"], "plain_ms": count_loop["plain_ms"],
+        "bound_ms": COUNT_CTL_BYTES / H100_HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+        "rollout_s": count_loop["rollout_s"], "host_loop_rollout_s": count_loop["host_loop_rollout_s"],
     })
     # one kernel per host call; "plain" is the CPU loop (no PyTorch call computes it)
     rec = assign_records[0]                                    # config #2's shape

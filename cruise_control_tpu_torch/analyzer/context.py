@@ -36,7 +36,7 @@ from cruise_control_tpu_torch.core.device import DeviceLike, resolve_device
 from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
-from cruise_control_tpu_torch.ops.index import segment_max, segment_min, xla_sums
+from cruise_control_tpu_torch.ops.index import lane_xla_sums, segment_max, segment_min
 from cruise_control_tpu_torch.ops.segments import segment_sums as _segment_sums
 from cruise_control_tpu_torch.parallel.spmd import chained_segment_sums, merge_mins
 
@@ -223,6 +223,46 @@ NEED_BROKER_SET = "broker_set"    # broker_set_need (BrokerSetAwareGoal)
 ALL_NEEDS = frozenset({NEED_RACK_FIRST, NEED_LEADER, NEED_PREF, NEED_BROKER_SET})
 
 
+def _sums(columns, seg: torch.Tensor, num_segments: int, lanes: Optional[int]):
+    """The segment sums of one state, or of every lane of a stack in one
+    call (``model.arrays.lane_segment_sums``)."""
+    if lanes is None:
+        return _segment_sums(columns, seg, num_segments)
+    return A.lane_segment_sums(columns, seg, num_segments, lanes)
+
+
+#: positions tracked by the kafka-assigner evenness metric
+#: (``goals_base.assigner_position_counts``)
+ASSIGNER_POS_CAP = 8
+#: columns of the snapshot's widest call: the broker call's four loads, two
+#: counts and up to five float columns
+_BROKER_COLUMNS = 11
+_INT32_MAX = 2**31 - 1
+
+
+def lane_span(state: ClusterArrays, enable_heavy: bool) -> int:
+    """The most one lane adds to any int32 count of a lane-form snapshot and
+    violation pass: a call's rows or segments times its columns, or a
+    lane-offset segment id.  A stack's lanes times this must fit in int32."""
+    B = state.num_brokers
+    span = max(
+        state.num_replicas * _BROKER_COLUMNS, B * _BROKER_COLUMNS, ASSIGNER_POS_CAP * B,
+        state.num_partitions * max(state.num_racks, 1), state.num_disks,
+    )
+    return max(span, 2 * B * state.num_topics) if enable_heavy else span
+
+
+def check_lane_span(lanes: int, span: int) -> None:
+    """Raise, before anything is allocated, when ``lanes`` lanes of ``span``
+    (:func:`lane_span`) would pass int32 indexing: a lane-offset id would
+    wrap into another lane's segments."""
+    if lanes * span > _INT32_MAX:
+        raise ValueError(
+            f"{lanes} lanes x {span:,} (the widest lane-form call of one lane) exceed int32 indexing "
+            f"({_INT32_MAX:,}): evaluate at most {max(_INT32_MAX // span, 1)} lanes of this shape at once"
+        )
+
+
 def take_snapshot(
     state: ClusterArrays,
     ctx: GoalContext,
@@ -234,8 +274,21 @@ def take_snapshot(
     the snapshot, so an unexpected reader fails loudly instead of reading a
     stale table.  ``spmd`` (parallel.spmd.SpmdInfo) switches the replica
     axis to this rank's block: ``partition_leader`` holds GLOBAL replica
-    ids, and every reduction merges over the ranks."""
+    ids, and every reduction merges over the ranks.
+
+    A stack (``model.arrays.stack_arrays``) gives every lane's snapshot at
+    once, the JAX package's ``vmap`` of this function: each field gains a
+    leading lane axis, and each segment-sum call covers every lane (ids
+    offset past the last lane's segments, each lane's rows in their order,
+    so each lane's float sums round as its own call's), the cross-broker sums
+    add each lane in XLA's order (``xla_sums(lanes=)``)."""
     dev = state.device
+    L = A.lanes_of(state)
+    if L is not None:
+        if spmd is not None:
+            raise ValueError("take_snapshot: a stack of lanes is never sharded over ranks")
+        check_lane_span(L, lane_span(state, enable_heavy))
+    lanes = A.lane_shape(state)
     if spmd is None:
         eff = A.effective_load(state)
         lead = A.is_leader(state)
@@ -246,7 +299,7 @@ def take_snapshot(
         delta_r = state.leadership_delta[state.replica_partition]
         eff = state.base_load + torch.where(lead[:, None], delta_r, 0.0)
         eff = torch.where(state.replica_valid[:, None], eff, 0.0)
-    topic = state.partition_topic[state.replica_partition]
+    topic = A.take(state.partition_topic, state.replica_partition, L)
     offline = state.replica_offline_mask()
     immigrant = state.replica_broker != state.original_broker
     topic_allowed = state.replica_valid & ~ctx.excluded_topics[topic]
@@ -257,8 +310,8 @@ def take_snapshot(
     rvalid = state.replica_valid
     leader_movable = (
         rvalid
-        & state.broker_alive[rb]
-        & ~state.broker_demoted[rb]
+        & A.take(state.broker_alive, rb, L)
+        & ~A.take(state.broker_demoted, rb, L)
         & ~ctx.excluded_for_leadership[rb]
         & ~offline
     )
@@ -268,7 +321,7 @@ def take_snapshot(
     P = state.num_partitions
     D = state.num_disks
 
-    rack = state.broker_rack[rb]
+    rack = A.take(state.broker_rack, rb, L)
     group = rp * state.num_racks + rack
     on_disk = state.replica_disk >= 0
 
@@ -277,8 +330,8 @@ def take_snapshot(
         # leaderless partitions read replica row 0, as the JAX package does
         ltarget = torch.clamp(state.partition_leader, min=0)
         if spmd is None:
-            leader_broker = rb[ltarget]
-            leader_eff = eff[ltarget]
+            leader_broker = A.take(rb, ltarget, L)
+            leader_eff = A.take(eff, ltarget, L)
         else:
             # the rank owning partition_leader[p] contributes the row, every
             # other rank zeros: the merged sum adds to zeros only (exact)
@@ -295,10 +348,10 @@ def take_snapshot(
     # group-first table, and their per-broker count joins the sums' merge
     mins = {}
     if NEED_PREF in needs:
-        mins["pref"] = segment_min(torch.where(rvalid, gidx, _BIG), rp, P)
+        mins["pref"] = segment_min(torch.where(rvalid, gidx, _BIG), rp, P, L)
     if NEED_RACK_FIRST in needs:
         mins["rack_first2"] = segment_min(
-            torch.where(rvalid, gidx * 2 + offline.to(I32), _BIG), group, P * state.num_racks
+            torch.where(rvalid, gidx * 2 + offline.to(I32), _BIG), group, P * state.num_racks, L
         )
     mins = merge_mins(spmd, mins)
     if NEED_PREF in needs:
@@ -308,7 +361,7 @@ def take_snapshot(
         rack_first2 = mins["rack_first2"]
         # a valid row that is not its (partition, rack) group's first member
         # sits in a group of size > 1: rack-violating, as is every offline row
-        rack_viol = (rvalid & (gidx != rack_first2[group] // 2)) | offline
+        rack_viol = (rvalid & (gidx != A.take(rack_first2, group, L) // 2)) | offline
 
     # every broker-keyed sum in one call: float columns in row order, the
     # bool columns counted into int32
@@ -319,27 +372,27 @@ def take_snapshot(
         lead,
         torch.where(
             rvalid,
-            state.base_load[:, Resource.NW_OUT] + state.leadership_delta[rp, Resource.NW_OUT],
+            state.base_load[..., Resource.NW_OUT] + A.take(state.leadership_delta[..., Resource.NW_OUT], rp, L),
             0.0,
         ),
-        torch.where(lead, eff[:, Resource.NW_IN], 0.0),
+        torch.where(lead, eff[..., Resource.NW_IN], 0.0),
         offline.to(F32),
         *optional,
     ]
     T = state.num_topics
 
     def topic_tables():
-        return _segment_sums([rvalid, lead], rb * T + topic, B * T)
+        return _sums([rvalid, lead], rb * T + topic, B * T, L)
 
     if spmd is None:
-        broker_sums = _segment_sums(broker_columns, rb, B)
-    (rack_counts,) = _segment_sums([rvalid], group, P * state.num_racks)
+        broker_sums = _sums(broker_columns, rb, B, L)
+    (rack_counts,) = _sums([rvalid], group, P * state.num_racks, L)
     if spmd is None:
         dload = A.disk_load(state)
     if D > 0:
-        (d_counts,) = _segment_sums([on_disk & rvalid], state.replica_disk, D)
+        (d_counts,) = _sums([on_disk & rvalid], state.replica_disk, D, L)
     else:
-        d_counts = torch.zeros((0,), dtype=I32, device=dev)
+        d_counts = torch.zeros(lanes + (0,), dtype=I32, device=dev)
     topic_counts = topic_leader_counts = None
     if spmd is not None:
         if enable_heavy:
@@ -372,27 +425,27 @@ def take_snapshot(
     # cross-broker sums in the JAX reference's (XLA CPU) order: the bands
     # they set decide which brokers are over or under
     alive = state.broker_alive
-    n_alive = torch.clamp(alive.sum(dtype=I32), min=1)
-    total_load, total_cap, lbi_total = xla_sums([
-        torch.where(alive[:, None], bload, 0.0),
-        torch.where(alive[:, None], state.broker_capacity, 0.0),
+    n_alive = torch.clamp(alive.sum(dim=-1, dtype=I32), min=1)
+    total_load, total_cap, lbi_total = lane_xla_sums([
+        torch.where(alive[..., None], bload, 0.0),
+        torch.where(alive[..., None], state.broker_capacity, 0.0),
         torch.where(alive, lbi, 0.0),
-    ])
+    ], L)
     avg_pct = total_load / torch.clamp(total_cap, min=1e-9)
 
     c = ctx.constraint
     tv = ctx.triggered_by_violation
     lower_pct, upper_pct = c.utilization_bands(avg_pct, tv)
-    res_lower = lower_pct[None, :] * state.broker_capacity
-    res_upper = upper_pct[None, :] * state.broker_capacity
+    res_lower = lower_pct[..., None, :] * state.broker_capacity
+    res_upper = upper_pct[..., None, :] * state.broker_capacity
     res_lower = torch.where(ctx.excluded_for_replica_move[:, None], 0.0, res_lower)
     low_util = avg_pct <= c.low_utilization_threshold
 
     r_lo, r_up = c.count_band(
-        replica_counts.sum(dtype=I32).to(F32) / n_alive, c.replica_balance_threshold, tv
+        replica_counts.sum(dim=-1, dtype=I32).to(F32) / n_alive, c.replica_balance_threshold, tv
     )
     l_lo, l_up = c.count_band(
-        leader_counts.sum(dtype=I32).to(F32) / n_alive, c.leader_replica_balance_threshold, tv
+        leader_counts.sum(dim=-1, dtype=I32).to(F32) / n_alive, c.leader_replica_balance_threshold, tv
     )
 
     lbi_avg = lbi_total / n_alive
@@ -402,29 +455,29 @@ def take_snapshot(
     d_usable = state.disk_alive & (state.disk_capacity > 0.0)
     d_limit = c.resource_capacity_threshold[Resource.DISK] * state.disk_capacity
     if D > 0:
-        per_b_load, per_b_cap = _segment_sums(
+        per_b_load, per_b_cap = _sums(
             [torch.where(d_usable, dload, 0.0), torch.where(d_usable, state.disk_capacity, 0.0)],
-            state.disk_broker, B,
+            state.disk_broker, B, L,
         )
         avg_d_pct = per_b_load / torch.clamp(per_b_cap, min=1e-9)
         bpm_d = bpm[Resource.DISK]
-        d_avg = avg_d_pct[state.disk_broker]
+        d_avg = A.take(avg_d_pct, state.disk_broker, L)
         d_lower = torch.clamp(d_avg * (1.0 - bpm_d), min=0.0) * state.disk_capacity
         d_upper = d_avg * (1.0 + bpm_d) * state.disk_capacity
         d_lower = torch.where(d_usable, d_lower, 0.0)
         d_upper = torch.where(d_usable, d_upper, 0.0)
     else:
-        d_lower = torch.zeros((0,), dtype=F32, device=dev)
-        d_upper = torch.zeros((0,), dtype=F32, device=dev)
+        d_lower = torch.zeros(lanes + (0,), dtype=F32, device=dev)
+        d_upper = torch.zeros(lanes + (0,), dtype=F32, device=dev)
 
     topic_band = None
     if enable_heavy:
         if spmd is None:
             topic_counts, topic_leader_counts = topic_tables()
-        topic_counts = topic_counts.reshape(B, T)
-        topic_leader_counts = topic_leader_counts.reshape(B, T)
-        totals = topic_counts.sum(dim=0, dtype=I32)
-        avg_t = totals.to(F32) / n_alive
+        topic_counts = topic_counts.reshape(lanes + (B, T))
+        topic_leader_counts = topic_leader_counts.reshape(lanes + (B, T))
+        totals = topic_counts.sum(dim=-2, dtype=I32)
+        avg_t = totals.to(F32) / n_alive[..., None]
         mult = c.distribution_threshold_multiplier if tv else 1.0
         pct = (c.topic_replica_balance_threshold * mult - 1.0) * c.balance_margin
         gap = torch.ceil(avg_t * pct).to(I32)
@@ -433,7 +486,7 @@ def take_snapshot(
         )
         t_up = torch.floor(avg_t).to(I32) + gap
         t_lo = torch.clamp(torch.ceil(avg_t).to(I32) - gap, min=0)
-        topic_band = torch.stack([t_lo, t_up])
+        topic_band = torch.stack([t_lo, t_up], dim=-2)
 
     return Snapshot(
         eff_load=eff,
@@ -442,7 +495,7 @@ def take_snapshot(
         replica_counts=replica_counts,
         leader_counts=leader_counts,
         potential_nw_out=pnw,
-        rack_counts=rack_counts.reshape(P, state.num_racks),
+        rack_counts=rack_counts.reshape(lanes + (P, state.num_racks)),
         util_pct=bload / cap,
         movable=movable,
         topic_allowed=topic_allowed,
@@ -454,8 +507,8 @@ def take_snapshot(
         res_lower=res_lower,
         res_upper=res_upper,
         low_util=low_util,
-        replica_band=torch.stack([r_lo, r_up]),
-        leader_band=torch.stack([l_lo, l_up]),
+        replica_band=torch.stack([r_lo, r_up], dim=-1),
+        leader_band=torch.stack([l_lo, l_up], dim=-1),
         leader_nw_in=lbi,
         leader_nw_in_upper=lbi_upper,
         disk_load=dload,
@@ -485,11 +538,12 @@ def take_snapshot(
 
 
 def topic_leader_upper(state: ClusterArrays, ctx: GoalContext, snap: Snapshot) -> torch.Tensor:
-    """i32[T]: per-topic leader-count upper band (TopicLeaderReplicaDistributionGoal)."""
+    """i32[T] (i32[S, T] of a stack): per-topic leader-count upper band
+    (TopicLeaderReplicaDistributionGoal)."""
     lt = snap.topic_leader_counts
     c = ctx.constraint
-    alive_n = torch.clamp(state.broker_alive.sum(dtype=I32), min=1).to(F32)
-    avg_lt = lt.sum(dim=0, dtype=I32).to(F32) / alive_n
+    alive_n = torch.clamp(state.broker_alive.sum(dim=-1, dtype=I32), min=1).to(F32)
+    avg_lt = lt.sum(dim=-2, dtype=I32).to(F32) / alive_n[..., None]
     pct = (c.topic_replica_balance_threshold - 1.0) * c.balance_margin
     gap = torch.ceil(avg_lt * pct).to(I32)
     gap = torch.minimum(
@@ -498,26 +552,33 @@ def topic_leader_upper(state: ClusterArrays, ctx: GoalContext, snap: Snapshot) -
     return torch.floor(avg_lt).to(I32) + gap
 
 
-def rack_fair_share(state: ClusterArrays, snap: Snapshot, partition: torch.Tensor) -> torch.Tensor:
-    """i32[...]: ceil(RF / alive racks) per given partition id (relaxed rack
-    awareness, RackAwareDistributionGoal)."""
-    racks_alive = segment_max(state.broker_alive.to(I32), state.broker_rack, state.num_racks)
-    n_racks_avail = torch.clamp(racks_alive.sum(dtype=I32), min=1)
-    rf_p = torch.clamp(snap.rack_counts[partition].sum(dim=-1, dtype=I32), min=1)
-    return torch.ceil(rf_p.to(F32) / n_racks_avail).to(I32)
+def rack_fair_share(
+    state: ClusterArrays, snap: Snapshot, partition: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """i32[...]: ceil(RF / alive racks) per given partition id, or of every
+    partition (``partition`` None; ``[S, P]`` of a stack) -- relaxed rack
+    awareness, RackAwareDistributionGoal."""
+    racks_alive = segment_max(state.broker_alive.to(I32), state.broker_rack, state.num_racks, A.lanes_of(state))
+    n_racks_avail = torch.clamp(racks_alive.sum(dim=-1, dtype=I32), min=1)
+    counts = snap.rack_counts if partition is None else snap.rack_counts[partition]
+    rf_p = torch.clamp(counts.sum(dim=-1, dtype=I32), min=1)
+    return torch.ceil(rf_p.to(F32) / n_racks_avail[..., None]).to(I32)
 
 
 def segment_argmax(
-    scores: torch.Tensor, seg: torch.Tensor, num_segments: int, eligible: torch.Tensor
+    scores: torch.Tensor, seg: torch.Tensor, num_segments: int, eligible: torch.Tensor,
+    lanes: Optional[int] = None,
 ) -> torch.Tensor:
     """i32[S]: index of the max-score eligible element per segment, -1 if none.
-    Deterministic: ties break to the lowest index."""
+    Deterministic: ties break to the lowest index.  With ``lanes`` every
+    input is ``[L, n]`` and each lane's segments get the lowest index within
+    that lane, ``[L, S]``."""
     s = torch.where(eligible, scores, NEG)
-    smax = segment_max(s, seg, num_segments)
-    idx = torch.arange(scores.shape[0], dtype=I32, device=scores.device)
+    smax = segment_max(s, seg, num_segments, lanes)
+    idx = torch.arange(scores.shape[-1], dtype=I32, device=scores.device)
     # rows with an out-of-range segment drop out of both reductions, so any
     # in-range gather index serves them
     in_range = (seg >= 0) & (seg < num_segments)
-    hit = eligible & (s >= smax[torch.where(in_range, seg, 0)]) & (s > NEG / 2)
-    best = segment_min(torch.where(hit, idx, _BIG), seg, num_segments)
+    hit = eligible & (s >= A.take(smax, torch.where(in_range, seg, 0), lanes)) & (s > NEG / 2)
+    best = segment_min(torch.where(hit, idx, _BIG), seg, num_segments, lanes)
     return torch.where(best < _BIG, best, -1)

@@ -28,6 +28,11 @@ What lives where:
   keep a state copy and a set of graphs a shape on the card for good.  An
   evicted shape's goal graphs, captured rounds (their share of the pool and
   what they held) and slots are freed once the card has run the last launch.
+* **Counted loops** (:meth:`DeviceLoops.run_counted`): a captured step run a
+  fixed number of times in one WHILE node, the trace rollout's time axis
+  (the JAX ``lax.scan``).  Each shape holds its step's static buffers; it is
+  captured after one eager step, counts against ``max_shapes`` and is
+  evicted as a solver shape is.
 * **One registry a device** (:func:`device_loops`), not one an optimizer: the
   service builds a :class:`GoalOptimizer` per request, and a warm request must
   capture nothing.  Its lock serialises loads, launches and clone-outs across
@@ -50,7 +55,7 @@ import threading
 import time
 import types
 from contextlib import contextmanager
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -159,6 +164,39 @@ class GoalRun:
 
 
 @dataclasses.dataclass
+class CountedRun:
+    """One launch of a counted loop: its ctl words after the launch
+    (``trips``: the steps run and the control kernels, fetched with the
+    caller's outputs) and the event recorded after it."""
+
+    loop: GL.CountedLoop
+    trips: torch.Tensor
+    done: torch.cuda.Event
+
+    def account(self, trips: Sequence[float]) -> None:
+        self.loop.account(int(trips[GL.STEP]), int(trips[GL.COUNT_RUNS]))
+
+
+@dataclasses.dataclass
+class _Counted:
+    """What the registry holds for one counted loop's shape: the static
+    buffers its step reads and writes, its ctl words, the captured step and
+    the loop's graph."""
+
+    bufs: Dict[str, torch.Tensor]
+    ctl: torch.Tensor
+    step: Optional[GL.CapturedRound] = None
+    loop: Optional[GL.CountedLoop] = None
+
+    def destroy(self) -> None:
+        if self.loop is not None:
+            self.loop.destroy()
+        if self.step is not None:
+            self.step.destroy()
+        self.loop = self.step = None
+
+
+@dataclasses.dataclass
 class _Shape:
     """What the registry holds for one shape: its slots, captured rounds and goal graphs."""
 
@@ -233,6 +271,62 @@ class DeviceLoops:
         with self._turn():
             self._prepare(state, ctx, phases, enable_heavy, max_passes, max_rounds, name)
 
+    def run_counted(
+        self, key: tuple, inputs: Dict[str, torch.Tensor], outputs: Dict[str, Tuple[tuple, torch.dtype]],
+        step: Callable[[Dict[str, torch.Tensor], torch.Tensor], None], trips: int, name: str,
+    ) -> Tuple[Dict[str, torch.Tensor], CountedRun]:
+        """``step(bufs, ctl)`` run ``trips`` times as ONE graph launch on the
+        current stream, ``ctl[GL.STEP]`` the step's index: ``inputs`` are
+        copied into the static buffers of this ``key`` (the step's shapes and
+        every value it bakes in), ``outputs`` (name: (shape, dtype)) are
+        buffers the steps write, cloned out after the launch.  The first run
+        of a key captures the step after one eager step (a compile event of
+        kind ``capture``, ``capture/<name>``); the key counts against
+        ``max_shapes`` as a solver shape does."""
+        with self._turn() as turn:
+            entry = self._counted_entry(("counted", name) + tuple(key), inputs, outputs)
+
+            def load():
+                for k, v in inputs.items():
+                    entry.bufs[k].copy_(v)
+
+            load()
+            if entry.loop is None:
+                self._capture_counted(entry, step, trips, name)
+                load()     # the eager step moved the carry
+            entry.loop.launch(turn.stream)
+            outs = {k: entry.bufs[k].clone() for k in outputs}
+            counts = entry.ctl.clone()
+        return outs, CountedRun(entry.loop, counts, turn.done)
+
+    def _counted_entry(self, key: tuple, inputs, outputs) -> _Counted:
+        entry = self._shapes.get(key)
+        if entry is not None:
+            self._shapes.move_to_end(key)
+            return entry
+        self._make_room()
+        bufs = {k: torch.empty_like(v) for k, v in inputs.items()}
+        bufs.update({k: torch.empty(shape, dtype=dtype, device=self.device) for k, (shape, dtype) in outputs.items()})
+        entry = self._shapes[key] = _Counted(bufs, torch.zeros(2, dtype=torch.int32, device=self.device))
+        return entry
+
+    def _capture_counted(self, entry: _Counted, step, trips: int, name: str) -> None:
+        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            entry.ctl.zero_()
+            step(entry.bufs, entry.ctl)   # the eager step before capture
+        entry.step = GL.CapturedRound(lambda: step(entry.bufs, entry.ctl), pool=self.pool, stream=self.stream)
+        current.wait_stream(self.stream)
+        entry.loop = GL.CountedLoop(entry.ctl, entry.step, trips)
+        seconds = time.perf_counter() - t0
+        self.captures += 1
+        self.capture_s += seconds
+        from cruise_control_tpu_torch.obs.recorder import record_compile_event
+
+        record_compile_event(f"capture/{name}", seconds, kind="capture")
+
     @contextmanager
     def _turn(self):
         """The lock, this card, and its current stream (``turn.stream``)
@@ -274,13 +368,17 @@ class DeviceLoops:
         if entry is not None:
             self._shapes.move_to_end(shape)
             return entry
+        self._make_room()
+        entry = self._shapes[shape] = _Shape(Slots(state, ctx))
+        return entry
+
+    def _make_room(self) -> None:
+        """Evict the least recently used shapes until a new one fits."""
         while len(self._shapes) >= self.max_shapes:
             if self._done is not None:
                 self._done.synchronize()   # the evicted graphs' last launch has ended
             self._shapes.popitem(last=False)[1].destroy()
             self.evictions += 1
-        entry = self._shapes[shape] = _Shape(Slots(state, ctx))
-        return entry
 
     def _round(self, entry: _Shape, key: tuple) -> GL.CapturedRound:
         rnd = entry.rounds.get(key)

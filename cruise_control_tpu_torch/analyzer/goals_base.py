@@ -24,9 +24,9 @@ from cruise_control_tpu_torch.analyzer.context import (
 )
 from cruise_control_tpu_torch.analyzer.kafka_assigner import replica_positions
 from cruise_control_tpu_torch.core.resources import Resource
+from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
-from cruise_control_tpu_torch.ops.index import xla_sums
-from cruise_control_tpu_torch.ops.segments import segment_sums
+from cruise_control_tpu_torch.ops.index import lane_xla_sums
 from cruise_control_tpu_torch.parallel.spmd import global_iota
 
 # -- goal ids (priority-list members) ---------------------------------------------
@@ -179,25 +179,31 @@ def check_goal_ids(goal_ids) -> None:
 
 
 def rack_violating_replicas(state: ClusterArrays, snap: Snapshot) -> torch.Tensor:
-    """bool[R]: replicas that must move for rack uniqueness: every member of a
-    (partition, rack) group of size > 1 except its lowest-index one, and every
-    offline replica."""
-    rack = state.broker_rack[state.replica_broker]
+    """bool[R] (bool[S, R] of a stack): replicas that must move for rack
+    uniqueness: every member of a (partition, rack) group of size > 1 except
+    its lowest-index one, and every offline replica."""
+    L = A.lanes_of(state)
+    rack = A.take(state.broker_rack, state.replica_broker, L)
     group = state.replica_partition * state.num_racks + rack
     gidx = global_iota(state, snap.spmd)
-    group_size = snap.rack_counts.reshape(-1)[group]
-    first = snap.rack_first2[group] // 2
+    group_size = A.take(snap.rack_counts.flatten(-2), group, L)
+    first = A.take(snap.rack_first2, group, L) // 2
     crowded = (group_size > 1) & (gidx != first) & state.replica_valid
     return crowded | snap.offline
 
 
 # -- violations -------------------------------------------------------------------
+#
+# Each counter takes one state or a stack (``model.arrays.stack_arrays``) and
+# its snapshot: the broker, disk and partition axes are the trailing ones, so
+# a stack's counts come out ``[S]``, one per lane, from the same operations.
 
 _EPS = 1e-6
 
 
-def _count(mask: torch.Tensor) -> torch.Tensor:
-    return mask.sum(dtype=torch.int32).to(torch.float32)
+def _count(mask: torch.Tensor, axes: int = 1) -> torch.Tensor:
+    """The true entries over the trailing ``axes`` axes (per lane of a stack)."""
+    return mask.sum(dim=tuple(range(-axes, 0)), dtype=torch.int32).to(torch.float32)
 
 
 def _viol_rack_aware(state, ctx, snap):
@@ -220,7 +226,7 @@ def _viol_replica_capacity(state, ctx, snap):
 
 def _viol_capacity(res: int):
     def fn(state, ctx, snap):
-        over = snap.broker_load[:, res] > snap.cap_limits[:, res] * (1 + _EPS) + _EPS
+        over = snap.broker_load[..., res] > snap.cap_limits[..., res] * (1 + _EPS) + _EPS
         return _count(over & state.broker_alive)
 
     return fn
@@ -228,12 +234,12 @@ def _viol_capacity(res: int):
 
 def _viol_replica_dist(state, ctx, snap):
     counts = snap.replica_counts
-    lo, up = snap.replica_band[0], snap.replica_band[1]
+    lo, up = snap.replica_band[..., 0, None], snap.replica_band[..., 1, None]
     return _count(((counts > up) | (counts < lo)) & state.broker_alive)
 
 
 def _viol_potential_nw_out(state, ctx, snap):
-    pnw_limit = snap.cap_limits[:, Resource.NW_OUT]
+    pnw_limit = snap.cap_limits[..., Resource.NW_OUT]
     over = snap.potential_nw_out > pnw_limit * (1 + _EPS) + _EPS
     return _count(over & state.broker_alive)
 
@@ -241,33 +247,33 @@ def _viol_potential_nw_out(state, ctx, snap):
 def _viol_dist(res: int):
     def fn(state, ctx, snap):
         outside = (
-            snap.broker_load[:, res] > snap.res_upper[:, res] * (1 + _EPS) + _EPS
-        ) | (snap.broker_load[:, res] < snap.res_lower[:, res] * (1 - _EPS) - _EPS)
-        return _count(outside & state.broker_alive & ~snap.low_util[res])
+            snap.broker_load[..., res] > snap.res_upper[..., res] * (1 + _EPS) + _EPS
+        ) | (snap.broker_load[..., res] < snap.res_lower[..., res] * (1 - _EPS) - _EPS)
+        return _count(outside & state.broker_alive & ~snap.low_util[..., res, None])
 
     return fn
 
 
 def _viol_leader_dist(state, ctx, snap):
-    llo, lup = snap.leader_band[0], snap.leader_band[1]
+    llo, lup = snap.leader_band[..., 0, None], snap.leader_band[..., 1, None]
     lcounts = snap.leader_counts
     return _count(((lcounts > lup) | (lcounts < llo)) & state.broker_alive)
 
 
 def _viol_leader_bytes_in(state, ctx, snap):
-    over = snap.leader_nw_in > snap.leader_nw_in_upper * (1 + _EPS) + _EPS
+    over = snap.leader_nw_in > snap.leader_nw_in_upper[..., None] * (1 + _EPS) + _EPS
     return _count(over & state.broker_alive)
 
 
 def _zero(state):
-    return torch.zeros((), dtype=torch.float32, device=state.device)
+    return torch.zeros(A.lane_shape(state), dtype=torch.float32, device=state.device)
 
 
 def _viol_topic_replica_dist(state, ctx, snap):
     if not snap.enable_heavy:
         return _zero(state)
-    t_over = (snap.topic_counts > snap.topic_band[1][None, :]) & state.broker_alive[:, None]
-    return _count(t_over)
+    t_over = (snap.topic_counts > snap.topic_band[..., 1, None, :]) & state.broker_alive[..., None]
+    return _count(t_over, 2)
 
 
 def _viol_min_topic_leaders(state, ctx, snap):
@@ -275,15 +281,15 @@ def _viol_min_topic_leaders(state, ctx, snap):
         return _zero(state)
     need = ctx.constraint.min_topic_leaders_per_broker
     deficit = torch.clamp(need - snap.topic_leader_counts, min=0) * ctx.min_leader_topics[None, :]
-    deficit = torch.where(state.broker_alive[:, None], deficit, 0)
-    return deficit.sum(dtype=torch.int32).to(torch.float32)
+    deficit = torch.where(state.broker_alive[..., None], deficit, 0)
+    return deficit.sum(dim=(-2, -1), dtype=torch.int32).to(torch.float32)
 
 
 def _viol_topic_leader_dist(state, ctx, snap):
     if not snap.enable_heavy:
         return _zero(state)
     lt_up = topic_leader_upper(state, ctx, snap)
-    return _count((snap.topic_leader_counts > lt_up[None, :]) & state.broker_alive[:, None])
+    return _count((snap.topic_leader_counts > lt_up[..., None, :]) & state.broker_alive[..., None], 2)
 
 
 def _refuse_sharded(snap, what: str) -> None:
@@ -298,24 +304,24 @@ def _viol_preferred_leader(state, ctx, snap):
     # partitions not led by their replica-list head while the head sits on an
     # alive broker
     _refuse_sharded(snap, "PreferredLeaderElectionGoal")
+    L = A.lanes_of(state)
     pref = snap.preferred_leader
-    pref_ok = (pref >= 0) & state.broker_alive[state.replica_broker[torch.clamp(pref, min=0)]]
+    pref_ok = (pref >= 0) & A.take(state.broker_alive, A.take(state.replica_broker, torch.clamp(pref, min=0), L), L)
     return _count(pref_ok & (state.partition_leader != pref))
 
 
 def _viol_rack_dist(state, ctx, snap):
     # a rack holding more than ceil(RF / alive racks) of a partition's replicas
-    rf_p = snap.rack_counts.sum(dim=1, dtype=torch.int32)
-    parts = torch.arange(state.num_partitions, device=state.device)
-    fair = rack_fair_share(state, snap, parts)
-    return _count((snap.rack_counts.amax(dim=1) > fair) & (rf_p > 0))
+    rf_p = snap.rack_counts.sum(dim=-1, dtype=torch.int32)
+    fair = rack_fair_share(state, snap)
+    return _count((snap.rack_counts.amax(dim=-1) > fair) & (rf_p > 0))
 
 
 def _viol_broker_set(state, ctx, snap):
     if snap.spmd is not None:
         # already merged per broker in the snapshot's merge
         return snap.broker_set_need.sum()
-    want = ctx.broker_set_of_topic[state.partition_topic[state.replica_partition]]
+    want = ctx.broker_set_of_topic[A.take(state.partition_topic, state.replica_partition, A.lanes_of(state))]
     have = ctx.broker_set_of_broker[state.replica_broker]
     return _count(state.replica_valid & (want >= 0) & (have != want))
 
@@ -342,18 +348,19 @@ def _viol_intra_disk_dist(state, ctx, snap):
 
 #: positions tracked by the kafka-assigner evenness metric (replicas at higher
 #: positions do not count)
-ASSIGNER_POS_CAP = 8
+ASSIGNER_POS_CAP = C.ASSIGNER_POS_CAP
 
 
 def assigner_position_counts(state: ClusterArrays) -> torch.Tensor:
-    """i32[ASSIGNER_POS_CAP, B]: valid replicas per (position, broker).  One
-    integer segment-sum call: on the card, one launch of the counting kernel."""
+    """i32[ASSIGNER_POS_CAP, B] (``[S, ...]`` of a stack): valid replicas per
+    (position, broker).  One integer segment-sum call: on the card, one
+    launch of the counting kernel."""
     B = state.num_brokers
     pos = replica_positions(state)
     ok = state.replica_valid & (pos >= 0) & (pos < ASSIGNER_POS_CAP)
     group = torch.where(ok, pos * B + state.replica_broker, -1)
-    (counts,) = segment_sums([ok], group, ASSIGNER_POS_CAP * B)
-    return counts.view(ASSIGNER_POS_CAP, B)
+    (counts,) = A.lane_segment_sums([ok], group, ASSIGNER_POS_CAP * B, A.lanes_of(state))
+    return counts.view(A.lane_shape(state) + (ASSIGNER_POS_CAP, B))
 
 
 def assigner_position_unevenness(
@@ -370,12 +377,13 @@ def assigner_position_unevenness(
     if p0_eligible is None:
         p0_eligible = eligible
     counts = assigner_position_counts(state)
-    el = torch.cat([p0_eligible[None, :], eligible[None, :].expand(ASSIGNER_POS_CAP - 1, -1)])
-    cmax = torch.where(el, counts, -1).amax(dim=1)
-    cmin = torch.where(el, counts, 2**30).amin(dim=1)
-    has_pos = counts.sum(dim=1, dtype=torch.int32) > 0
+    rest = eligible[..., None, :].expand(eligible.shape[:-1] + (ASSIGNER_POS_CAP - 1, eligible.shape[-1]))
+    el = torch.cat([p0_eligible[..., None, :], rest], dim=-2)
+    cmax = torch.where(el, counts, -1).amax(dim=-1)
+    cmin = torch.where(el, counts, 2**30).amin(dim=-1)
+    has_pos = counts.sum(dim=-1, dtype=torch.int32) > 0
     spread = torch.where(has_pos, torch.clamp(cmax - cmin - 1, min=0), 0)
-    return spread.sum(dtype=torch.int32).to(torch.float32)
+    return spread.sum(dim=-1, dtype=torch.int32).to(torch.float32)
 
 
 def _viol_assigner_rack(state, ctx, snap):
@@ -386,9 +394,10 @@ def _viol_assigner_rack(state, ctx, snap):
     # that destination set
     eligible = state.broker_alive & ~ctx.excluded_for_replica_move
     p0_eligible = eligible & ~ctx.excluded_for_leadership
-    topic_excl = ctx.excluded_topics[state.partition_topic[state.replica_partition]]
+    L = A.lanes_of(state)
+    topic_excl = ctx.excluded_topics[A.take(state.partition_topic, state.replica_partition, L)]
     rack_bad = rack_violating_replicas(state, snap) & ~topic_excl
-    stranded = state.replica_valid & ~topic_excl & ~eligible[state.replica_broker]
+    stranded = state.replica_valid & ~topic_excl & ~A.take(eligible, state.replica_broker, L)
     return (
         _count(rack_bad)
         + assigner_position_unevenness(state, eligible, p0_eligible)
@@ -403,17 +412,19 @@ def _viol_assigner_disk(state, ctx, snap):
     # over alive brokers (summed in the JAX reference's order); 0 when disk
     # is a low-utilization resource, as the goal's own rounds skip it then
     alive = state.broker_alive
-    cap = state.broker_capacity[:, Resource.DISK]
-    load = snap.broker_load[:, Resource.DISK]
-    total_load, total_cap = xla_sums([torch.where(alive, load, 0.0), torch.where(alive, cap, 0.0)])
-    mean = total_load / torch.clamp(total_cap, min=_EPS)
+    cap = state.broker_capacity[..., Resource.DISK]
+    load = snap.broker_load[..., Resource.DISK]
+    total_load, total_cap = lane_xla_sums(
+        [torch.where(alive, load, 0.0), torch.where(alive, cap, 0.0)], A.lanes_of(state)
+    )
+    mean = (total_load / torch.clamp(total_cap, min=_EPS))[..., None]
     c = ctx.constraint
     margin = (c.resource_balance_threshold[Resource.DISK] - 1.0) * c.balance_margin
     util = load / torch.clamp(cap, min=_EPS)
     outside = (util > mean * (1 + margin) + _EPS) | (
         util < mean * torch.clamp(1 - margin, min=0.0) - _EPS
     )
-    return torch.where(snap.low_util[Resource.DISK], 0.0, _count(outside & alive))
+    return torch.where(snap.low_util[..., Resource.DISK], 0.0, _count(outside & alive))
 
 
 _VIOLATION_FNS = {
@@ -447,7 +458,8 @@ _VIOLATION_FNS = {
 def violations_one(
     gid: int, state: ClusterArrays, ctx: GoalContext, snap: Snapshot
 ) -> torch.Tensor:
-    """f32: violating-entity count for ONE goal id (0 => satisfied)."""
+    """f32 (f32[S] of a stack): violating-entity count for ONE goal id (0 =>
+    satisfied)."""
     return _VIOLATION_FNS[gid](state, ctx, snap)
 
 
@@ -457,11 +469,13 @@ def violations_all(
     snap: Snapshot,
     subset: Optional[Tuple[int, ...]] = None,
 ) -> torch.Tensor:
-    """f32[NUM_GOALS]: violating-entity count per goal id.  Rows outside
-    ``subset`` (default: every goal) stay 0; the heavy [B, T] goals report 0
-    when the snapshot was taken without ``enable_heavy``."""
+    """f32[NUM_GOALS] (f32[S, NUM_GOALS] of a stack and its snapshot, the
+    JAX package's ``vmap`` of this function): violating-entity count per goal
+    id.  Rows outside ``subset`` (default: every goal) stay 0; the heavy
+    [B, T] goals report 0 when the snapshot was taken without
+    ``enable_heavy``."""
     gids = range(NUM_GOALS) if subset is None else subset
-    rows = torch.zeros(NUM_GOALS, dtype=torch.float32, device=state.device)
+    rows = torch.zeros(A.lane_shape(state) + (NUM_GOALS,), dtype=torch.float32, device=state.device)
     for gid in sorted(set(gids)):
-        rows[gid] = _VIOLATION_FNS[gid](state, ctx, snap)
+        rows[..., gid] = _VIOLATION_FNS[gid](state, ctx, snap)
     return rows

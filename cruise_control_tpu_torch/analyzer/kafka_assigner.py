@@ -33,22 +33,31 @@ _INT32_MAX = 2**31 - 1
 
 
 def replica_positions(state: ClusterArrays) -> torch.Tensor:
-    """i32[R]: position of each replica within its partition -- leader 0,
-    followers 1.. in replica-row order; -1 for invalid rows."""
+    """i32[R] (i32[S, R] of a stack): position of each replica within its
+    partition -- leader 0, followers 1.. in replica-row order; -1 for invalid
+    rows.  A stack sorts as one: each lane's partitions are offset past the
+    last lane's."""
     R = state.num_replicas
     dev = state.device
     rows = torch.arange(R, dtype=torch.int64, device=dev)
     lead = A.is_leader(state)
     part = torch.where(state.replica_valid, state.replica_partition, state.num_partitions).long()
+    lanes = A.lanes_of(state)
+    if lanes is not None:
+        part = (torch.arange(lanes, device=dev)[:, None] * (state.num_partitions + 1) + part).reshape(-1)
+        lead = lead.reshape(-1)
+        rows = rows.repeat(lanes)
     # partition-major, leader first, then row order: one unique int64 key
     key = (part * 2 + (~lead).long()) * R + rows
     order = torch.argsort(key)
     ps = part[order]
     # rank within the partition group: index minus the group's first index
-    rank = rows - torch.searchsorted(ps, ps, right=False)
-    pos = torch.empty(R, dtype=I32, device=dev)
+    n = ps.shape[0]
+    flat = rows if lanes is None else torch.arange(n, dtype=torch.int64, device=dev)
+    rank = flat - torch.searchsorted(ps, ps, right=False)
+    pos = torch.empty(n, dtype=I32, device=dev)
     pos[order] = rank.to(I32)
-    return torch.where(state.replica_valid, pos, -1)
+    return torch.where(state.replica_valid, pos.view(state.replica_valid.shape), -1)
 
 
 def even_rack_aware_assign(

@@ -551,17 +551,18 @@ def _max_replication_factor(state: ClusterArrays, syncs: HostSyncs) -> int:
 
 
 def _violations_fn(state: ClusterArrays, ctx: GoalContext, enable_heavy: bool = False, subset=None, spmd=None):
+    """f32[NUM_GOALS] of one state, f32[S, NUM_GOALS] of a stack: one
+    snapshot and one violation pass."""
     snap = take_snapshot(state, ctx, enable_heavy, G.violation_needs(subset), spmd)
     return G.violations_all(state, ctx, snap, subset=subset)
 
 
 def lane_violations(states: ClusterArrays, ctx: GoalContext, enable_heavy: bool, subset) -> torch.Tensor:
-    """f32[S, NUM_GOALS]: the violation counts of every lane of a stack, lane
-    after lane, left on the device."""
-    return torch.stack([
-        _violations_fn(A.index_arrays(states, i), ctx, enable_heavy, subset)
-        for i in range(A.num_lanes(states))
-    ])
+    """f32[S, NUM_GOALS]: the violation counts of every lane of a stack, left
+    on the device -- ONE lane-form ``take_snapshot`` and ONE
+    ``violations_all`` for the whole stack, the JAX package's vmapped
+    ``_violations_b_fn``.  Each lane equals ``_violations_fn`` on that lane."""
+    return _violations_fn(states, ctx, enable_heavy, subset)
 
 
 def host_fetch(syncs: HostSyncs, values: Sequence) -> list:
@@ -985,15 +986,19 @@ class GoalOptimizer:
     # -- many clusters and bounded re-solves ----------------------------------
     #
     # The JAX package lifts each goal step over a stacked scenario axis with
-    # vmap.  The port's rounds are host-driven loops written for one cluster,
-    # so a stack's lanes run one after another through the same steps as
-    # optimize(): each lane is a view of the stack on the device, the final
-    # lanes are restacked, and per-lane scalars stay on the device until one
-    # bulk fetch.  Each lane therefore equals its single-cluster solve.
+    # vmap.  The port's evaluation takes the lane axis the same way: a
+    # stack's violations are one lane-form snapshot and one violation pass
+    # (lane_violations).  The solve's rounds are still written for one
+    # cluster, so batched_optimize runs a stack's lanes one after another
+    # through the same steps as optimize(): each lane is a view of the stack
+    # on the device, the final lanes are restacked, and per-lane scalars stay
+    # on the device until one bulk fetch.  Each lane therefore equals its
+    # single-cluster solve.
 
     def batched_violations(self, states: ClusterArrays, ctx: GoalContext) -> torch.Tensor:
         """f32[S, NUM_GOALS] violation counts of every lane of a stack
-        (``model.arrays.stack_arrays``), left on the device."""
+        (``model.arrays.stack_arrays``), left on the device: one snapshot and
+        one violation pass for the whole stack."""
         states, ctx = states.to(self.device), ctx.to(self.device)
         return lane_violations(states, ctx, self.enable_heavy_goals, self.goal_ids)
 

@@ -1,7 +1,7 @@
-// Device-resident loop control for the solver's goal step on Hopper (sm_90a): a CUDA graph
+// Device-resident loop control on Hopper (sm_90a): for the solver's goal step, a CUDA graph
 // whose conditional WHILE nodes run a phase's rounds to convergence and a goal's phases
 // round after round of passes, so that a goal is one graph launch and the host never waits
-// mid-goal.
+// mid-goal; for the trace rollout, a counted WHILE loop over its time steps (below).
 //
 // Replaces no Pallas kernel.  It is the counterpart of the JAX package's loop control:
 // each phase a lax.while_loop (cruise_control_tpu/analyzer/optimizer.py:436-453) and each
@@ -31,6 +31,15 @@
 // round of launch latency inside the graph; what the graph removes is the host's wait.
 // Conditional nodes need CUDA 12.3 or later in the runtime and in the driver:
 // cc_loop_versions reports both, and the Python side raises below that.
+//
+// The counted loop (cc_count_loop_build) is the counterpart of a lax.scan over time, the
+// trace rollout's (cruise_control_tpu/traces/rollout.py:151): one captured step, which reads
+// its step index from ctl, run a fixed number of times in one WHILE node.  Its control
+// kernel, count_ctl, zeroes the index before the loop and adds one after each step:
+//
+//   counted graph:  COUNT_INIT -> WHILE { step (child graph) -> COUNT_NEXT }
+//
+// ctl layout (int32): the step index, then the control kernels the launch ran.
 
 #include <cuda_runtime.h>
 
@@ -77,6 +86,32 @@ __global__ void loop_ctl(int op, int* ctl, cudaGraphConditionalHandle handle, in
       break;
   }
   ctl[kCtlRuns] += 1;
+}
+
+enum CountSlot { kStep = 0, kCountRuns };
+enum CountOp { kCountInit = 0, kCountNext };
+
+__global__ void count_ctl(int op, int* ctl, cudaGraphConditionalHandle handle, int trips) {
+  if (op == kCountInit) {
+    ctl[kStep] = 0;
+    ctl[kCountRuns] = 0;
+  } else {
+    ctl[kStep] += 1;
+  }
+  cudaGraphSetConditional(handle, ctl[kStep] < trips ? 1u : 0u);
+  ctl[kCountRuns] += 1;
+}
+
+int add_count_ctl(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep, int op, int* ctl,
+                  cudaGraphConditionalHandle handle, int trips) {
+  cudaKernelNodeParams p = {};
+  void* args[] = {&op, &ctl, &handle, &trips};
+  p.func = (void*)count_ctl;
+  p.gridDim = dim3(1);
+  p.blockDim = dim3(1);
+  p.sharedMemBytes = 0;
+  p.kernelParams = args;
+  return (int)cudaGraphAddKernelNode(node, graph, dep, dep ? 1 : 0, &p);
 }
 
 int add_ctl(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep, int op, int* ctl,
@@ -151,6 +186,35 @@ extern "C" int cc_loop_build(const long long* args, long long* out) {
     if (!err) err = add_ctl(&prev, pass_body, &loop, kPhaseEnd, ctl, 0, k, 0, nphases);
   }
   if (!err) err = add_ctl(&node, pass_body, &prev, kPassEnd, ctl, pass_handle, 0, max_passes, nphases);
+  cudaGraphExec_t exec = nullptr;
+  if (!err) err = (int)cudaGraphInstantiate(&exec, graph, 0);
+  if (err) {
+    cudaGraphDestroy(graph);
+    return err;
+  }
+  out[0] = (long long)graph;
+  out[1] = (long long)exec;
+  return 0;
+}
+
+// Build and instantiate one counted loop.  args: ctl (device int32 pointer), trips, the
+// captured step (a cudaGraph_t, cloned into the body).  out: the graph and its executable.
+extern "C" int cc_count_loop_build(const long long* args, long long* out) {
+  int* ctl = (int*)args[0];
+  const int trips = (int)args[1];
+  const cudaGraph_t step = (cudaGraph_t)args[2];
+  if (!ctl || trips < 0 || !step) return (int)cudaErrorInvalidValue;
+  cudaGraph_t graph = nullptr;
+  int err = (int)cudaGraphCreate(&graph, 0);
+  if (err) return err;
+  cudaGraphConditionalHandle h;
+  cudaGraph_t body = nullptr;
+  cudaGraphNode_t init, loop, child, next;
+  err = (int)cudaGraphConditionalHandleCreate(&h, graph, 0, 0);
+  if (!err) err = add_count_ctl(&init, graph, nullptr, kCountInit, ctl, h, trips);
+  if (!err) err = add_while(&loop, graph, &init, h, &body);
+  if (!err) err = (int)cudaGraphAddChildGraphNode(&child, body, nullptr, 0, step);
+  if (!err) err = add_count_ctl(&next, body, &child, kCountNext, ctl, h, trips);
   cudaGraphExec_t exec = nullptr;
   if (!err) err = (int)cudaGraphInstantiate(&exec, graph, 0);
   if (err) {

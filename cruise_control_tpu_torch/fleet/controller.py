@@ -11,9 +11,10 @@ holds N tenant clusters.
   tenant CPU mirrors (``ContinuousController._state_host`` /
   ``_candidate_host``, kept by the single-tenant ingest path) are stacked per
   group (``model.arrays.stack_arrays``) and probed by one
-  ``GoalOptimizer.batched_violations``; triggered tenants then share one
+  ``GoalOptimizer.batched_violations`` (one lane-form snapshot and violation
+  pass for the group); triggered tenants then share one
   ``batched_incremental_optimize`` whose walk runs the union of their
-  violated goals.  The port runs a stack's lanes one after another
+  violated goals.  The port runs that solve's lanes one after another
   (``analyzer/optimizer.py``), so each lane equals its own solve.
 
 * **Grouping is correctness, not just efficiency.**  A batched goal walk runs

@@ -14,7 +14,7 @@ tensors are int32 and float tensors float32, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -25,7 +25,7 @@ from cruise_control_tpu_torch.core.resources import (
     DerivedResource,
     Resource,
 )
-from cruise_control_tpu_torch.ops.index import scatter_set
+from cruise_control_tpu_torch.ops.index import lane_ids, scatter_set
 from cruise_control_tpu_torch.ops.segments import segment_sum as _segment_sum
 from cruise_control_tpu_torch.ops.segments import segment_sums as _segment_sums
 
@@ -68,21 +68,24 @@ class ClusterArrays:
     num_topics: int = 0
     num_hosts: int = 0
 
+    # the sizes read the trailing axis: one state's, or every lane's of a
+    # :func:`stack_arrays` stack
+
     @property
     def num_replicas(self) -> int:
-        return self.replica_partition.shape[0]
+        return self.replica_partition.shape[-1]
 
     @property
     def num_partitions(self) -> int:
-        return self.partition_topic.shape[0]
+        return self.partition_topic.shape[-1]
 
     @property
     def num_brokers(self) -> int:
-        return self.broker_rack.shape[0]
+        return self.broker_rack.shape[-1]
 
     @property
     def num_disks(self) -> int:
-        return self.disk_broker.shape[0]
+        return self.disk_broker.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -122,19 +125,22 @@ def _iota(n: int, device) -> torch.Tensor:
 
 
 def is_leader(state: ClusterArrays) -> torch.Tensor:
-    """bool[R]: whether each replica currently leads its partition."""
+    """bool[R] (bool[S, R] of a stack): whether each replica currently leads
+    its partition."""
+    lanes = lanes_of(state)
     return (
-        state.partition_leader[state.replica_partition]
+        take(state.partition_leader, state.replica_partition, lanes)
         == _iota(state.num_replicas, state.device)
     ) & state.replica_valid
 
 
 def effective_load(state: ClusterArrays) -> torch.Tensor:
-    """f32[R, 4]: per-replica load given current leadership."""
+    """f32[R, 4] (f32[S, R, 4] of a stack): per-replica load given current
+    leadership."""
     lead = is_leader(state)
-    delta = state.leadership_delta[state.replica_partition]
-    load = state.base_load + torch.where(lead[:, None], delta, 0.0)
-    return torch.where(state.replica_valid[:, None], load, 0.0)
+    delta = take(state.leadership_delta, state.replica_partition, lanes_of(state))
+    load = state.base_load + torch.where(lead[..., None], delta, 0.0)
+    return torch.where(state.replica_valid[..., None], load, 0.0)
 
 
 def broker_load(state: ClusterArrays) -> torch.Tensor:
@@ -168,20 +174,24 @@ def potential_nw_out(state: ClusterArrays) -> torch.Tensor:
 
 
 def disk_load_terms(state: ClusterArrays):
-    """``(du f32[R], disk i32[R])``: each replica's disk use and the logdir
-    it adds to in :func:`disk_load` (replicas off any logdir add 0 to disk 0)."""
-    du = torch.where(state.replica_valid, state.base_load[:, Resource.DISK], 0.0)
+    """``(du f32[R], disk i32[R])`` (``[S, R]`` each of a stack): each
+    replica's disk use and the logdir it adds to in :func:`disk_load`
+    (replicas off any logdir add 0 to disk 0)."""
+    du = torch.where(state.replica_valid, state.base_load[..., Resource.DISK], 0.0)
     on_disk = state.replica_disk >= 0
     disk_idx = torch.where(on_disk, state.replica_disk, 0)
     return torch.where(on_disk, du, 0.0), disk_idx
 
 
 def disk_load(state: ClusterArrays) -> torch.Tensor:
-    """f32[D]: disk-space utilization per JBOD logdir."""
+    """f32[D] (f32[S, D] of a stack): disk-space utilization per JBOD logdir."""
+    lanes = lanes_of(state)
     if state.num_disks == 0:
-        return torch.zeros((0,), dtype=F32, device=state.device)
+        return torch.zeros(lane_shape(state) + (0,), dtype=F32, device=state.device)
     du, disk_idx = disk_load_terms(state)
-    return _segment_sum(du, disk_idx, state.num_disks)
+    if lanes is None:
+        return _segment_sum(du, disk_idx, state.num_disks)
+    return lane_segment_sums([du], disk_idx, state.num_disks, lanes)[0]
 
 
 def utilization_matrix(state: ClusterArrays) -> torch.Tensor:
@@ -341,34 +351,82 @@ def index_arrays(states: ClusterArrays, i: int) -> ClusterArrays:
 
 
 def num_lanes(states: ClusterArrays) -> int:
-    """Lanes (scenarios) of a :func:`stack_arrays` stack.  The shape
-    properties of ``ClusterArrays`` read a single state's leading axis, so a
-    stack's sizes are read from its trailing axes instead."""
+    """Lanes (scenarios) of a :func:`stack_arrays` stack (the sizes of
+    ``ClusterArrays`` read the trailing axes, so they are every lane's)."""
     return states.replica_valid.shape[0]
 
 
-def lane_ids(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """i32[S * n]: per-lane segment ids ``seg`` [S, n] flattened for one
-    segment sum over a stack -- lane i's segment s becomes
-    ``i * num_segments + s``; ids outside ``[0, num_segments)`` become -1
-    (dropped), never another lane's segment."""
-    lane = torch.arange(seg.shape[0], dtype=I32, device=seg.device)[:, None] * num_segments
-    ok = (seg >= 0) & (seg < num_segments)
-    return torch.where(ok, lane + seg, -1).reshape(-1)
+# ---------------------------------------------------------------------------
+# The lane axis.
+# ---------------------------------------------------------------------------
+#
+# A stack evaluates as one program, as the JAX package's vmap does: every
+# per-state operation takes a leading lane axis.  Elementwise operations
+# broadcast over it; a gather takes each lane's own rows (:func:`take`); a
+# segment reduction offsets each lane's ids past the last lane's segments
+# (:func:`lane_ids`), so one kernel call covers every lane and each lane's
+# rows keep their order.  The single-state forms (``lanes`` None) run the
+# same operations as before the lane axis existed.
+
+
+def lanes_of(state: ClusterArrays) -> Optional[int]:
+    """The lane count of a :func:`stack_arrays` stack, None for one state."""
+    return state.replica_valid.shape[0] if state.replica_valid.dim() == 2 else None
+
+
+def lane_shape(state: ClusterArrays) -> tuple:
+    """``()`` for one state, ``(S,)`` for a stack: the leading shape of
+    every per-lane scalar."""
+    return tuple(state.replica_valid.shape[:-1])
+
+
+def is_shared(x: torch.Tensor) -> bool:
+    """Whether ``x``'s lanes are one tensor expanded (stride 0 on the lane
+    axis): the rollout's base leaves, the same for every pair."""
+    return x.dim() > 1 and x.shape[0] > 1 and x.stride(0) == 0
+
+
+def take(x: torch.Tensor, idx: torch.Tensor, lanes: Optional[int] = None) -> torch.Tensor:
+    """``x[idx]`` along the state's first axis; for a stack (``lanes``) each
+    lane's ``x[i][idx[i]]``, ``[S, *idx.shape[1:], *x.shape[2:]]``.  A lane
+    axis that is one tensor expanded is gathered once, never copied per
+    lane."""
+    if lanes is None:
+        return x[idx]
+    xs, ids = is_shared(x), is_shared(idx)
+    if xs and ids:
+        out = x[0][idx[0]]
+        return out.expand((lanes,) + tuple(out.shape))
+    if ids:
+        return x[:, idx[0]]
+    if xs:
+        return x[0][idx]
+    lane = torch.arange(lanes, device=idx.device).view((lanes,) + (1,) * (idx.dim() - 1))
+    return x[lane, idx]
+
+
+def lane_segment_sums(
+    columns: Sequence[torch.Tensor], seg: torch.Tensor, num_segments: int, lanes: Optional[int]
+) -> List[torch.Tensor]:
+    """:func:`ops.segments.segment_sums` of one state, or of every lane of a
+    stack in ONE call: the columns ``[S, R, ...]`` flattened lane-major under
+    :func:`lane_ids`, ``S * num_segments`` segments, each result
+    ``[S, num_segments, ...]``."""
+    if lanes is None:
+        return _segment_sums(columns, seg, num_segments)
+    flat = [c.reshape((-1,) + tuple(c.shape[2:])) for c in columns]
+    out = _segment_sums(flat, lane_ids(seg, num_segments), lanes * num_segments)
+    return [o.view((lanes, num_segments) + tuple(o.shape[1:])) for o in out]
 
 
 def replication_factors(states: ClusterArrays) -> torch.Tensor:
     """i32[P] of one state, or i32[S, P] of a stack: valid replicas of each
     partition, one integer segment-sum call (for a stack, every lane's: ids
     ``lane * P + partition``, ``S * P`` segments)."""
-    if states.replica_valid.dim() == 1:
-        (rf,) = _segment_sums([states.replica_valid], states.replica_partition, states.num_partitions)
-        return rf
-    S, P = states.partition_topic.shape
-    (rf,) = _segment_sums(
-        [states.replica_valid.reshape(-1)], lane_ids(states.replica_partition, P), S * P
+    (rf,) = lane_segment_sums(
+        [states.replica_valid], states.replica_partition, states.num_partitions, lanes_of(states)
     )
-    return rf.view(S, P)
+    return rf
 
 
 # ---------------------------------------------------------------------------

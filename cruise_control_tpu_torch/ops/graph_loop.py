@@ -9,7 +9,9 @@ port the JAX layout: a round is captured once with PyTorch
 the captured rounds in conditional WHILE nodes with one-thread kernels that
 evaluate the loop conditions on the device (its note gives the layout).  A goal
 is then one graph launch, and the host reads the rounds and moves with the rest
-of the solve's scalars in one fetch.
+of the solve's scalars in one fetch.  The trace rollout's time axis, a
+``lax.scan`` in the JAX package, is a :class:`CountedLoop`: one captured step
+run a fixed number of times in one WHILE node.
 
 Counting.  A kernel wrapper called while a round is being captured enqueues
 nothing that runs: :func:`recording` is set, and the wrapper adds a closure to
@@ -18,7 +20,7 @@ later adds each closure's call times the round's trip count, fetched from the
 device, so ``LAUNCHES`` and the census stay the count of kernel calls the
 device ran, with no host wall for a replay.
 
-CPU tensors never come here: the CPU solve keeps its host loop.  A card whose
+CPU tensors never come here: the CPU solve and rollout keep their host loops.  A card whose
 runtime or driver is older than CUDA 12.3 (no conditional nodes) raises,
 naming both versions.
 """
@@ -40,11 +42,15 @@ from cruise_control_tpu_torch.ops import _build
 #: and the work nodes of their rounds (kernels, memsets, copies), derived as
 #: each captured round's nodes times its fetched trip count; and the control
 #: kernels the graphs' layout implies (:func:`control_kernels`), which must
-#: equal the device's count
-LAUNCHES = {"graph_loop": 0, "loop_ctl": 0, "round_nodes": 0, "loop_ctl_by_layout": 0}
+#: equal the device's count.  The ``count_*`` and ``step_nodes`` keys count
+#: the same of the counted loops (:class:`CountedLoop`)
+LAUNCHES = {"graph_loop": 0, "loop_ctl": 0, "round_nodes": 0, "loop_ctl_by_layout": 0,
+            "count_loop": 0, "count_ctl": 0, "step_nodes": 0, "count_ctl_by_layout": 0}
 #: the ctl slots of ``csrc/graph_loop.cu`` (int32): the phase's carry, then the
 #: goal's, the control kernels run, then each phase's trip count
 IT, TOTAL, STREAK, WINDOWS, ROUNDS, MOVES, PASS_MOVES, PASSES, CTL_RUNS, TRIPS = range(10)
+#: a counted loop's ctl slots (int32): the step index, the control kernels run
+STEP, COUNT_RUNS = range(2)
 MAX_PHASES = 16
 #: conditional graph nodes: CUDA 12.3, as 1000 * major + 10 * minor
 MIN_CUDA_VERSION = 12030
@@ -68,12 +74,12 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("graph_loop")
         lib.cc_loop_versions.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
-        for fn in (lib.cc_loop_build, lib.cc_graph_work_nodes):
+        for fn in (lib.cc_loop_build, lib.cc_count_loop_build, lib.cc_graph_work_nodes):
             fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_longlong)]
         for fn in (lib.cc_loop_launch, lib.cc_loop_destroy):
             fn.argtypes = [ctypes.c_char_p]
-        for fn in (lib.cc_loop_versions, lib.cc_loop_build, lib.cc_graph_work_nodes, lib.cc_loop_launch,
-                   lib.cc_loop_destroy):
+        for fn in (lib.cc_loop_versions, lib.cc_loop_build, lib.cc_count_loop_build, lib.cc_graph_work_nodes,
+                   lib.cc_loop_launch, lib.cc_loop_destroy):
             fn.restype = ctypes.c_int
         out = (ctypes.c_longlong * 2)()
         err = lib.cc_loop_versions(out)
@@ -232,6 +238,53 @@ class GoalGraph:
             LAUNCHES["loop_ctl"] += int(ctl_runs)
             LAUNCHES["loop_ctl_by_layout"] += control_kernels(passes, len(self.phases), trips)
             LAUNCHES["round_nodes"] += sum(rnd.work_nodes * int(n) for (rnd, _), n in zip(self.phases, trips))
+
+    def destroy(self) -> None:
+        """Free the graph and its executable (the caller has waited for its
+        last launch)."""
+        handles, self._handles = getattr(self, "_handles", None), None
+        if handles is not None and _LIB is not None:
+            _LIB.cc_loop_destroy(_pack(handles))
+
+    __del__ = destroy
+
+
+class CountedLoop:
+    """A captured step run ``trips`` times in one WHILE node
+    (``csrc/graph_loop.cu``'s counted loop, the counterpart of a
+    ``lax.scan``): the step reads its index from ``ctl[STEP]``, which the
+    control kernel zeroes before the loop and advances after each step."""
+
+    def __init__(self, ctl: torch.Tensor, step: CapturedRound, trips: int) -> None:
+        if ctl.dtype != torch.int32 or ctl.numel() < 2 or ctl.device.type != "cuda":
+            raise ValueError("a counted loop's ctl must be a CUDA int32 buffer of 2 slots")
+        self.ctl = ctl
+        self.step = step
+        self.trips = int(trips)
+        out = (ctypes.c_longlong * 2)()
+        with torch.cuda.device(ctl.device):
+            err = _library().cc_count_loop_build(_pack((ctl.data_ptr(), self.trips, step.raw)), out)
+        if err != 0:
+            raise RuntimeError(f"graph loop: building the counted loop failed: CUDA error {err}")
+        self._handles = (int(out[0]), int(out[1]))
+
+    def launch(self, stream: torch.cuda.Stream) -> None:
+        """Enqueue the ``trips`` steps on ``stream``; no host wait."""
+        err = _library().cc_loop_launch(_pack((self._handles[1], stream.cuda_stream)))
+        if err != 0:
+            raise RuntimeError(f"graph loop: launching the counted loop failed: CUDA error {err}")
+        with _COUNT_LOCK:
+            LAUNCHES["count_loop"] += 1
+
+    def account(self, steps: int, ctl_runs: int) -> None:
+        """Add the step's captured kernel calls times ``steps`` (the fetched
+        step index after the launch) and ``ctl_runs``, the control kernels
+        the launch ran as they counted themselves on the device."""
+        self.step.recording.account(int(steps))
+        with _COUNT_LOCK:
+            LAUNCHES["count_ctl"] += int(ctl_runs)
+            LAUNCHES["count_ctl_by_layout"] += 1 + int(steps)
+            LAUNCHES["step_nodes"] += self.step.work_nodes * int(steps)
 
     def destroy(self) -> None:
         """Free the graph and its executable (the caller has waited for its

@@ -11,7 +11,8 @@ sites through the functions here:
 * :func:`scatter_last` resolves duplicate indices to the LAST write, the
   winner of the JAX CPU scatter, deterministically on every device;
 * :func:`segment_max` / :func:`segment_min` give empty segments the identity
-  (-inf / INT_MIN, +inf / INT_MAX), as ``jax.ops.segment_max/min`` do;
+  (-inf / INT_MIN, +inf / INT_MAX), as ``jax.ops.segment_max/min`` do, and
+  take a stack's lanes in one reduction (:func:`lane_ids`);
 * :func:`cumsum` adds in the order of XLA's CPU scan (16-wide blocks, each
   summed left to right, block carries scanned the same way, recursively), so
   the card, the CPU port and the JAX reference round alike;
@@ -35,8 +36,9 @@ from cruise_control_tpu_torch.ops.segments import segment_sums
 
 _BLOCK = 16
 _WINDOW = 32
-#: windows one lane-batched ``xla_sums`` call carries at most (see there)
-LANE_CALL_WINDOWS = 1024
+#: windows one lane-batched ``xla_sums`` call carries at most (see there): by
+#: default every lane in one call a level
+LANE_CALL_WINDOWS = 1_000_000_000
 
 
 def _identity(dtype: torch.dtype, largest: bool):
@@ -58,14 +60,35 @@ def _segment_reduce(data, seg, num_segments: int, reduce: str):
     return out[:S]
 
 
-def segment_max(data: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """``jax.ops.segment_max``: per-segment max, -inf/INT_MIN where empty."""
-    return _segment_reduce(data, seg, num_segments, "amax")
+def lane_ids(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """i32[S * n]: per-lane segment ids ``seg`` [S, n] flattened for one
+    segment reduction over a stack -- lane i's segment s becomes
+    ``i * num_segments + s``; ids outside ``[0, num_segments)`` become -1
+    (dropped), never another lane's segment."""
+    lane = torch.arange(seg.shape[0], dtype=torch.int32, device=seg.device)[:, None] * num_segments
+    ok = (seg >= 0) & (seg < num_segments)
+    return torch.where(ok, lane + seg, -1).reshape(-1)
 
 
-def segment_min(data: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """``jax.ops.segment_min``: per-segment min, +inf/INT_MAX where empty."""
-    return _segment_reduce(data, seg, num_segments, "amin")
+def _lane_reduce(data, seg, num_segments: int, reduce: str, lanes: Optional[int]):
+    if lanes is None:
+        return _segment_reduce(data, seg, num_segments, reduce)
+    flat = data.reshape((-1,) + tuple(data.shape[2:]))
+    out = _segment_reduce(flat, lane_ids(seg, num_segments), lanes * num_segments, reduce)
+    return out.view((lanes, num_segments) + tuple(out.shape[1:]))
+
+
+def segment_max(data: torch.Tensor, seg: torch.Tensor, num_segments: int, lanes: Optional[int] = None) -> torch.Tensor:
+    """``jax.ops.segment_max``: per-segment max, -inf/INT_MIN where empty.
+    With ``lanes``, ``data`` and ``seg`` are ``[S, n, ...]`` and each lane
+    reduces into its own segments (one reduction for all), ``[S, num_segments, ...]``."""
+    return _lane_reduce(data, seg, num_segments, "amax", lanes)
+
+
+def segment_min(data: torch.Tensor, seg: torch.Tensor, num_segments: int, lanes: Optional[int] = None) -> torch.Tensor:
+    """``jax.ops.segment_min``: per-segment min, +inf/INT_MAX where empty;
+    ``lanes`` as in :func:`segment_max`."""
+    return _lane_reduce(data, seg, num_segments, "amin", lanes)
 
 
 def _keep_mask(idx: torch.Tensor, n: int):
@@ -161,9 +184,12 @@ def xla_sums(columns: Sequence[torch.Tensor], lanes: Optional[int] = None) -> Li
     its own in that order -- the order of XLA's reduce over the middle axis of
     ``[lanes, n, k]`` (a ``vmap``-ed sum), which windows each lane alike.  The
     result is ``[lanes]`` / ``[lanes, k]`` each.  A level's call takes as many
-    lanes as keep it at :data:`LANE_CALL_WINDOWS` windows (at least one lane):
-    the fixed-order kernel spreads a call over 8,192 / segments blocks, so a
-    call of many lanes' windows would run on one block."""
+    lanes as keep it at :data:`LANE_CALL_WINDOWS` windows (at least one
+    lane); however the lanes are cut, each lane's sums are the same.  The
+    default puts every lane in one call a level: since the fixed-order
+    kernel's plan takes its blocks from the rows, one call of S1's 64 lanes
+    (60,032 windows) costs 2.5 ms a call against 7.0 ms for one a lane
+    (``bench_sweep``, NVIDIA H100 80GB HBM3, 700.00 W)."""
     cols = list(columns)
     L = 1 if lanes is None else int(lanes)
     n = cols[0].shape[0] // L
@@ -180,3 +206,12 @@ def xla_sums(columns: Sequence[torch.Tensor], lanes: Optional[int] = None) -> Li
         if windows == 1:
             return [c[0] for c in cols] if lanes is None else cols
         n = windows
+
+
+def lane_xla_sums(columns: Sequence[torch.Tensor], lanes: Optional[int]) -> List[torch.Tensor]:
+    """:func:`xla_sums` of one state's ``[n]`` / ``[n, k]`` columns, or of
+    every lane of ``[S, n]`` / ``[S, n, k]`` columns (``lanes`` = S) in the
+    lane-batched calls, ``[S]`` / ``[S, k]`` each."""
+    if lanes is None:
+        return xla_sums(columns)
+    return xla_sums([c.reshape((-1,) + tuple(c.shape[2:])) for c in columns], lanes=lanes)

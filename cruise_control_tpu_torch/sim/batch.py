@@ -11,18 +11,20 @@ Port of ``cruise_control_tpu/sim/batch.py``.  Two depths over a
 * :func:`deep_sweep` -- the full goal walk on every scenario
   (``GoalOptimizer.batched_optimize``, one batch per goal order).
 
-The JAX package evaluates the whole batch as one vmapped program.  Here each
-lane's snapshot and violation count run lane after lane through the
-single-cluster code (the same launches as inside a solve), while the sweep's
-batch-wide sums take few calls for all lanes: the replication factor of every
-(lane, partition) is one integer segment-sum call (the kernel of
-``sim/batch.py:88`` in the JAX package), alive racks one segment max, and the
-float totals go through ``ops.index.xla_sums`` with lane-offset windows -- the
-order of XLA's reduce over the middle axis of a vmapped ``[S, n, k]`` sum,
-which windows each lane as the unbatched reduce does -- in calls of at most
-``ops.index.LANE_CALL_WINDOWS`` windows.  The totals decide
-``satisfiable`` and ``min_brokers_needed`` at exactly the edge the planner
-bisects to, so they must round as the reference does.
+The JAX package evaluates the whole batch as one vmapped program, and so
+does the port: the stack's violations are ONE lane-form snapshot and ONE
+violation pass (``optimizer.lane_violations``), each segment-sum call taking
+every lane at once under lane-offset ids, so the kernels' host calls do not
+grow with the lane count.  The sweep's batch-wide sums likewise take few
+calls for all lanes: the replication factor of every (lane, partition) is one
+integer segment-sum call (the kernel of ``sim/batch.py:88`` in the JAX
+package), alive racks one segment max, and the float totals go through
+``ops.index.xla_sums`` with lane-offset windows -- the order of XLA's reduce
+over the middle axis of a vmapped ``[S, n, k]`` sum, which windows each lane
+as the unbatched reduce does -- in calls of at most
+``ops.index.LANE_CALL_WINDOWS`` windows.  The totals decide ``satisfiable``
+and ``min_brokers_needed`` at exactly the edge the planner bisects to, so
+they must round as the reference does.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from cruise_control_tpu_torch.core.device import DeviceLike, resolve_device
 from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
-from cruise_control_tpu_torch.ops.index import segment_max, xla_sums
+from cruise_control_tpu_torch.ops.index import lane_xla_sums, segment_max
 from cruise_control_tpu_torch.sim.scenario import (
     Scenario,
     ScenarioBatch,
@@ -76,23 +78,17 @@ def sweep_totals(states: ClusterArrays, ctx: GoalContext):
     so it prices the rebalanced cluster); usable capacity is the alive
     brokers' capacity times the capacity thresholds.  Each float sum adds in
     the reference's order (module docstring)."""
-    S, R = states.replica_valid.shape
-    P = states.partition_topic.shape[1]
-    B = states.broker_rack.shape[1]
+    S = A.num_lanes(states)
     valid = states.replica_valid
     offline = states.replica_offline_mask()
     rf = A.replication_factors(states)
-    load, off_bytes = xla_sums([
-        torch.where(valid[..., None], states.base_load, 0.0).reshape(S * R, -1),
-        torch.where(offline, states.base_load[..., Resource.DISK], 0.0).reshape(-1),
-    ], lanes=S)
-    (delta,) = xla_sums(
-        [torch.where((rf > 0)[..., None], states.leadership_delta, 0.0).reshape(S * P, -1)], lanes=S
-    )
+    load, off_bytes = lane_xla_sums([
+        torch.where(valid[..., None], states.base_load, 0.0),
+        torch.where(offline, states.base_load[..., Resource.DISK], 0.0),
+    ], S)
+    (delta,) = lane_xla_sums([torch.where((rf > 0)[..., None], states.leadership_delta, 0.0)], S)
     thr = ctx.constraint.resource_capacity_threshold
-    (usable,) = xla_sums([
-        (torch.where(states.broker_alive[..., None], states.broker_capacity, 0.0) * thr).reshape(S * B, -1)
-    ], lanes=S)
+    (usable,) = lane_xla_sums([torch.where(states.broker_alive[..., None], states.broker_capacity, 0.0) * thr], S)
     return load + delta, usable, rf, offline, off_bytes
 
 
@@ -118,9 +114,7 @@ def _sweep_reductions(states: ClusterArrays, ctx: GoalContext):
 
     rf_max = rf.amax(dim=1)
     racks = states.num_racks
-    alive_racks = segment_max(
-        alive.to(I32).reshape(-1), A.lane_ids(states.broker_rack, racks), S * racks
-    ).view(S, racks).sum(1, dtype=I32)
+    alive_racks = segment_max(alive.to(I32), states.broker_rack, racks, S).sum(1, dtype=I32)
     sat = cap_ok & count_ok & (rf_max <= n_alive) & (rf_max <= alive_racks)
     needed = torch.maximum(torch.maximum(needed_by_res, needed_by_count), rf_max)
     return sat, needed, offline.sum(1, dtype=I32), off_bytes
@@ -379,9 +373,10 @@ def fast_sweep(
 def _sharded_sweep(states: ClusterArrays, ctx: GoalContext, mesh, size: int, enable_heavy, goal_ids, syncs):
     """The fast sweep's per-lane results with the scenario axis sharded over
     the ranks: the stack padded to a multiple of the world by repeating lane
-    0, each rank evaluating its contiguous block of lanes (one after
-    another, as unsharded), ONE all_gather of the results (as float64, exact
-    for int32 and float32), the padding trimmed, one host fetch."""
+    0, each rank evaluating its contiguous block of lanes in one lane-form
+    pass (each lane's result is its own, as unsharded), ONE all_gather of the
+    results (as float64, exact for int32 and float32), the padding trimmed,
+    one host fetch."""
     pad = (-size) % mesh.world
     if pad:
         def pad_leaf(x):

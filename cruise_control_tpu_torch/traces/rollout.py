@@ -5,23 +5,31 @@ policy holds the hard goals through this trace with the fewest broker-hours"
 by stepping every pair through time on the device.
 
 The JAX package runs the whole batch as one program, a ``lax.scan`` over time
-inside a ``jax.vmap`` over pairs.  Here the two are turned around:
+inside a ``jax.vmap`` over pairs.  Here:
 
 * **Pairs are the lane axis of a stack** (``model.arrays.stack_arrays``'s
   layout): the base replica/partition leaves are shared by every lane
   (expanded views, no copies), the stepped leaves carry one row per pair.
-* **Time is a Python loop of T steps.**  The carry -- each pair's target
-  broker count ``n`` and cooldown -- is a pair of int32 ``[N]`` tensors on the
-  device.  Each step (1) rebuilds every pair's stepped cluster from the
-  full-headroom state in tensor ops (:func:`_step_cluster`, the in-loop twin
-  of ``sim.apply_scenario``), (2) runs each lane's ``take_snapshot`` and
-  ``violations_all`` exactly as ``sim.fast_sweep`` does, (3) the sweep's
-  batch-wide satisfiability sums for all lanes (``sim.batch._sweep_reductions``:
-  one integer segment-sum call for every lane's replication factors, the
-  float totals in XLA's order), and (4) the policy's threshold update.
-* **Outputs** land in preallocated ``[N, T, ...]`` device tensors, fetched
-  once at the end: a rollout makes ONE host sync (``num_host_syncs``, in
-  place of the JAX result's ``num_dispatches``), none inside the step loop.
+* **A step is one pass over every pair** (:func:`_rollout_step`): it reads
+  its step index from an int32 word on the device, (1) rebuilds every pair's
+  stepped cluster from the full-headroom state in tensor ops
+  (:func:`_step_cluster`, the in-loop twin of ``sim.apply_scenario``), (2)
+  takes ONE lane-form snapshot and violation pass for all pairs
+  (``optimizer.lane_violations``, as ``sim.fast_sweep`` does), (3) the
+  sweep's batch-wide satisfiability sums for all lanes
+  (``sim.batch._sweep_reductions``: one integer segment-sum call for every
+  lane's replication factors, the float totals in XLA's order), (4) the
+  policy's threshold update, and writes the step's column of the
+  preallocated ``[N, T, ...]`` outputs.  The carry -- each pair's target
+  broker count ``n`` and cooldown -- stays in int32 ``[N]`` tensors.
+* **Time, on the card, is one device program**: the step is captured once
+  into a CUDA graph and run T times in a counted WHILE node
+  (``analyzer.device_loop.DeviceLoops.run_counted``, ``csrc/graph_loop.cu``),
+  the counterpart of the JAX ``lax.scan``: one graph launch and one host
+  sync a rollout.  On the CPU the same step runs in a Python loop of T
+  steps, as the CPU solver keeps its host loop.
+* **Outputs** are fetched once at the end: a rollout makes ONE host sync
+  (``num_host_syncs``, in place of the JAX result's ``num_dispatches``).
 
 A trace step is therefore bit-identical to the scenario ``fast_sweep`` would
 build for it (``LoadTrace.scenario_at``): a frozen one-pair rollout's per-step
@@ -30,13 +38,14 @@ balancedness that gates scale-out under ``min_balancedness`` is summed over
 the goals left to right (``ops.index.xla_sums``), the order XLA's CPU reduce
 takes for it inside the JAX package's scan and vmap.
 
-The flight records of the JAX package (``kind="rollout"``) wait for the
-port's ``obs/``; the ``TraceEngine.*`` sensors are kept.
+Each rollout writes the JAX package's flight record (``kind="rollout"``) and
+updates the ``TraceEngine.*`` sensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -46,6 +55,7 @@ import torch
 from cruise_control_tpu_torch.analyzer import goals_base as G
 from cruise_control_tpu_torch.analyzer.constraint import BalancingConstraint
 from cruise_control_tpu_torch.analyzer.context import GoalContext
+from cruise_control_tpu_torch.analyzer.device_loop import _ctx_tensors, _state_tensors, shape_key
 from cruise_control_tpu_torch.analyzer.optimizer import (
     MAX_BALANCEDNESS_SCORE,
     HostSyncs,
@@ -55,6 +65,7 @@ from cruise_control_tpu_torch.analyzer.optimizer import (
 )
 from cruise_control_tpu_torch.core.device import DeviceLike, resolve_device
 from cruise_control_tpu_torch.model.arrays import ClusterArrays, broker_bucket
+from cruise_control_tpu_torch.ops import graph_loop as GL
 from cruise_control_tpu_torch.ops.index import xla_sums
 from cruise_control_tpu_torch.sim.batch import _note_shape, _sweep_reductions
 from cruise_control_tpu_torch.sim.scenario import Scenario, apply_scenario
@@ -114,6 +125,78 @@ def _step_cluster(
         num_topics=full.num_topics,
         num_hosts=full.num_hosts,
     )
+
+
+#: the outputs a step writes, one column of ``[N, T, ...]`` each: name -> (trailing shape, dtype)
+_OUTPUTS = {
+    "viol": ((G.NUM_GOALS,), F32), "sat": ((), torch.bool), "needed": ((), I32),
+    "alive": ((), I32), "action": ((), I32),
+}
+
+
+def _step_inputs(full: ClusterArrays, ctx: GoalContext, gf, tf, cost, policy, n0) -> Dict[str, torch.Tensor]:
+    """Every tensor a step reads, by name: the full-headroom state (``s.``),
+    the context (``x.``), the factors, the cost vector, the packed policies
+    (``p.``) and the carry's start (``n``, ``cooldown``)."""
+    out = {f"s.{k}": v for k, v in _state_tensors(full).items()}
+    out.update({f"x.{k}": v for k, v in _ctx_tensors(ctx).items()})
+    out.update({f"p.{k}": v for k, v in policy.items()})
+    out.update(gf=gf, tf=tf, cost=cost, n=n0, cooldown=torch.zeros_like(n0))
+    return out
+
+
+def _rollout_step(bufs: Dict[str, torch.Tensor], ctl: torch.Tensor, *, full: ClusterArrays, ctx: GoalContext,
+                  base_brokers: int, goal_ids: Tuple[int, ...]) -> None:
+    """One time step of every pair, in place on ``bufs`` (:func:`_step_inputs`
+    plus the ``[N, T, ...]`` outputs): the step index is ``ctl[STEP]``, read
+    on the device; ``full`` and ``ctx`` give the static fields around the
+    buffers.  Nothing here reads the host or sizes a tensor from the data, so
+    the step can be captured."""
+    t = ctl[GL.STEP:GL.STEP + 1].long()
+    state = full.replace(**{k[2:]: v for k, v in bufs.items() if k.startswith("s.")})
+    cx = {k[2:]: v for k, v in bufs.items() if k.startswith("x.")}
+    constraint = dataclasses.replace(ctx.constraint, **{k[2:]: v for k, v in cx.items() if k.startswith("c.")})
+    ctx = ctx.replace(constraint=constraint, **{k: v for k, v in cx.items() if not k.startswith("c.")})
+    policy = {k[2:]: v for k, v in bufs.items() if k.startswith("p.")}
+    n, cooldown = bufs["n"], bufs["cooldown"]
+
+    states = _step_cluster(
+        state, base_brokers, n, bufs["gf"].index_select(1, t)[:, 0], bufs["tf"].index_select(1, t)[:, 0]
+    )
+    viol = lane_violations(states, ctx, False, goal_ids)
+    sat, needed, _, _ = _sweep_reductions(states, ctx)
+    alive_n = states.broker_alive.sum(1, dtype=I32)
+    bal = _balancedness(viol, bufs["cost"])
+    n_next, cooldown_next = _policy_step(n, cooldown, sat, needed, alive_n, bal, policy)
+    for name, x in (("viol", viol), ("sat", sat), ("needed", needed), ("alive", alive_n), ("action", n_next - n)):
+        bufs[f"out_{name}"].index_copy_(1, t, x[:, None])
+    n.copy_(n_next)
+    cooldown.copy_(cooldown_next)
+
+
+def _time_loop(inputs, outputs, step, T: int, dev: torch.device, key: tuple, syncs: HostSyncs):
+    """The T steps and their outputs: on the card ONE launch of a counted
+    loop (its ctl words fetched with the outputs by the caller's
+    ``host_fetch``), ``key`` naming every shape and value the step bakes in;
+    on the CPU :func:`_host_loop`."""
+    if dev.type != "cuda":
+        return _host_loop(inputs, outputs, step, T, dev)
+    from cruise_control_tpu_torch.analyzer.device_loop import device_loops
+
+    outs, run = device_loops(dev).run_counted(key, inputs, outputs, step, T, name="rollout")
+    syncs.runs.append(run)
+    return outs
+
+
+def _host_loop(inputs, outputs, step, T: int, dev: torch.device):
+    """The T steps driven from the host (the CPU's time loop, and the plain
+    version of the card's counted loop): no host read between steps."""
+    outs = {k: torch.empty(shape, dtype=dtype, device=dev) for k, (shape, dtype) in outputs.items()}
+    bufs, ctl = {**inputs, **outs}, torch.zeros(2, dtype=I32, device=dev)
+    for _ in range(T):
+        step(bufs, ctl)
+        ctl[GL.STEP] += 1
+    return outs
 
 
 def _balancedness(viol: torch.Tensor, cost_vec: torch.Tensor) -> torch.Tensor:
@@ -318,36 +401,18 @@ def rollout(
 
     hit = _note_shape(("rollout", N, T, B_pad, base.num_replicas, base.num_partitions, goal_ids))
 
-    # -- the time loop: every tensor stays on the device ---------------------------
+    # -- the time loop: one device program on the card, a host loop on the CPU ----
     t1 = time.monotonic()
-    gf_d = torch.from_numpy(gf).to(dev)
-    tf_d = torch.from_numpy(tf).to(dev)
-    cost_d = torch.from_numpy(cost_vec).to(dev)
-    out_viol = torch.empty((N, T, G.NUM_GOALS), dtype=F32, device=dev)
-    out_sat = torch.empty((N, T), dtype=torch.bool, device=dev)
-    out_needed = torch.empty((N, T), dtype=I32, device=dev)
-    out_alive = torch.empty((N, T), dtype=I32, device=dev)
-    out_action = torch.empty((N, T), dtype=I32, device=dev)
-    n = packed["init_b"].clone()
-    cooldown = torch.zeros(N, dtype=I32, device=dev)
-    for t in range(T):
-        states = _step_cluster(full, base.num_brokers, n, gf_d[:, t], tf_d[:, t])
-        viol = lane_violations(states, ctx, False, goal_ids)
-        sat, needed, _, _ = _sweep_reductions(states, ctx)
-        alive_n = states.broker_alive.sum(1, dtype=I32)
-        bal = _balancedness(viol, cost_d)
-        n_next, cooldown = _policy_step(n, cooldown, sat, needed, alive_n, bal, packed)
-        out_viol[:, t] = viol
-        out_sat[:, t] = sat
-        out_needed[:, t] = needed
-        out_alive[:, t] = alive_n
-        out_action[:, t] = n_next - n
-        n = n_next
-
-    syncs = HostSyncs()
-    viol, sat, needed, alive, action = host_fetch(
-        syncs, [out_viol, out_sat, out_needed, out_alive, out_action]
+    inputs = _step_inputs(
+        full, ctx, torch.from_numpy(gf).to(dev), torch.from_numpy(tf).to(dev), torch.from_numpy(cost_vec).to(dev),
+        packed, packed["init_b"].clone(),
     )
+    outputs = {f"out_{k}": ((N, T) + shape, dtype) for k, (shape, dtype) in _OUTPUTS.items()}
+    step = functools.partial(_rollout_step, full=full, ctx=ctx, base_brokers=base.num_brokers, goal_ids=goal_ids)
+    syncs = HostSyncs()
+    key = (shape_key(full, ctx), N, T, topics, base.num_brokers, goal_ids)
+    outs = _time_loop(inputs, outputs, step, T, dev, key, syncs)
+    viol, sat, needed, alive, action = host_fetch(syncs, [outs[f"out_{k}"] for k in _OUTPUTS])
     sweep_s = time.monotonic() - t1
 
     verdicts: List[RolloutVerdict] = []

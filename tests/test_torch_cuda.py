@@ -940,3 +940,64 @@ def test_a_deadline_still_degrades(cuda_device):
     for _, res in (cpu, card):
         assert res.degraded and res.goal_reports == []
     _same_solve(cpu, card)
+
+
+# -- the lane axis: one evaluation a stack, the rollout as one device program -------------
+
+
+@pytest.mark.cuda
+def test_warm_rollout_is_one_graph_launch_equal_to_the_cpu_port(cuda_device):
+    """The JAX traces harness's rollout (10 brokers, 4 traces x 4 policies,
+    64 steps): the warm run is one launch of the counted loop, one host sync
+    and no segment-sum host call (the step's calls replay in the graph: the
+    captured step's calls times the 64 steps), its control kernels count
+    themselves once a step and once to start, and every verdict and series
+    equals the CPU port's bitwise."""
+    import chip_smoke as SM
+    from cruise_control_tpu_torch.ops import graph_loop as GL
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+    from cruise_control_tpu_torch.traces import rollout
+
+    base, _ = generate(SyntheticSpec(num_racks=5, num_brokers=10, num_topics=5, num_partitions=50,
+                                     replication_factor=2, seed=2, mean_cpu=0.08, mean_disk=0.08,
+                                     mean_nw_in=0.08, mean_nw_out=0.06), device="cpu")
+    traces, policies = SM.trace_workload(max_brokers=16)
+    rollout(base, traces, policies, bucket_brokers=16, device=cuda_device)        # captures the step
+    PS.reset_launch_counts()
+    GL.reset_launch_counts()
+    card = rollout(base, traces, policies, bucket_brokers=16, device=cuda_device)
+    cpu = rollout(base, traces, policies, bucket_brokers=16, device="cpu")
+    T = card.num_steps
+    assert card.num_host_syncs == 1 and GL.LAUNCHES["count_loop"] == 1
+    assert GL.LAUNCHES["count_ctl"] == GL.LAUNCHES["count_ctl_by_layout"] == T + 1
+    assert PS.LAUNCHES == PS.REPLAYED and all(n >= T and n % T == 0 for n in PS.REPLAYED.values())
+    assert SM._same_rollout(card, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [64, 16])
+@pytest.mark.parametrize("case", ["bload", "topic tables", "rack counts"])
+def test_lane_stacked_calls_equal_the_cpu_sequential_sum(cuda_device, lanes, case):
+    """K1 and K2 at the lane-form snapshot's shapes on the sim cluster
+    (30,000 replicas a lane, bucket 128, 20 topics, 10,000 partitions x 10
+    racks): S1's 64 lanes and the rollout's 16 in one call each, ids offset
+    lane by lane, bitwise against the CPU's sequential sum and against one
+    call a lane."""
+    R, n = 30_000, {"bload": 128, "topic tables": 128 * 20, "rack counts": 10_000 * 10}[case]
+    rng = np.random.default_rng(lanes + n)
+    lane = rng.integers(0, n, size=R).astype(np.int32)
+    lane[::997] = -1
+    ids = np.where(lane >= 0, np.arange(lanes, dtype=np.int32)[:, None] * n + lane, -1).reshape(-1)
+    if case == "bload":
+        cols, path = [(rng.exponential(size=(lanes * R, 4)) * 1000).astype(np.float32)], "segment_sum_f32"
+    else:
+        bits = [rng.random(lanes * R) < 0.95, rng.random(lanes * R) < 0.33]
+        cols, path = bits[:2 if case == "topic tables" else 1], "segment_sum_i32"
+    _card_vs_cpu(cols, ids, lanes * n, cuda_device, path)
+    d_cols = [torch.from_numpy(c).to(cuda_device) for c in cols]
+    stacked = PS.segment_sums(d_cols, torch.from_numpy(ids).to(cuda_device), lanes * n)
+    d_lane = torch.from_numpy(lane).to(cuda_device)
+    for i in (0, lanes - 1):
+        one = PS.segment_sums([torch.from_numpy(c[i * R:(i + 1) * R]).to(cuda_device) for c in cols], d_lane, n)
+        for a, b in zip(stacked, one):
+            assert torch.equal(a[i * n:(i + 1) * n], b)
