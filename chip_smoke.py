@@ -24,7 +24,10 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    calls), and the lane-form snapshot's calls, one for every lane of S1's
    64 and of the rollout's 16 (the broker loads into 64 x 128 and 16 x 128
    segments, the topic tables into 64 x 2,560 and 16 x 2,560, the rack
-   counts into 64 x 100,000 and 16 x 100,000; each beside one call a lane):
+   counts into 64 x 100,000 and 16 x 100,000; each beside one call a lane),
+   and the same calls of the batched solves' rounds on config #2's 4 and 16
+   lanes (the snapshot's whole broker call, the topic tables into 4 x 12,800
+   and 16 x 12,800, the rack counts):
    every output bitwise equal to the CPU's sequential sum (floats; ints
    exact), two launches bitwise equal, and every fixed-order call of 100,000
    rows or more into 1,024 segments or more planned on 132 blocks or more.  For the kernel, the plain version and
@@ -34,8 +37,10 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    back-to-back calls over the count; and ``latency_ms``, the median of CUDA
    events around one call (host and device of one call);
 3. assign: the kafka-assigner pass (``even_assign``) at config #2's shape
-   (10,000 partitions, 128 brokers, RF 3) and at 2,048 brokers, every pass
-   equal to the plain CPU loop exactly, with its device and call times;
+   (10,000 partitions, 128 brokers, RF 3) and at 2,048 brokers, and on its
+   lane grid (4 lanes of config #2's shape, one launch a pass, beside one
+   launch a lane), every pass equal to the plain CPU loop exactly, with its
+   device and call times;
 4. config2: one full rebalance proposal (``GoalOptimizer.optimize``, the 16
    default goals, heavy goals on) at the benchmark's config #2 -- 100 brokers,
    10 racks, 100 topics, 10,000 partitions, RF 3, exponential load skewed onto
@@ -68,11 +73,23 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    every lane; each must be the same at 8 lanes as at 64; the device idle share;
    every lane must equal the CPU
    port's sweep of all 64 and lanes s0-s7 its sweep of those 8, and the
-   batch-wide float totals of every lane the CPU port's bitwise), S2 ``deep_sweep`` of s0-s3 (valid
-   placements; lane 0 equal to its direct solve), S3 ``plan_capacity`` at
+   batch-wide float totals of every lane the CPU port's bitwise), S2 ``deep_sweep`` of s0-s3 (one
+   batched solve; valid placements, every lane equal to its direct solve), S3 ``plan_capacity`` at
    load 1.0, S4 ``evaluate_drift`` and ``incremental_optimize`` on phase 4's
    solved placement with topics 0-9 scaled, and a 4-lane
    ``batched_incremental_optimize`` whose every lane must equal its own solve;
+6b. batched: the solver's lane form -- config #2 (16 goals) under S2's
+   first 4 and 16 scenarios through ``batched_optimize``, cold and warm, each
+   goal one graph launch for the whole stack: the walls beside each lane's
+   own solve in the same run, host syncs, graph launches, the control
+   kernels (device and layout), the rounds the graphs ran and the kernels a
+   round, kernel host calls, peak memory; every lane must equal its own
+   solve, the 16-lane stack's first 4 lanes the 4-lane stack's, and the
+   4-lane stack the CPU port's batched solve (a child process started after
+   phase 2, run beside the card's phases); the launches must be the
+   goals plus the pre-phases' one.  Then one long lane with 15 that apply
+   nothing against walking the lanes, and P1's goals over the 4-lane stack
+   (``even_assign`` one lane-grid launch a position for the stack);
 7. profile: one warm config #2 solve under ``torch.profiler`` in a process
    of its own (in this one the profiler ran before the graphs were
    instantiated, and a profiled replay of them faults), each goal graph's
@@ -114,7 +131,9 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    syncs, proposals, reaction latency); the set is journaled in a temporary
    directory and a fresh controller's ``recover()`` must give it back;
 11. fleet: four tenants of that cluster with S4's four shifts, one fleet
-   tick; every tenant's standing set must equal its own standalone tick's;
+   tick; every tenant's standing set must equal its own standalone tick's,
+   and the warm tick must make no compile event (the warm start captured
+   the group's batched walk at its stack's shape);
 12. traces/controller card vs CPU: the JAX traces harness's rollout (10
    brokers), a rollout at config2_small, a tick and a 3-tenant fleet tick of
    the config2_small solve shifted -- every series, verdict and set
@@ -288,6 +307,11 @@ Phases, one line each on stdout; any failure exits non-zero before the result:
    #3's shapes;
    ``sim_shape`` and ``traces_shapes`` are phase 2's times at the sweep's and
    the rollout's call shapes, ``lane_shapes`` at the lane-form snapshot's;
+   ``batched_launches`` those of phase 6b's warm 4-lane batched solve (for
+   ``even_assign``, of its batched P1), ``graph_loop``'s
+   ``batched_graph_launches`` and ``batched_kernel_launches`` its goal
+   graphs and control kernels, and ``even_assign``'s ``lane_grid`` phase
+   3's times on the lane grid;
    ``count_ctl``'s ``launches`` are the control kernels of phase 9's warm
    rollout as they counted themselves on the device, its ``host_calls`` the
    counted loop's graph launches; ``kernel_launches`` are the kernels
@@ -547,22 +571,28 @@ def _kernel_cases(gen):
 
 #: the label every case of a lane-form snapshot starts with
 LANE_CASE = "lane-stacked"
-#: the stacks the lane-form snapshot takes on the main paths: S1's sweep and the rollout's pairs
-LANE_STACKS = (("S1", SIM_SCENARIOS), ("rollout", TRACE_PAIRS))
+#: the stacks the lane-form snapshot takes on the main paths, with their
+#: cluster: S1's sweep and the rollout's pairs (the sim cluster), and the
+#: batched phase's config #2 stacks, whose rounds take the snapshot in its
+#: lane form
+LANE_STACKS = (("S1", SIM_SCENARIOS, SIM), ("rollout", TRACE_PAIRS, SIM),
+               ("config #2 x 4", 4, CONFIG2), ("config #2 x 16", 16, CONFIG2))
 
 
 def _lane_cases(gen):
     """The lane-form snapshot's kernel calls (``analyzer/context.py`` over a
-    stack) on the sim cluster (30,000 replicas a lane, bucket 128, 20 topics,
-    10,000 partitions x 10 racks): S1's 64 lanes and the rollout's 16, one
-    call for every lane with each lane's ids offset past the last lane's
-    segments -- K1 the broker loads, K2 the topic tables and the rack counts.
-    Every lane's ids are lane 0's plus the offset, so the per-lane calls
-    beside each case take lane 0's ids."""
+    stack; 30,000 replicas a lane, bucket 128, 10,000 partitions x 10 racks):
+    on the sim cluster (20 topics) S1's 64 lanes and the rollout's 16, on
+    config #2 (100 topics) the batched solves' 4 and 16, one call for every
+    lane with each lane's ids offset past the last lane's segments -- K1 the
+    broker loads (in a round of the batched solve, the snapshot's whole
+    broker call), K2 the topic tables and the rack counts.  Every lane's ids
+    are lane 0's plus the offset, so the per-lane calls beside each case take
+    lane 0's ids."""
     R, B = 30_000, 128
-    BT, PR = B * SIM["num_topics"], SIM["num_partitions"] * SIM["num_racks"]
     cases = []
-    for tag, lanes in LANE_STACKS:
+    for tag, lanes, spec in LANE_STACKS:
+        BT, PR = B * spec["num_topics"], spec["num_partitions"] * spec["num_racks"]
         rows = lanes * R
 
         def ids(n):
@@ -574,9 +604,19 @@ def _lane_cases(gen):
         def bits(p):
             return torch.rand((rows,), generator=gen) < p
 
+        def f32(*shape):
+            return torch.empty(shape).exponential_(generator=gen) * 1000.0
+
+        if spec is CONFIG2:
+            broker = (f"{LANE_CASE} {tag}: snapshot broker call: [{rows},4] + 2 bool + 5 f32 -> "
+                      f"{lanes} x {B} = {lanes * B}", "segment_sum_f32",
+                      [f32(rows, 4), bits(0.95), bits(0.33), f32(rows), f32(rows), f32(rows),
+                       bits(0.05).float(), bits(0.05).float()], ids(B), lanes * B)
+        else:
+            broker = (f"{LANE_CASE} {tag}: bload [{rows},4] -> {lanes} x {B} = {lanes * B}", "segment_sum_f32",
+                      [f32(rows, 4)], ids(B), lanes * B)
         cases += [
-            (f"{LANE_CASE} {tag}: bload [{rows},4] -> {lanes} x {B} = {lanes * B}", "segment_sum_f32",
-             [torch.empty((rows, 4)).exponential_(generator=gen) * 1000.0], ids(B), lanes * B),
+            broker,
             (f"{LANE_CASE} {tag}: topic tables: 2 bool [{rows}] -> {lanes} x {BT} = {lanes * BT}", "segment_sum_i32",
              [bits(0.95), bits(0.33)], ids(BT), lanes * BT),
             (f"{LANE_CASE} {tag}: rack counts: bool [{rows}] -> {lanes} x {PR} = {lanes * PR}", "segment_sum_i32",
@@ -754,7 +794,7 @@ def lane_stack(label: str):
     for prefix, split in SWEEP_LANE_SEGMENTS.items():
         if label.startswith(prefix):
             return split
-    for tag, lanes in LANE_STACKS:
+    for tag, lanes, _ in LANE_STACKS:
         if label.startswith(f"{LANE_CASE} {tag}:"):
             return lanes, int(label.rsplit(" = ", 1)[1]) // lanes
     return None
@@ -1111,6 +1151,59 @@ def phase_assign(dev):
         )
         say("assign", **rec)
         records.append(rec)
+
+    # the lane grid: a stack's position pass as one launch, a block a lane
+    # (config #2's shape, 4 lanes with their own eligible brokers), against the
+    # plain version (a loop over the lanes) and one launch a lane
+    lanes, P, B, racks = 4, 10_000, 128, 10
+    rf = torch.full((lanes, P), 3, dtype=torch.int32)
+    excluded = torch.rand((lanes, P), generator=gen) < 0.02
+    rack = (torch.arange(B, dtype=torch.int32) % racks).repeat(lanes, 1)
+    eligible = torch.arange(B)[None, :] < torch.tensor([100, 101, 102, 99])[:, None]
+    cpu_in = (rf, excluded, rack, eligible)
+    gpu_in = tuple(x.to(dev) for x in cpu_in)
+    counts_c = torch.zeros((3, lanes, B), dtype=torch.int32)
+    chosen_c = torch.full((lanes, P, 3), -1, dtype=torch.int32)
+    counts_g, chosen_g = counts_c.to(dev), chosen_c.to(dev)
+    t0 = time.monotonic()
+    for pos in range(3):
+        PA.even_assign(counts_c[pos], chosen_c, pos, *cpu_in)
+    plain_ms = (time.monotonic() - t0) * 1e3 / 3
+
+    def lane_passes():
+        for pos in range(3):
+            PA.even_assign(counts_g[pos], chosen_g, pos, *gpu_in)
+
+    one_counts = counts_c.to(dev).zero_()
+    one_chosen = chosen_c.to(dev).fill_(-1)
+
+    def per_lane_passes():
+        for pos in range(3):
+            for i in range(lanes):
+                PA.even_assign(one_counts[pos, i], one_chosen[i], pos, *(x[i] for x in gpu_in))
+
+    PA.reset_launch_counts()
+    lane_passes()
+    torch.cuda.synchronize()
+    label = f"lane grid: {lanes} lanes of P=10000, B=128, RF 3, one launch a pass"
+    check(PA.LAUNCHES["even_assign"] == 3, f"{label}: {PA.LAUNCHES} launches for three passes")
+    check(torch.equal(counts_g.cpu(), counts_c) and torch.equal(chosen_g.cpu(), chosen_c),
+          f"{label}: differs from the plain version")
+    per_lane_passes()
+    torch.cuda.synchronize()
+    check(torch.equal(one_chosen.cpu(), chosen_c), f"{label}: one launch a lane differs")
+    (dev_ms, per_lane_ms), by_kernel = device_ms([lane_passes, per_lane_passes], calls=10)
+    nbytes = lanes * sum(8 * B + 4 * P * pos + 4 * P + 5 * P + 5 * B for pos in range(3)) / 3
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES_PER_S, lanes * 2 * P * B / H100_FP32_OPS_PER_S
+    rec = dict(
+        case=label, lanes=lanes, partitions=P, brokers=B, max_abs_err=0.0, equal_to_plain=True,
+        device_ms=dev_ms / 3, call_ms=call_ms(lane_passes, calls=10) / 3, latency_ms=latency_ms(lane_passes, reps=10) / 3,
+        plain_ms=plain_ms, per_lane_launches_device_ms=per_lane_ms / 3,
+        bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+        device_ms_by_kernel=by_kernel,
+    )
+    say("assign", **rec)
+    records.append(rec)
     return records
 
 
@@ -1208,6 +1301,14 @@ def _verdict_rows(sweep):
 def _same_placement(a, b) -> bool:
     return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
                for f in ("replica_broker", "partition_leader", "replica_disk"))
+
+
+def _same_arrays(a, b) -> bool:
+    """Every tensor field of two ``ClusterArrays`` equal, shape and value."""
+    import dataclasses
+
+    ts = [(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)]
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in ts if isinstance(x, torch.Tensor))
 
 
 def _drift_lanes(final, factors):
@@ -1348,24 +1449,27 @@ def phase_sim(dev, config2_final):
           f"S1: the kernels' host calls grow with the lanes: {calls8} at 8, {warm_calls} at 64 "
           f"(the evaluation's {evaluation[1]}, {evaluation[0]})")
 
-    # S2: the deep sweep of s0-s3; lane 0 against a direct solve on the card
+    # S2: the deep sweep of s0-s3 (one batched solve); every lane against its direct solve on the card
+    sim.deep_sweep(base, scs[:4], device=dev)
+    _sync(dev)
     t0 = time.monotonic()
     deep = sim.deep_sweep(base, scs[:4], device=dev)
     _sync(dev)
     deep_s = time.monotonic() - t0
     bucket = deep.bucket[0]
-    t0 = time.monotonic()
-    direct, direct_res = GoalOptimizer(enable_heavy_goals=False, bucket_brokers=False, device=dev).optimize(
-        sim.apply_scenario(base, scs[0], bucket_brokers=bucket),
-        GoalContext.build(base.num_topics, bucket, device=dev),
-    )
-    _sync(dev)
-    say("sim", step="S2 deep_sweep", scenarios=4, wall_s=deep_s, num_host_syncs=deep.num_host_syncs,
-        lane0_direct_wall_s=time.monotonic() - t0, verdicts=_verdict_rows(deep))
-    for v, st in zip(deep.scenarios, deep.states):
+    direct_opt = GoalOptimizer(enable_heavy_goals=False, bucket_brokers=False, device=dev)
+    direct_ctx = GoalContext.build(base.num_topics, bucket, device=dev)
+    direct_s = []
+    for i, (v, st) in enumerate(zip(deep.scenarios, deep.states)):
+        t0 = time.monotonic()
+        direct, direct_res = direct_opt.optimize(sim.apply_scenario(base, scs[i], bucket_brokers=bucket), direct_ctx)
+        _sync(dev)
+        direct_s.append(time.monotonic() - t0)
         check(_valid_placement(st), f"S2 {v.name}: invalid placement")
-    check(_same_placement(deep.states[0], direct), "S2: lane 0 differs from its direct solve")
-    check(deep.scenarios[0].balancedness == direct_res.balancedness_score, "S2: lane 0 balancedness differs")
+        check(_same_placement(st, direct), f"S2: lane {i} differs from its direct solve")
+        check(v.balancedness == direct_res.balancedness_score, f"S2: lane {i} balancedness differs")
+    say("sim", step="S2 deep_sweep", scenarios=4, warm_wall_s=deep_s, num_host_syncs=deep.num_host_syncs,
+        direct_walls_s=direct_s, verdicts=_verdict_rows(deep))
 
     # S3: the capacity plan at load 1.0
     t0 = time.monotonic()
@@ -1403,6 +1507,214 @@ def phase_sim(dev, config2_final):
                      lane_goals_run=[r.goals_run for r in bres.results]))
     check(drift.score > 0 and inc.goals_run, "S4: the drift ran no goal")
     return calls
+
+
+#: the batched phase's stacks: config #2 under the first 4 and 16 of the JAX
+#: sweep harness's scenarios (S2's), one lane each
+BATCHED_LANES = (4, 16)
+#: the lanes the CPU port's batched solve (in a child process) holds
+BATCHED_CPU_LANES = 4
+
+
+def _batched_stack(lanes, device):
+    """(stack, ctx): config #2 under ``make_scenarios(lanes)``, padded to one
+    broker bucket (``sim.build_batch``, as ``deep_sweep`` builds its lanes)."""
+    from cruise_control_tpu_torch import sim
+    from cruise_control_tpu_torch.analyzer import GoalContext
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+
+    base, _ = generate(SyntheticSpec(**CONFIG2), device="cpu")
+    batch = sim.build_batch(base, make_scenarios(lanes), device=device)
+    return batch.states, GoalContext.build(base.num_topics, batch.bucket[0], device=device)
+
+
+def _lane_digest(states, i) -> str:
+    """sha256 of lane ``i``'s placement (brokers, leaders, logdirs)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in ("replica_broker", "partition_leader", "replica_disk"):
+        h.update(getattr(states, f)[i].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _report_rows(res):
+    """A result's goal reports without their walls."""
+    return [[r.name, r.violations_before, r.violations_after, r.rounds, r.moves_applied] for r in res.goal_reports]
+
+
+def batched_cpu_child() -> None:
+    """The CPU port's batched solve of the batched phase's 4-lane stack, in
+    a process of its own so that it runs beside the card's phases
+    (``python -c "import chip_smoke; chip_smoke.batched_cpu_child()"``):
+    prints one JSON object, each lane's placement digest and goal rows."""
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+
+    torch.set_num_threads(3)
+    states, ctx = _batched_stack(BATCHED_CPU_LANES, "cpu")
+    t0 = time.monotonic()
+    final, res = GoalOptimizer(enable_heavy_goals=True, bucket_brokers=False, device="cpu").batched_optimize(
+        states, ctx)
+    print(json.dumps(dict(wall_s=time.monotonic() - t0, num_host_syncs=res.num_host_syncs,
+                          digests=[_lane_digest(final, i) for i in range(BATCHED_CPU_LANES)],
+                          rows=[_report_rows(r) for r in res.results])), flush=True)
+
+
+def start_batched_cpu_child():
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.batched_cpu_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def _batched_run(opt, states, ctx, dev):
+    """One warm batched solve with every count set to 0 just before it:
+    (final, result, wall s, kernel host calls, graph-loop counts, peak bytes)."""
+    from cruise_control_tpu_torch.ops import graph_loop as GL
+
+    _sync(dev)
+    _reset_counts()
+    GL.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    final, res = opt.batched_optimize(states, ctx)
+    _sync(dev)
+    wall = time.monotonic() - t0
+    return final, res, wall, _counts(), dict(GL.LAUNCHES), torch.cuda.max_memory_allocated(dev)
+
+
+def phase_batched(dev, cpu_child):
+    """The solver's lane form on the card (``analyzer/lanes.py``): config #2
+    with the 16 default goals over stacks of 4 and 16 lanes (S2's scenarios)
+    through ``GoalOptimizer.batched_optimize`` -- each goal one graph launch
+    for the whole stack -- cold, then warm with every count from 0; then each
+    lane's own solve on the card, warm, in the same run (the 16-lane stack's
+    first 4 lanes are the 4-lane stack's, so their solves are the 4-lane
+    run's, not solved again).  Fails unless every lane equals its own solve
+    (placement, leaders, logdirs, per-goal rounds, moves and violations), the
+    16-lane stack's first 4 lanes equal the 4-lane stack's, the 4-lane stack
+    equals the CPU port's batched solve (run in a child process since the
+    kernels phase ended), the graph launches are the goals plus the offline
+    pre-phases' one (not lanes x goals), the control
+    kernels the device counted equal the layout's, and both segment-sum paths
+    and the loop control ran in the warm solve.  Then one long lane and 15
+    that apply nothing, against walking the lanes (the lane form's worst
+    case; the 15 identical short lanes are walked once and counted 15
+    times).  Then P1's goals (22, 23) over the 4-lane stack: the assigner's
+    position passes one lane-grid ``even_assign`` launch each for the stack
+    (3: RF 3), every lane equal to its own P1 solve (a lane with a killed
+    broker may leave goal 22 unmet, as its own solve does).  Returns the
+    counts of the 4-lane warm solve and of the batched P1."""
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.model.arrays import index_arrays
+
+    opt = GoalOptimizer(enable_heavy_goals=True, bucket_brokers=False, device=dev)
+    goals = len(opt.goal_ids)
+    out, finals = {}, {}
+    single = {}     # lane -> (its own solve's placement, goal rows, warm wall)
+    first = None
+    for lanes in BATCHED_LANES:
+        states, ctx = _batched_stack(lanes, dev)
+        if first is None:
+            first = states
+        for i in range(len(single)):      # a lane solved alone before is this stack's lane too
+            check(_same_arrays(index_arrays(states, i), index_arrays(first, i)),
+                  f"batched x{lanes}: lane {i}'s input differs from the {BATCHED_LANES[0]}-lane stack's")
+        t0 = time.monotonic()
+        opt.batched_optimize(states, ctx)
+        _sync(dev)
+        cold_s = time.monotonic() - t0
+        final, res, warm_s, calls, graphs, peak = _batched_run(opt, states, ctx, dev)
+        finals[lanes] = final, res
+        if not single:
+            opt._optimize_core(index_arrays(states, 0), ctx)      # the one-lane shape captured
+        for i in range(len(single), lanes):
+            _sync(dev)
+            t0 = time.monotonic()
+            f1, r1 = opt._optimize_core(index_arrays(states, i), ctx)
+            _sync(dev)
+            single[i] = f1, _report_rows(r1), time.monotonic() - t0
+        single_s = sum(single[i][2] for i in range(lanes))
+        for i in range(lanes):
+            check(_same_placement(index_arrays(final, i), single[i][0]),
+                  f"batched x{lanes}: lane {i} differs from its own solve")
+            check(_report_rows(res.results[i]) == single[i][1],
+                  f"batched x{lanes}: lane {i}'s goal rows differ from its own solve's")
+        trips = graphs["round_trips"]
+        out[lanes] = dict(calls=calls, graphs=graphs)
+        say("batched", lanes=lanes, goals=goals, cold_wall_s=cold_s, warm_wall_s=warm_s,
+            singles_warm_wall_s=single_s, num_host_syncs=res.num_host_syncs,
+            graph_launches=graphs["graph_loop"], loop_ctl=graphs["loop_ctl"],
+            loop_ctl_by_layout=graphs["loop_ctl_by_layout"], round_trips=trips,
+            kernels_a_round=graphs["round_nodes"] / max(trips, 1), host_calls=calls,
+            peak_memory_bytes=peak, moves=[r.total_moves for r in res.results],
+            rounds=[sum(g.rounds for g in r.goal_reports) for r in res.results],
+            hard_violated=[r.violated_hard_goals for r in res.results])
+        check(graphs["graph_loop"] == goals + 1,
+              f"batched x{lanes}: {graphs['graph_loop']} graph launches, want {goals} goals + the pre-phases' 1")
+        check(graphs["loop_ctl"] == graphs["loop_ctl_by_layout"] > 0,
+              f"batched x{lanes}: control kernels {graphs['loop_ctl']} on the device, {graphs['loop_ctl_by_layout']} by layout")
+        for path in ("segment_sum_f32", "segment_sum_i32"):
+            check(calls[path] > 0, f"batched x{lanes}: {path} never launched")
+    (small, res4), (big, _) = finals[BATCHED_LANES[0]], finals[BATCHED_LANES[1]]
+    for i in range(BATCHED_LANES[0]):
+        check(_same_placement(index_arrays(small, i), index_arrays(big, i)),
+              f"batched: lane {i} of the 16-lane stack differs from the 4-lane stack's")
+
+    # the lane form's worst case: one long lane (s0 unsolved) and 15 that
+    # apply nothing (s0 solved) -- every round of the long lane pays 16 lanes'
+    # work, where walking the lanes pays one lane's work a round
+    from cruise_control_tpu_torch.model.arrays import stack_arrays
+
+    states, ctx = _batched_stack(1, dev)
+    raw, solved = index_arrays(states, 0), index_arrays(big, 0)
+    skewed = stack_arrays([raw] + [solved] * 15)
+    opt.batched_optimize(skewed, ctx)
+    final, res, skewed_s, _, graphs, _ = _batched_run(opt, skewed, ctx, dev)
+    walked = []
+    for lane in (raw, solved):
+        _sync(dev)
+        t0 = time.monotonic()
+        opt._optimize_core(lane, ctx)
+        _sync(dev)
+        walked.append(time.monotonic() - t0)
+    walked_s = walked[0] + 15 * walked[1]       # the 15 short lanes are one solve 15 times
+    check(_same_placement(index_arrays(final, 0), index_arrays(big, 0)), "batched: the long lane differs")
+    say("batched", step="one long lane and 15 that apply nothing", lanes=16, warm_wall_s=skewed_s,
+        walked_lanes_wall_s=walked_s, long_lane_wall_s=walked[0], short_lane_wall_s=walked[1], round_trips=graphs["round_trips"],
+        kernels_a_round=graphs["round_nodes"] / max(graphs["round_trips"], 1),
+        rounds=[sum(g.rounds for g in r.goal_reports) for r in res.results[:2]])
+
+    # the CPU port's batched solve of the 4-lane stack
+    stdout, stderr = cpu_child.communicate(timeout=900)
+    check(cpu_child.returncode == 0, f"batched: the CPU child exited {cpu_child.returncode}: {stderr.strip()[-800:]}")
+    cpu = json.loads(stdout.strip().splitlines()[-1])
+    same_cpu = [cpu["digests"][i] == _lane_digest(small, i) and cpu["rows"][i] == _report_rows(res4.results[i])
+                for i in range(BATCHED_CPU_LANES)]
+    say("batched", step="card vs CPU port", lanes=BATCHED_CPU_LANES, cpu_wall_s=cpu["wall_s"],
+        cpu_num_host_syncs=cpu["num_host_syncs"], equal=same_cpu)
+    check(all(same_cpu), f"batched: the card's lanes differ from the CPU port's ({same_cpu})")
+
+    # P1's goals over the 4-lane stack: the assigner's passes on the lane grid
+    p1 = GoalOptimizer(goal_ids=(22, 23), hard_ids=(22,), enable_heavy_goals=True, bucket_brokers=False, device=dev)
+    states, ctx = _batched_stack(BATCHED_LANES[0], dev)
+    p1.batched_optimize(states, ctx)
+    final, res, warm_s, calls, graphs, _ = _batched_run(p1, states, ctx, dev)
+    p1._optimize_core(index_arrays(states, 0), ctx)      # the one-lane shape captured
+    single_s = 0.0
+    for i in range(BATCHED_LANES[0]):
+        t0 = time.monotonic()
+        f1, r1 = p1._optimize_core(index_arrays(states, i), ctx)
+        _sync(dev)
+        single_s += time.monotonic() - t0
+        check(_same_placement(index_arrays(final, i), f1), f"batched P1: lane {i} differs from its own solve")
+        check(_report_rows(res.results[i]) == _report_rows(r1), f"batched P1: lane {i}'s goal rows differ")
+    say("batched", step="P1 kafka assigner", lanes=BATCHED_LANES[0], warm_wall_s=warm_s,
+        singles_warm_wall_s=single_s, num_host_syncs=res.num_host_syncs, host_calls=calls,
+        graph_launches=graphs["graph_loop"], moves=[r.total_moves for r in res.results],
+        goal22_violations_after=[r.violations_after["KafkaAssignerEvenRackAwareGoal"] for r in res.results])
+    check(calls["even_assign"] == 3, f"batched P1: {calls['even_assign']} even_assign launches, want 3 (RF 3)")
+    return out[BATCHED_LANES[0]], calls
 
 
 def _plan_outcome(plan) -> dict:
@@ -2057,8 +2369,9 @@ def phase_controller(dev, config2_final, maps):
 
 def _fleet_tick(state, maps, loads, factors, dev):
     """A fleet of one tenant per shift factor (the same cluster), warmed,
-    shifted, one tick: ``(fleet, attrs, wall s)``."""
+    shifted, one tick: ``(fleet, attrs, wall s, the tick's compile events)``."""
     from cruise_control_tpu_torch.fleet import FleetConfig, FleetController
+    from cruise_control_tpu_torch.obs.recorder import compile_events_since, compile_mark
 
     fleet = FleetController(config=FleetConfig(**TICK_CFG), device=dev)
     facades = []
@@ -2070,10 +2383,11 @@ def _fleet_tick(state, maps, loads, factors, dev):
     for f, facade in zip(factors, facades):
         facade.loads = shifted(loads, maps, f)
         facade.deliver(1)
+    mark = compile_mark()
     t0 = time.monotonic()
     attrs = fleet.maybe_tick()
     _sync(dev)
-    return fleet, attrs, time.monotonic() - t0
+    return fleet, attrs, time.monotonic() - t0, compile_events_since(mark)
 
 
 def phase_fleet(dev, config2_final, maps):
@@ -2099,7 +2413,7 @@ def phase_fleet(dev, config2_final, maps):
     _reset_counts()
     O.GoalOptimizer.batched_violations = counted_probe
     try:
-        fleet, attrs, wall = _fleet_tick(config2_final, maps, loads, SHIFT_FACTORS, dev)
+        fleet, attrs, wall, tick_events = _fleet_tick(config2_final, maps, loads, SHIFT_FACTORS, dev)
     finally:
         O.GoalOptimizer.batched_violations = batched_violations
     calls = _counts()
@@ -2113,8 +2427,11 @@ def phase_fleet(dev, config2_final, maps):
         published=attrs and attrs["published"], num_host_syncs=attrs and attrs["num_host_syncs"],
         span_s={s.name: s.duration_s for s in fleet.last_spans if s.name != "publish"},
         goals_run=[s.attrs.get("goals_run") for s in fleet.last_spans if s.name == "optimize"],
-        proposals=[len(s.proposals) if s else 0 for s in sets], host_calls=calls, probe=probe)
+        proposals=[len(s.proposals) if s else 0 for s in sets], host_calls=calls, probe=probe,
+        tick_compile_events=[e.get("event") for e in tick_events])
     check(attrs is not None and attrs["published"] == len(SHIFT_FACTORS), f"fleet: {attrs}")
+    # the warm start captured the group's batched walk at its stack's shape
+    check(not tick_events, f"fleet: the warm tick made compile events {tick_events}")
     check(probe.get("lanes") == len(SHIFT_FACTORS), f"fleet: the drift probe evaluated {probe}")
     for i, (s, solo) in enumerate(zip(sets, solos)):
         check(s is not None and _set_key(s) == _set_key(solo),
@@ -2148,7 +2465,7 @@ def phase_traces_controller_card_vs_cpu(dev, small_final):
         t0 = time.monotonic()
         tick, _ = _standalone_tick(small_final, maps, loads, 1.3, where)
         w["tick"] = time.monotonic() - t0
-        fleet, attrs, w["fleet_tick"] = _fleet_tick(small_final, maps, loads, SHIFT_FACTORS[:3], where)
+        fleet, attrs, w["fleet_tick"], _ = _fleet_tick(small_final, maps, loads, SHIFT_FACTORS[:3], where)
         sets = [fleet.tenant(f"t{i}").controller.standing for i in range(3)]
         out[where.type] = (h, r, tick, sets, attrs)
         walls[where.type] = w
@@ -3818,11 +4135,25 @@ def main() -> int:
         return out
 
     records = timed("kernels", phase_kernels, dev)
+    # the CPU port's batched solve runs beside the card's phases until
+    # phase_batched reads it (after the kernels phase, whose CPU references
+    # it would slow)
+    cpu_child = start_batched_cpu_child()
+    try:
+        return _phases(dev, start, build_s, timed, walls, cpu_child, records)
+    finally:
+        if cpu_child.poll() is None:
+            cpu_child.kill()
+            cpu_child.wait()
+
+
+def _phases(dev, start, build_s, timed, walls, cpu_child, records) -> int:
     assign_records = timed("assign", phase_assign, dev)
     launches, replayed, config2_graphs, config2_final, config2_res = timed("config2", phase_config2, dev)
     device_loop = timed("device_loop", phase_device_loop, dev)
     p1_launches = timed("path", phase_paths, dev)
     sim_launches = timed("sim", phase_sim, dev, config2_final)
+    batched, batched_p1 = timed("batched", phase_batched, dev, cpu_child)
     profile_calls, profile_kernels, loop_ctl = timed("profile", phase_profile, dev)
     small_final = timed("card_vs_cpu", phase_card_vs_cpu, dev)
     timed("sim_card_vs_cpu", phase_sim_card_vs_cpu, dev, small_final)
@@ -3865,6 +4196,7 @@ def main() -> int:
             "device_ms": rec["device_ms"], "call_ms": rec["call_ms"], "latency_ms": rec["latency_ms"],
             "plain_call_ms": rec["plain_call_ms"], "library_call_ms": rec["library_call_ms"],
             "shape": rec["case"], "sim_launches": sim_launches[path],
+            "batched_launches": batched["calls"][path],
             "traces_launches": traces_launches[path], "controller_launches": controller_launches[path],
             "facade_launches": facade_launches[path], "detector_launches": detector_launches[path],
             "detector_threaded_launches": threaded_launches[path],
@@ -3901,6 +4233,9 @@ def main() -> int:
         "bound_ms": LOOP_CTL_BYTES / H100_HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         "goal_ms": device_loop["goal_ms"], "plain_goal_ms": device_loop["plain_goal_ms"],
         "profiled_kernel_launches": loop_ctl["launches"],
+        "batched_graph_launches": batched["graphs"]["graph_loop"],
+        "batched_kernel_launches": batched["graphs"]["loop_ctl"],
+        "batched_kernel_launches_by_layout": batched["graphs"]["loop_ctl_by_layout"],
     })
     # the rollout's time loop: one graph launch a rollout, the one-thread
     # control kernel once to start and once a step (counted on the device);
@@ -3928,6 +4263,9 @@ def main() -> int:
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         "device_ms": rec["device_ms"], "call_ms": rec["call_ms"], "latency_ms": rec["latency_ms"],
         "us_per_partition": rec["us_per_partition"], "shape": rec["case"],
+        "lane_grid": {k: assign_records[-1][k] for k in ("case", "device_ms", "call_ms", "latency_ms", "plain_ms",
+                                                          "per_lane_launches_device_ms", "bound_ms", "bound_by")},
+        "batched_launches": batched_p1["even_assign"],
         "sim_launches": sim_launches["even_assign"], "traces_launches": traces_launches["even_assign"],
         "controller_launches": controller_launches["even_assign"],
         "facade_launches": facade_launches["even_assign"],

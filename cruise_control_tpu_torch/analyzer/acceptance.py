@@ -425,12 +425,12 @@ def move_dst_matrix(
         occ = snap.rack_counts[p][:, gb(state.broker_rack)] - (src_rack == dst_rack).to(I32)
         # RackAwareGoal and the kafka-assigner mode: no other replica in the rack
         if _on(prior_mask, G.RACK_AWARE) or _on(prior_mask, G.KAFKA_ASSIGNER_RACK):
-            ok &= occ == 0
+            ok = ok & (occ == 0)
         # RackAwareDistributionGoal: the rack stays within its fair share
         if _on(prior_mask, G.RACK_AWARE_DISTRIBUTION):
             fair = rack_fair_share(state, snap, p)[:, None]
             occ_src = snap.rack_counts[p, state.broker_rack[src]][:, None]
-            ok &= (occ + 1 <= fair) | (occ + 1 <= occ_src - 1)
+            ok = ok & ((occ + 1 <= fair) | (occ + 1 <= occ_src - 1))
 
     # the kafka-assigner mode's even half: the destination stays strictly
     # below the source's count at the replica's position
@@ -438,27 +438,27 @@ def move_dst_matrix(
         pc, pos_all = _assigner_even_state(state)
         q = pos_all[r]
         c_dst = pc[q] if db is None else pc[q][:, db]
-        ok &= c_dst + 1 <= pc[q, src][:, None]
+        ok = ok & (c_dst + 1 <= pc[q, src][:, None])
 
     # BrokerSetAwareGoal: the destination is in the topic's broker set
     if _on(prior_mask, G.BROKER_SET_AWARE):
         want = ctx.broker_set_of_topic[topic][:, None]
-        ok &= (want < 0) | (gb(ctx.broker_set_of_broker)[None, :] == want)
+        ok = ok & ((want < 0) | (gb(ctx.broker_set_of_broker)[None, :] == want))
 
     if snap.enable_heavy and _on(prior_mask, G.MIN_TOPIC_LEADERS):
         protected = ctx.min_leader_topics[topic]
         after_src = snap.topic_leader_counts[src, topic] - leads.to(I32)
         mtl_ok = ~(protected & leads) | (after_src >= ctx.constraint.min_topic_leaders_per_broker)
-        ok &= mtl_ok[:, None]
+        ok = ok & mtl_ok[:, None]
 
     counts = snap.replica_counts
     if _on(prior_mask, G.REPLICA_CAPACITY):
-        ok &= (gb(counts)[None, :] + 1 <= ctx.constraint.max_replicas_per_broker)
+        ok = ok & (gb(counts)[None, :] + 1 <= ctx.constraint.max_replicas_per_broker)
 
     for gid, res in G.CAPACITY_RESOURCE.items():
         if not _on(prior_mask, gid):
             continue
-        ok &= (
+        ok = ok & (
             gb(snap.broker_load[:, res])[None, :] + eff[:, None, res]
             <= gb(snap.cap_limits[:, res])[None, :]
         )
@@ -466,14 +466,14 @@ def move_dst_matrix(
     if _on(prior_mask, G.REPLICA_DISTRIBUTION):
         upper = snap.replica_band[1]
         dst_after = gb(counts)[None, :] + 1
-        ok &= (dst_after <= upper) | (dst_after <= counts[src][:, None] - 1)
+        ok = ok & ((dst_after <= upper) | (dst_after <= counts[src][:, None] - 1))
 
     if _on(prior_mask, G.POTENTIAL_NW_OUT):
         leader_nw = (
             state.base_load[r, Resource.NW_OUT] + state.leadership_delta[p, Resource.NW_OUT]
         )
         pnw_after = gb(snap.potential_nw_out)[None, :] + leader_nw[:, None]
-        ok &= pnw_after <= gb(snap.cap_limits[:, Resource.NW_OUT])[None, :]
+        ok = ok & (pnw_after <= gb(snap.cap_limits[:, Resource.NW_OUT])[None, :])
 
     for gid, res in G.DIST_RESOURCE.items():
         if not _on(prior_mask, gid):
@@ -492,27 +492,27 @@ def move_dst_matrix(
         )[:, None]
         ok_fb = dst_after_l / gb(cap)[None, :] <= (src_before / cap[src])[:, None]
         no_load = (eff[:, res] <= 0.0)[:, None]
-        ok &= low | no_load | torch.where(within_before, ok_within, ok_fb)
+        ok = ok & (low | no_load | torch.where(within_before, ok_within, ok_fb))
 
     if snap.enable_heavy and _on(prior_mask, G.TOPIC_REPLICA_DIST):
         bt = snap.topic_counts
         tup = snap.topic_band[1]
         dst_t_after = gb(bt)[:, topic].T + 1                  # [S, cols]
-        ok &= (dst_t_after <= tup[topic][:, None]) | (dst_t_after <= bt[src, topic][:, None] - 1)
+        ok = ok & ((dst_t_after <= tup[topic][:, None]) | (dst_t_after <= bt[src, topic][:, None] - 1))
 
     if _on(prior_mask, G.LEADER_REPLICA_DIST):
         lupper = snap.leader_band[1]
         l_after = gb(snap.leader_counts)[None, :] + 1
-        ok &= (~leads)[:, None] | (l_after <= lupper) | (
+        ok = ok & ((~leads)[:, None] | (l_after <= lupper) | (
             l_after <= snap.leader_counts[src][:, None] - 1
-        )
+        ))
 
     if _on(prior_mask, G.LEADER_BYTES_IN_DIST):
         nw_in = eff[:, Resource.NW_IN]
         lbi_after = gb(snap.leader_nw_in)[None, :] + torch.where(leads, nw_in, 0.0)[:, None]
-        ok &= (~leads)[:, None] | (lbi_after <= snap.leader_nw_in_upper) | (
+        ok = ok & ((~leads)[:, None] | (lbi_after <= snap.leader_nw_in_upper) | (
             lbi_after <= snap.leader_nw_in[src][:, None]
-        )
+        ))
 
     return ok & cand_valid[:, None]
 
@@ -539,13 +539,13 @@ def leadership_target_ok(
     if snap.enable_heavy and _on(prior_mask, G.MIN_TOPIC_LEADERS):
         protected = ctx.min_leader_topics[topic]
         after_src = snap.topic_leader_counts[leader_b, topic] - 1
-        ok &= ~protected | (after_src >= ctx.constraint.min_topic_leaders_per_broker)
+        ok = ok & (~protected | (after_src >= ctx.constraint.min_topic_leaders_per_broker))
 
     for gid, res in G.CAPACITY_RESOURCE.items():
         if not _on(prior_mask, gid):
             continue
         fits = snap.broker_load[b, res] + ldelta[:, res] <= snap.cap_limits[b, res]
-        ok &= fits | (ldelta[:, res] <= 0.0)
+        ok = ok & (fits | (ldelta[:, res] <= 0.0))
 
     for gid, res in G.DIST_RESOURCE.items():
         if not _on(prior_mask, gid):
@@ -563,38 +563,38 @@ def leadership_target_ok(
             src_after >= snap.res_lower[leader_b, res]
         )
         ok_fb = dst_after / cap[b] <= src_before / cap[leader_b]
-        ok &= low | (ldelta[:, res] <= 0.0) | torch.where(within_before, ok_within, ok_fb)
+        ok = ok & (low | (ldelta[:, res] <= 0.0) | torch.where(within_before, ok_within, ok_fb))
 
     if _on(prior_mask, G.LEADER_REPLICA_DIST):
         l_after = snap.leader_counts[b] + 1
-        ok &= (l_after <= snap.leader_band[1]) | (l_after <= snap.leader_counts[leader_b] - 1)
+        ok = ok & ((l_after <= snap.leader_band[1]) | (l_after <= snap.leader_counts[leader_b] - 1))
 
     if _on(prior_mask, G.LEADER_BYTES_IN_DIST):
         nw_in = snap.eff_load[:, Resource.NW_IN]
         lbi_after = snap.leader_nw_in[b] + nw_in
-        ok &= (lbi_after <= snap.leader_nw_in_upper) | (lbi_after <= snap.leader_nw_in[leader_b])
+        ok = ok & ((lbi_after <= snap.leader_nw_in_upper) | (lbi_after <= snap.leader_nw_in[leader_b]))
 
     # PreferredLeaderElectionGoal: only the replica-list head takes leadership
     if _on(prior_mask, G.PREFERRED_LEADER_ELECTION):
         pref = snap.preferred_leader[p]
         pref_alive = (pref >= 0) & state.broker_alive[state.replica_broker[torch.clamp(pref, min=0)]]
-        ok &= ~pref_alive | (torch.arange(R, dtype=I32, device=b.device) == pref)
+        ok = ok & (~pref_alive | (torch.arange(R, dtype=I32, device=b.device) == pref))
 
     # TopicLeaderReplicaDistributionGoal: the gaining broker stays in its band
     if snap.enable_heavy and _on(prior_mask, G.TOPIC_LEADER_DIST):
         lt = snap.topic_leader_counts
         lt_up = topic_leader_upper(state, ctx, snap)
         after = lt[b, topic] + 1
-        ok &= (after <= lt_up[topic]) | (after <= lt[leader_b, topic] - 1)
+        ok = ok & ((after <= lt_up[topic]) | (after <= lt[leader_b, topic] - 1))
 
     # the kafka-assigner mode: a transfer exchanges position 0 and the target's
     # position between the two brokers, so both must keep the gaining broker
     # strictly below the losing one (same-broker transfers change no count)
     if _on(prior_mask, G.KAFKA_ASSIGNER_RACK):
         pc, q = _assigner_even_state(state)
-        ok &= (
+        ok = ok & ((
             (pc[0, b] + 1 <= pc[0, leader_b]) & (pc[q, leader_b] + 1 <= pc[q, b])
-        ) | (q == 0) | (b == leader_b)
+        ) | (q == 0) | (b == leader_b))
 
     return ok & state.replica_valid & (cur_leader >= 0)
 
@@ -644,7 +644,7 @@ def swap_dst_matrix(
         occ_fwd = snap.rack_counts[p_out][:, gb(state.broker_rack)] - (src_rack == dst_rack).to(I32)
         # occ_bwd[s, d] = replicas of partner[d]'s partition in slot s's source rack
         occ_bwd = snap.rack_counts[p_in][:, state.broker_rack[src]].T - (dst_rack == src_rack).to(I32)
-        ok &= (occ_fwd == 0) & (occ_bwd == 0)
+        ok = ok & (occ_fwd == 0) & (occ_bwd == 0)
 
     # the kafka-assigner mode's even half: a swap exchanges the two replicas'
     # positions between the endpoints; unless the positions match, both
@@ -658,7 +658,7 @@ def swap_dst_matrix(
         bwd = pc[q_in][:, src].T + 1 <= pc[q_in, col_ids][None, :]
         same_pos = q_out[:, None] == q_in[None, :]
         same_broker = src[:, None] == col_ids[None, :]
-        ok &= same_pos | same_broker | (fwd & bwd)
+        ok = ok & (same_pos | same_broker | (fwd & bwd))
 
     if snap.enable_heavy and _on(prior_mask, G.MIN_TOPIC_LEADERS):
         min_l = ctx.constraint.min_topic_leaders_per_broker
@@ -666,7 +666,7 @@ def swap_dst_matrix(
         src_ok = ~(prot_out & leads_out) | (snap.topic_leader_counts[src, t_out] - 1 >= min_l)
         prot_in = ctx.min_leader_topics[t_in]
         dst_ok = ~(prot_in & leads_in) | (snap.topic_leader_counts[col_ids, t_in] - 1 >= min_l)
-        ok &= src_ok[:, None] & dst_ok[None, :]
+        ok = ok & src_ok[:, None] & dst_ok[None, :]
 
     for gid, res in G.CAPACITY_RESOURCE.items():
         if not _on(prior_mask, gid):
@@ -676,7 +676,7 @@ def swap_dst_matrix(
         fits = (after <= gb(snap.cap_limits)[None, :, res]) | (net <= 0.0)
         src_after = snap.broker_load[src, res][:, None] - net
         src_fits = (src_after <= snap.cap_limits[src, res][:, None]) | (net >= 0.0)
-        ok &= fits & src_fits
+        ok = ok & fits & src_fits
 
     for gid, res in G.DIST_RESOURCE.items():
         if not _on(prior_mask, gid):
@@ -695,29 +695,29 @@ def swap_dst_matrix(
             src_after >= snap.res_lower[src, res][:, None]
         )
         ok_fb = dst_after / gb(cap)[None, :] <= src_before / cap[src][:, None]
-        ok &= low | (net <= 0.0) | torch.where(within_before, ok_within, ok_fb)
+        ok = ok & (low | (net <= 0.0) | torch.where(within_before, ok_within, ok_fb))
 
     if _on(prior_mask, G.POTENTIAL_NW_OUT):
         lnw_out = state.base_load[r, Resource.NW_OUT] + state.leadership_delta[p_out, Resource.NW_OUT]
         lnw_in = state.base_load[q, Resource.NW_OUT] + state.leadership_delta[p_in, Resource.NW_OUT]
         pnw_net = lnw_out[:, None] - lnw_in[None, :]
         pnw_after = gb(snap.potential_nw_out)[None, :] + pnw_net
-        ok &= (pnw_after <= gb(snap.cap_limits)[None, :, Resource.NW_OUT]) | (pnw_net <= 0.0)
+        ok = ok & ((pnw_after <= gb(snap.cap_limits)[None, :, Resource.NW_OUT]) | (pnw_net <= 0.0))
 
     if _on(prior_mask, G.LEADER_REPLICA_DIST):
         net_lead = leads_out.to(I32)[:, None] - leads_in.to(I32)[None, :]
         l_after = gb(snap.leader_counts)[None, :] + net_lead
-        ok &= (net_lead <= 0) | (l_after <= snap.leader_band[1]) | (
+        ok = ok & ((net_lead <= 0) | (l_after <= snap.leader_band[1]) | (
             l_after <= snap.leader_counts[src][:, None] - 1
-        )
+        ))
 
     if _on(prior_mask, G.LEADER_BYTES_IN_DIST):
         lbi_out = torch.where(leads_out, e_out[:, Resource.NW_IN], 0.0)
         lbi_in = torch.where(leads_in, e_in[:, Resource.NW_IN], 0.0)
         lbi_net = lbi_out[:, None] - lbi_in[None, :]
         lbi_after = gb(snap.leader_nw_in)[None, :] + lbi_net
-        ok &= (lbi_net <= 0.0) | (lbi_after <= snap.leader_nw_in_upper) | (
+        ok = ok & ((lbi_net <= 0.0) | (lbi_after <= snap.leader_nw_in_upper) | (
             lbi_after <= snap.leader_nw_in[src][:, None]
-        )
+        ))
 
     return ok & cand_valid[:, None] & partner_valid[None, :]

@@ -252,6 +252,18 @@ def lane_span(state: ClusterArrays, enable_heavy: bool) -> int:
     return max(span, 2 * B * state.num_topics) if enable_heavy else span
 
 
+def round_span(state: ClusterArrays, ctx: "GoalContext", enable_heavy: bool) -> int:
+    """:func:`lane_span` widened to a round's lane-form calls: besides the
+    snapshot, a round of the lane form holds per lane its ``[slots, B]``
+    destination and acceptance matrices and its occupancy grid of ``(slots +
+    1) x (B + 1)`` cells, ``slots`` the top-k candidates of the broker or
+    logdir sources a round serves (at most ``max_active_brokers``)."""
+    B, D = state.num_brokers, state.num_disks
+    M = ctx.max_active_brokers
+    slots = ctx.top_k * max(min(B, M), min(D, M))
+    return max(lane_span(state, enable_heavy), (slots + 1) * (B + 1), slots * max(D, 1))
+
+
 def check_lane_span(lanes: int, span: int) -> None:
     """Raise, before anything is allocated, when ``lanes`` lanes of ``span``
     (:func:`lane_span`) would pass int32 indexing: a lane-offset id would

@@ -60,6 +60,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from cruise_control_tpu_torch.analyzer.context import GoalContext
+from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
 from cruise_control_tpu_torch.ops import graph_loop as GL
 
@@ -92,19 +93,22 @@ def _scalars(obj, skip=()) -> tuple:
 
 def shape_key(state: ClusterArrays, ctx: GoalContext) -> tuple:
     """What a captured round bakes in besides the data: every tensor's shape
-    and dtype, the state's counts and the context's flags."""
+    and dtype, the state's counts and the context's flags, and the lane
+    count of a stack (None for one state): a stack of another size is
+    another shape, captured anew."""
     def shapes(d):
         return tuple((k, tuple(v.shape), v.dtype) for k, v in d.items())
 
     return (
         shapes(_state_tensors(state)), shapes(_ctx_tensors(ctx)),
-        _scalars(state), _scalars(ctx, skip=("constraint",)),
+        _scalars(state), _scalars(ctx, skip=("constraint",)), ("lanes", A.lanes_of(state)),
     )
 
 
 class Slots:
     """The static carry of the rounds captured at one shape: a state, a
-    context and the ``ctl`` words (``ops.graph_loop``'s layout)."""
+    context and the ``ctl`` words (``ops.graph_loop``'s layout); for a stack
+    (the lane form) also each lane's words (``lane``, ``[LANE_WORDS, S]``)."""
 
     def __init__(self, state: ClusterArrays, ctx: GoalContext) -> None:
         st = {k: torch.empty_like(v) for k, v in _state_tensors(state).items()}
@@ -116,6 +120,11 @@ class Slots:
         self.ctx = ctx.replace(constraint=constraint, **{k: v for k, v in cx.items() if not k.startswith("c.")})
         self.ctl = torch.zeros(GL.TRIPS + GL.MAX_PHASES, dtype=torch.int32, device=state.device)
         self.ctl[GL.WINDOWS].fill_(1)
+        lanes = A.lanes_of(state)
+        self.lane = None
+        if lanes is not None:
+            self.lane = torch.zeros((GL.LANE_WORDS, lanes), dtype=torch.int32, device=state.device)
+            self.lane[GL.L_WINDOWS].fill_(1)
         #: the state fields a captured round writes (cloned out after a launch)
         self.written: set = set()
         self._dst = {**{k: getattr(self.state, k) for k in st}, **cx}
@@ -133,24 +142,36 @@ class Slots:
     def carry(self):
         from cruise_control_tpu_torch.analyzer.optimizer import PhaseCarry
 
+        if self.lane is not None:
+            w = self.lane
+            return PhaseCarry(
+                self.state, w[GL.L_IT], w[GL.L_TOTAL], w[GL.L_STREAK], w[GL.L_WINDOWS], live=w[GL.L_ACTIVE] != 0,
+            )
         c = self.ctl
         return PhaseCarry(self.state, c[GL.IT], c[GL.TOTAL], c[GL.STREAK], c[GL.WINDOWS])
 
     def store(self, out) -> None:
-        """Write a round's carry back into the slots (inside the captured round)."""
+        """Write a round's carry back into the slots (inside the captured
+        round); a stack's into its lane words (the control kernels own
+        ``active`` and the scalar words)."""
         for k, v in _state_tensors(out.state).items():
             dst = getattr(self.state, k)
             if v is not dst:
                 dst.copy_(v)
                 self.written.add(k)
-        self.ctl[:GL.ROUNDS].copy_(torch.stack([out.it, out.total, out.streak, out.windows]))
+        words = torch.stack([out.it, out.total, out.streak, out.windows])
+        if self.lane is not None:
+            self.lane[GL.L_IT:GL.L_WINDOWS + 1].copy_(words)
+        else:
+            self.ctl[:GL.ROUNDS].copy_(words)
 
 
 @dataclasses.dataclass
 class GoalRun:
-    """One launch of a goal graph: its rounds and moves (0-d device int32),
-    its passes and each phase's trip count (``trips``, fetched with the
-    solve's scalars) and the event recorded after it."""
+    """One launch of a goal graph: its rounds and moves (0-d device int32;
+    ``[S]``, each lane's, for a stack), its passes and each phase's trip count
+    (``trips``, fetched with the solve's scalars) and the event recorded
+    after it."""
 
     goal: GL.GoalGraph
     rounds: torch.Tensor
@@ -261,7 +282,12 @@ class DeviceLoops:
             goal.launch(turn.stream)
             out = slots.clone_out(state)
             counts = slots.ctl[GL.ROUNDS:GL.TRIPS + len(phases)].clone()
-        return out, GoalRun(goal, counts[0], counts[1], counts[GL.PASSES - GL.ROUNDS:], turn.done)
+            if slots.lane is not None:
+                per_lane = slots.lane[GL.L_ROUNDS:GL.L_MOVES + 1].clone()
+                rounds, moves = per_lane[0], per_lane[1]
+            else:
+                rounds, moves = counts[0], counts[1]
+        return out, GoalRun(goal, rounds, moves, counts[GL.PASSES - GL.ROUNDS:], turn.done)
 
     def prepare(
         self, state: ClusterArrays, ctx: GoalContext, phases: Sequence[tuple], *, enable_heavy: bool,
@@ -351,7 +377,9 @@ class DeviceLoops:
         if goal is None:
             t0 = time.perf_counter()
             rounds = [self._round(entry, rk) for rk in round_keys]
-            goal = entry.goals[key] = GL.GoalGraph(slots.ctl, [(r, max_rounds) for r in rounds], max_passes)
+            goal = entry.goals[key] = GL.GoalGraph(
+                slots.ctl, [(r, max_rounds) for r in rounds], max_passes, lane=slots.lane,
+            )
             seconds = time.perf_counter() - t0
             self.goal_graphs += 1
             self.capture_s += seconds

@@ -23,7 +23,7 @@ import torch
 from cruise_control_tpu_torch.core.resources import Resource
 from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
-from cruise_control_tpu_torch.ops.index import cumsum, scatter_set, segment_max, segment_min
+from cruise_control_tpu_torch.ops.index import cumsum, fresh_index_put, scatter_set, segment_max, segment_min
 
 I32 = torch.int32
 F32 = torch.float32
@@ -202,8 +202,7 @@ def _score_rank(moves: MoveBatch, candidate: torch.Tensor) -> torch.Tensor:
     order = torch.argsort(-s, stable=True)
     K = moves.num_slots
     rank = torch.empty(K, dtype=I32, device=s.device)
-    rank[order] = torch.arange(K, dtype=I32, device=s.device)
-    return rank
+    return fresh_index_put(rank, order, torch.arange(K, dtype=I32, device=s.device))
 
 
 def _segment_rank_cumsum(vals: torch.Tensor, key: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:

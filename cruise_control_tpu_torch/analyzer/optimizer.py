@@ -44,7 +44,9 @@ from cruise_control_tpu_torch.analyzer import goals_base as G
 from cruise_control_tpu_torch.analyzer.acceptance import accept_all
 from cruise_control_tpu_torch.analyzer.context import (
     GoalContext,
+    check_lane_span,
     pad_context_brokers,
+    round_span,
     take_snapshot,
 )
 from cruise_control_tpu_torch.analyzer.goal_rounds import (
@@ -377,19 +379,28 @@ class PhaseCarry:
     """The carry of one phase's while loop, as in the JAX package: the state
     and int32 device scalars -- ``it`` (rounds run; it salts the proposers'
     tie-breaking), ``total`` (moves applied), ``streak`` (zero-move rounds in
-    a row) and ``windows`` (the last round's rotation length)."""
+    a row) and ``windows`` (the last round's rotation length).
+
+    Over a stack (the lane form) each word is ``[S]``, one a lane, and
+    ``live`` (bool ``[S]``) says which lanes run the next round: the JAX
+    batched ``while_loop`` runs its body for every lane while any lane's
+    condition holds and keeps the old carry of a lane whose condition does
+    not, so a lane that has ended is frozen, bitwise, until every lane is
+    done.  ``live`` is None for one state."""
 
     state: ClusterArrays
     it: torch.Tensor
     total: torch.Tensor
     streak: torch.Tensor
     windows: torch.Tensor
+    live: Optional[torch.Tensor] = None
 
 
-def phase_carry(state: ClusterArrays) -> PhaseCarry:
-    """A phase's first carry: no rounds, no moves, one window."""
-    zero = torch.zeros((), dtype=torch.int32, device=state.device)
-    return PhaseCarry(state, zero, zero, zero, torch.ones_like(zero))
+def phase_carry(state: ClusterArrays, live: Optional[torch.Tensor] = None) -> PhaseCarry:
+    """A phase's first carry: no rounds, no moves, one window (a lane's each
+    over a stack, whose lanes ``live`` start the phase)."""
+    zero = torch.zeros(A.lane_shape(state), dtype=torch.int32, device=state.device)
+    return PhaseCarry(state, zero, zero, zero, torch.ones_like(zero), live)
 
 
 def phase_body(
@@ -398,9 +409,24 @@ def phase_body(
 ) -> PhaseCarry:
     """One round of a phase (the JAX ``_phase_loop`` body): snapshot,
     propose, accept against the prior goals, admit, apply.  No host read and
-    no host-to-device copy, so the device loop can capture it."""
+    no host-to-device copy, so the device loop can capture it.  Over a stack
+    the snapshot is one lane-form pass and the rest one lifted round
+    (``analyzer.lanes.lane_round``); a lane that is not ``live`` keeps its
+    carry."""
     state = carry.state
     snap = take_snapshot(state, ctx, enable_heavy, needs, spmd)
+    if carry.live is not None:
+        from cruise_control_tpu_torch.analyzer.lanes import lane_round
+
+        live = carry.live
+        written, n, windows = lane_round(
+            state, ctx, snap, carry.it, live, round_fn=round_fn, prior_mask=prior_mask, admit_mask=admit_mask,
+        )
+        streak = torch.where(n > 0, torch.zeros_like(carry.streak), carry.streak + 1)
+        return PhaseCarry(
+            state.replace(**written), carry.it + live.to(torch.int32), carry.total + n,
+            torch.where(live, streak, carry.streak), torch.where(live, windows, carry.windows), live,
+        )
     moves = round_fn(state, ctx, snap, prior_mask, carry.it)
     eff = move_effects(state, moves, snap)
     ok = moves.valid & accept_all(state, ctx, snap, moves, eff, prior_mask)
@@ -416,8 +442,10 @@ def phase_cond(carry: PhaseCarry, max_rounds: int) -> torch.Tensor:
     """bool: the phase runs another round (the JAX ``_phase_loop`` cond).
     With capped sources a zero-move round only proves its window stuck, so
     the phase stops after as many zero-move rounds in a row as the batch
-    reports rotation ``windows``, or at ``max_rounds``."""
-    return (carry.streak < carry.windows) & (carry.it < max_rounds)
+    reports rotation ``windows``, or at ``max_rounds``.  Over a stack, bool
+    ``[S]``: each lane's own condition, false for a lane that has ended."""
+    go = (carry.streak < carry.windows) & (carry.it < max_rounds)
+    return go if carry.live is None else go & carry.live
 
 
 def _phase_loop(
@@ -463,27 +491,96 @@ def _goal_step_fn(
     """One goal on the host driver: its round-type phases cycled until a pass
     applies nothing (or MAX_GOAL_PASSES), plus its own violation count before
     and after (0-d tensors, left on the device).  Rounds and moves are host
-    ints, known from the phases' per-round reads."""
+    ints, known from the phases' per-round reads.  A stack takes
+    :func:`_goal_step_lanes`."""
     needs = _goal_needs(gid, prior_ids)
     snap0 = take_snapshot(state, ctx, enable_heavy, needs, spmd)
     before = G.violations_one(gid, state, ctx, snap0)
-    rounds = moves = 0
-    pass_moves, passes = 1, 0
-    max_passes = _max_passes(round_fns)
-    while pass_moves > 0 and passes < max_passes:
-        pass_moves = 0
-        for fn in round_fns:
-            state, r, m = _phase_loop(
-                state, ctx, round_fn=fn, max_rounds=max_rounds, enable_heavy=enable_heavy,
-                prior_ids=prior_ids, admit_ids=admit_ids, needs=needs, syncs=syncs, spmd=spmd,
-            )
-            rounds += r
-            moves += m
-            pass_moves += m
-        passes += 1
+    if A.lanes_of(state) is not None:
+        state, rounds, moves = _goal_step_lanes(
+            state, ctx, round_fns=round_fns, max_rounds=max_rounds, enable_heavy=enable_heavy,
+            prior_ids=prior_ids, admit_ids=admit_ids, needs=needs, syncs=syncs,
+        )
+    else:
+        rounds = moves = 0
+        pass_moves, passes = 1, 0
+        max_passes = _max_passes(round_fns)
+        while pass_moves > 0 and passes < max_passes:
+            pass_moves = 0
+            for fn in round_fns:
+                state, r, m = _phase_loop(
+                    state, ctx, round_fn=fn, max_rounds=max_rounds, enable_heavy=enable_heavy,
+                    prior_ids=prior_ids, admit_ids=admit_ids, needs=needs, syncs=syncs, spmd=spmd,
+                )
+                rounds += r
+                moves += m
+                pass_moves += m
+            passes += 1
     snap1 = take_snapshot(state, ctx, enable_heavy, needs, spmd)
     after = G.violations_one(gid, state, ctx, snap1)
     return state, rounds, moves, before, after
+
+
+def _lane_phase(
+    states: ClusterArrays, ctx: GoalContext, *, round_fn: Callable, max_rounds: int, enable_heavy: bool,
+    prior_mask: np.ndarray, admit_mask: np.ndarray, needs: frozenset, syncs: HostSyncs,
+    live: torch.Tensor, pass_moves: torch.Tensor,
+):
+    """One phase over every lane of a stack on the host driver, the lanes
+    ``live`` taking part: ``(carry, go_pass)``.  The host reads once a round
+    for the whole stack: does any lane run another round, and would any
+    lane's pass cycle go on with the moves of its pass so far
+    (``pass_moves`` before this phase) -- the last read of a pass is the
+    pass cycle's condition, so a pass costs no read of its own."""
+    carry = phase_carry(states, live=live & (max_rounds > 0))
+    go, go_pass = max_rounds > 0, False
+    while go:
+        carry = phase_body(
+            carry, ctx, round_fn=round_fn, enable_heavy=enable_heavy, prior_mask=prior_mask,
+            admit_mask=admit_mask, needs=needs,
+        )
+        carry.live = phase_cond(carry, max_rounds)
+        go, go_pass = syncs.tolist(torch.stack([
+            carry.live.any(), (live & (pass_moves + carry.total > 0)).any(),
+        ]))
+    return carry, bool(go_pass)
+
+
+def _goal_step_lanes(
+    states: ClusterArrays, ctx: GoalContext, *, round_fns, max_rounds: int, enable_heavy: bool,
+    prior_ids, admit_ids, needs: frozenset, syncs: HostSyncs,
+):
+    """A goal's phases and pass cycle over every lane of a stack, on the host
+    driver: ``(states, rounds [S], moves [S])``, the counts left on the
+    device.  Each lane runs its own pass cycle and each phase its own rounds
+    (:class:`PhaseCarry`'s ``live``); the host reads once a round for the
+    whole stack (:func:`_lane_phase`), so the syncs are the rounds of the
+    stack's longest-running lane in each phase, not the sum over the lanes."""
+    prior_mask = _np_mask(prior_ids)
+    admit_mask = _np_mask(admit_ids)
+    S = A.num_lanes(states)
+    dev = states.device
+    rounds = torch.zeros(S, dtype=torch.int32, device=dev)
+    moves = torch.zeros_like(rounds)
+    pass_live = torch.ones(S, dtype=torch.bool, device=dev)
+    max_passes = _max_passes(round_fns)
+    passes, go_pass = 0, True
+    while go_pass:
+        pass_moves = torch.zeros_like(rounds)
+        for fn in round_fns:
+            carry, go_pass = _lane_phase(
+                states, ctx, round_fn=fn, max_rounds=max_rounds, enable_heavy=enable_heavy,
+                prior_mask=prior_mask, admit_mask=admit_mask, needs=needs, syncs=syncs,
+                live=pass_live, pass_moves=pass_moves,
+            )
+            states = carry.state
+            rounds = rounds + carry.it
+            moves = moves + carry.total
+            pass_moves = pass_moves + carry.total
+        passes += 1
+        pass_live = pass_live & (pass_moves > 0) & (passes < max_passes)
+        go_pass = go_pass and passes < max_passes
+    return states, rounds, moves
 
 
 def _goal_needs(gid: int, prior_ids) -> frozenset:
@@ -715,6 +812,15 @@ class GoalOptimizer:
             syncs.runs.append(run)
             return state
         for fn, aids in ((offline_round, hard_in_list), (offline_round_relaxed, ())):
+            if A.lanes_of(state) is not None:
+                every = torch.ones(A.num_lanes(state), dtype=torch.bool, device=state.device)
+                carry, _ = _lane_phase(
+                    state, ctx, round_fn=fn, max_rounds=max_rounds, enable_heavy=self.enable_heavy_goals,
+                    prior_mask=_np_mask(()), admit_mask=_np_mask(aids), needs=frozenset(), syncs=syncs,
+                    live=every, pass_moves=torch.zeros(every.shape, dtype=torch.int32, device=state.device),
+                )
+                state = carry.state
+                continue
             state, _, _ = _phase_loop(
                 state, ctx, round_fn=fn, max_rounds=max_rounds,
                 enable_heavy=self.enable_heavy_goals, prior_ids=(), admit_ids=aids,
@@ -986,14 +1092,14 @@ class GoalOptimizer:
     # -- many clusters and bounded re-solves ----------------------------------
     #
     # The JAX package lifts each goal step over a stacked scenario axis with
-    # vmap.  The port's evaluation takes the lane axis the same way: a
-    # stack's violations are one lane-form snapshot and one violation pass
-    # (lane_violations).  The solve's rounds are still written for one
-    # cluster, so batched_optimize runs a stack's lanes one after another
-    # through the same steps as optimize(): each lane is a view of the stack
-    # on the device, the final lanes are restacked, and per-lane scalars stay
-    # on the device until one bulk fetch.  Each lane therefore equals its
-    # single-cluster solve.
+    # vmap.  The port takes the lane axis the same way: a stack's violations
+    # are one lane-form snapshot and one violation pass (lane_violations), and
+    # its solve runs every goal once for the whole stack -- each round one
+    # lane-form snapshot and one lifted round (analyzer.lanes), each lane's
+    # phase and pass cycle its own, a lane that has ended frozen until every
+    # lane is done.  Each lane therefore equals its single-cluster solve.  On
+    # the card a goal is one graph launch for the stack (device_loop); on the
+    # CPU the host reads once a round for the stack.
 
     def batched_violations(self, states: ClusterArrays, ctx: GoalContext) -> torch.Tensor:
         """f32[S, NUM_GOALS] violation counts of every lane of a stack
@@ -1002,21 +1108,27 @@ class GoalOptimizer:
         states, ctx = states.to(self.device), ctx.to(self.device)
         return lane_violations(states, ctx, self.enable_heavy_goals, self.goal_ids)
 
+    def _check_lanes(self, states: ClusterArrays, ctx: GoalContext) -> None:
+        """Raise, before the solve allocates anything, when the stack's lanes
+        would pass int32 in the widest lane-form call of a round."""
+        check_lane_span(A.num_lanes(states), round_span(states, ctx, self.enable_heavy_goals))
+
     def batched_optimize(
         self, states: ClusterArrays, ctx: GoalContext
     ) -> Tuple[ClusterArrays, BatchedResult]:
         """The full goal list on every lane of a stack (leading scenario axis,
         ``model.arrays.stack_arrays``; one context for all lanes): the offline
-        pre-phases, then the goal walk, lane after lane.  Returns the final
-        lanes restacked on the device and per-lane results.
+        pre-phases, then the goal walk, each run ONCE for the whole stack, as
+        the JAX package's vmapped steps run (no loop over the lanes).  Returns
+        the final lanes on the device and per-lane results.
 
         As in the JAX package: the unbucketed walk, no proposals, empty
         ``stats_before/after`` and per-lane ``provision`` and ``movement``;
         with the kafka-assigner goal every lane runs the batch's largest
         replication factor of position passes.  One ``"optimize"`` flight
-        record with the JAX batched record's names: a ``setup`` span (every
-        lane's leading probe and offline pre-phases), one span per goal (its
-        walls and host syncs summed over the lanes) and a ``finalize`` span."""
+        record with the JAX batched record's names: a ``setup`` span (the
+        leading probe and the offline pre-phases), one span per goal (its wall
+        and host syncs for the whole stack) and a ``finalize`` span."""
         from cruise_control_tpu_torch.core.sensors import PROPOSAL_COMPUTATION_TIMER, REGISTRY
         from cruise_control_tpu_torch.obs import recorder as obs
 
@@ -1025,67 +1137,56 @@ class GoalOptimizer:
         t0 = time.monotonic()
         syncs = HostSyncs()
         states, ctx = states.to(self.device), ctx.to(self.device)
+        self._check_lanes(states, ctx)
         heavy = self.enable_heavy_goals
         max_rounds = self._max_rounds(ctx)
         max_rf = (
             _max_replication_factor(states, syncs) if G.KAFKA_ASSIGNER_RACK in self.goal_ids else 1
         )
+        viol0 = lane_violations(states, ctx, heavy, self.goal_ids)
+        state = self._offline_repair(states, ctx, max_rounds, syncs)
         setup_s, setup_syncs = time.monotonic() - t0, syncs.count
-        goal_walls = {g: 0.0 for g in self.goal_ids}
-        goal_syncs = {g: 0 for g in self.goal_ids}
-        finals, lanes = [], []
-        for i in range(A.num_lanes(states)):
-            s0, c0 = time.monotonic(), syncs.count
-            state = A.index_arrays(states, i)
-            viol0 = _violations_fn(state, ctx, heavy, self.goal_ids)
-            state = self._offline_repair(state, ctx, max_rounds, syncs)
-            setup_s += time.monotonic() - s0
-            setup_syncs += syncs.count - c0
-            raw: List[tuple] = []
-            prior: Tuple[int, ...] = ()
-            for gid in self.goal_ids:
-                g0, c0 = time.monotonic(), syncs.count
-                state, rounds, moves, before, after, _ = self._run_goal(
-                    gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
-                )
-                wall = time.monotonic() - g0
-                raw.append((gid, rounds, moves, before, after, wall))
-                goal_walls[gid] += wall
-                goal_syncs[gid] += syncs.count - c0
-                prior = prior + (gid,)
-            finals.append(state)
-            lanes.append((viol0, _violations_fn(state, ctx, heavy, self.goal_ids), raw))
-        final = A.stack_arrays(finals)
+        raw: List[tuple] = []
+        prior: Tuple[int, ...] = ()
+        for gid in self.goal_ids:
+            g0, c0 = time.monotonic(), syncs.count
+            state, rounds, moves, before, after, _ = self._run_goal(
+                gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
+            )
+            raw.append((gid, rounds, moves, before, after, time.monotonic() - g0, syncs.count - c0))
+            prior = prior + (gid,)
+        final = state
 
         # one bulk fetch of every lane's scalars, then host copies of both stacks
-        flat = host_fetch(syncs, [
-            x for v0, vN, raw in lanes for x in (v0, vN, *(y for r in raw for y in r[1:5]))
-        ])
+        viol0_h, violN_h, *per_goal = host_fetch(syncs, [
+            viol0, lane_violations(final, ctx, heavy, self.goal_ids),
+        ] + [x for r in raw for x in r[1:5]])
         initial_h, final_h = syncs.state(states), syncs.state(final)
         duration = time.monotonic() - t0
         names = G.GOAL_NAMES
+        S = A.num_lanes(states)
+
+        def lane_value(v, i):
+            return v if np.ndim(v) == 0 else v[i]
+
         results: List[OptimizerResult] = []
-        k = 0
-        for i, (_, _, raw) in enumerate(lanes):
-            viol0_h, violN_h = flat[k], flat[k + 1]
-            k += 2
+        for i in range(S):
             reports = []
-            for gid, _, _, _, _, wall in raw:
-                rounds, moves, before, after = flat[k:k + 4]
-                k += 4
+            for j, (gid, *_, wall, _) in enumerate(raw):
+                rounds, moves, before, after = (lane_value(v, i) for v in per_goal[4 * j:4 * j + 4])
                 reports.append(GoalReport(
                     goal_id=gid, name=names[gid], is_hard=gid in self.hard_ids,
                     violations_before=float(before), violations_after=float(after),
                     rounds=int(rounds), moves_applied=int(moves), duration_s=wall,
                 ))
             violated_hard = [
-                names[g] for g in self.hard_ids if g in self.goal_ids and float(violN_h[g]) > 0
+                names[g] for g in self.hard_ids if g in self.goal_ids and float(violN_h[i, g]) > 0
             ]
             final_i = A.index_arrays(final_h, i)
             results.append(OptimizerResult(
                 goal_reports=reports,
-                violations_before={names[g]: float(viol0_h[g]) for g in self.goal_ids},
-                violations_after={names[g]: float(violN_h[g]) for g in self.goal_ids},
+                violations_before={names[g]: float(viol0_h[i, g]) for g in self.goal_ids},
+                violations_after={names[g]: float(violN_h[i, g]) for g in self.goal_ids},
                 stats_before={},
                 stats_after={},
                 proposals=[],
@@ -1098,10 +1199,10 @@ class GoalOptimizer:
         REGISTRY.timer(PROPOSAL_COMPUTATION_TIMER).update(duration)
 
         spans = [obs.Span("setup", "setup", setup_s, setup_syncs)]
-        for j, gid in enumerate(self.goal_ids):
+        for j, (gid, *_, wall, goal_syncs) in enumerate(raw):
             reps = [r.goal_reports[j] for r in results]
             spans.append(obs.Span(
-                names[gid], "goal", goal_walls[gid], goal_syncs[gid],
+                names[gid], "goal", wall, goal_syncs,
                 attrs={
                     "moves": sum(r.moves_applied for r in reps),
                     "lanes_unsatisfied": sum(1 for r in reps if r.violations_after > 0),
@@ -1110,8 +1211,8 @@ class GoalOptimizer:
             ))
         spans.append(obs.Span(
             "finalize", "finalize",
-            max(duration - setup_s - sum(goal_walls.values()), 0.0),
-            syncs.count - setup_syncs - sum(goal_syncs.values()),
+            max(duration - setup_s - sum(r[5] for r in raw), 0.0),
+            syncs.count - setup_syncs - sum(r[6] for r in raw),
         ))
         obs.finish_trace(
             token,
@@ -1195,15 +1296,16 @@ class GoalOptimizer:
     ) -> Tuple[ClusterArrays, BatchedIncrementalResult]:
         """:meth:`incremental_optimize` over every lane of a stack: the walk
         runs the UNION of the drifted goals of ``union_lanes`` (default every
-        lane), and every lane goes through every union goal, as the JAX
-        package's one static goal sequence does.  A goal a lane satisfies
-        applies nothing there (a converged state is a fixpoint of its own
-        rounds), but its rounds count, as in the reference.  A lane's
-        ``goals_run`` is the union's goals that lane drifted on.
-        ``violations`` is the caller's ``[S, NUM_GOALS]`` probe."""
+        lane) once for the whole stack, and every lane goes through every
+        union goal, as the JAX package's one static goal sequence does.  A
+        goal a lane satisfies applies nothing there (a converged state is a
+        fixpoint of its own rounds), but its rounds count, as in the
+        reference.  A lane's ``goals_run`` is the union's goals that lane
+        drifted on.  ``violations`` is the caller's ``[S, NUM_GOALS]`` probe."""
         t0 = time.monotonic()
         syncs = HostSyncs()
         states, ctx = states.to(self.device), ctx.to(self.device)
+        self._check_lanes(states, ctx)
         heavy = self.enable_heavy_goals
         if violations is None:
             violations = self.batched_violations(states, ctx)
@@ -1217,28 +1319,20 @@ class GoalOptimizer:
         max_rf = (
             _max_replication_factor(states, syncs) if G.KAFKA_ASSIGNER_RACK in union else 1
         )
-        finals, raws, viols = [], [], []
-        for i in range(S):
-            state, raw = self._incremental_walk(
-                A.index_arrays(states, i), ctx, union, int(max_rounds), max_rf, syncs,
-            )
-            finals.append(state)
-            raws.append(raw)
-            viols.append(_violations_fn(state, ctx, heavy, self.goal_ids))
-        final = A.stack_arrays(finals)
-        fetched = host_fetch(syncs, viols + [x for raw in raws for _, r, m in raw for x in (r, m)])
+        final, raw = self._incremental_walk(states, ctx, union, int(max_rounds), max_rf, syncs)
+        violN, *counts = host_fetch(
+            syncs, [lane_violations(final, ctx, heavy, self.goal_ids)] + [x for _, r, m in raw for x in (r, m)]
+        )
         duration = time.monotonic() - t0
-        k = S
         results: List[IncrementalResult] = []
-        for i, raw in enumerate(raws):
-            counts = fetched[k:k + 2 * len(raw)]
-            k += 2 * len(raw)
+        for i in range(S):
+            lane = [v if np.ndim(v) == 0 else v[i] for v in counts]
             results.append(IncrementalResult(
                 goals_run=[G.GOAL_NAMES[g] for g, _, _ in raw if g in drifted_by_lane[i]],
                 violations_before=viol0[i],
-                violations_after=fetched[i],
-                total_moves=int(sum(int(m) for m in counts[1::2])),
-                total_rounds=int(sum(int(r) for r in counts[0::2])),
+                violations_after=violN[i],
+                total_moves=int(sum(int(m) for m in lane[1::2])),
+                total_rounds=int(sum(int(r) for r in lane[0::2])),
                 num_host_syncs=syncs.count,
                 duration_s=duration,
             ))
@@ -1267,10 +1361,10 @@ class GoalOptimizer:
     ) -> None:
         """:meth:`warm_incremental_programs` for a stack: builds the CUDA
         kernels (on the card), runs one probe of every lane and captures
-        the walk's goals at a lane's shapes."""
+        the walk's goals at the stack's shapes (its lane count included)."""
         self._build_kernels()
         HostSyncs().tolist(self.batched_violations(states, ctx))
-        self._warm_loops(A.index_arrays(states.to(self.device), 0), ctx, max_rounds)
+        self._warm_loops(states, ctx, max_rounds)
 
     def _warm_loops(self, state: ClusterArrays, ctx: GoalContext, max_rounds: int) -> None:
         """On the device driver, capture every goal of the walk at ``state``'s

@@ -49,7 +49,7 @@ from cruise_control_tpu_torch.analyzer.moves import (
     MoveBatch,
 )
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
-from cruise_control_tpu_torch.ops.index import scatter_last, scatter_set
+from cruise_control_tpu_torch.ops.index import even_significand, fresh_index_fill, scatter_last, scatter_set
 from cruise_control_tpu_torch.parallel import spmd as SP
 
 I32 = torch.int32
@@ -108,7 +108,7 @@ def _plus_jitter(x: torch.Tensor, a: torch.Tensor, b, salt=0) -> torch.Tensor:
     s = x64 + p
     bb = s - x64
     err = (x64 - (s - bb)) + (p - bb)
-    even = torch.bitwise_and(s.view(torch.int64), 1) == 0
+    even = even_significand(s)
     toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
     s = torch.where((err != 0) & even & torch.isfinite(s), torch.nextafter(s, toward), s)
     return s.to(F32)
@@ -191,8 +191,7 @@ def _partition_occupancy(
     flat = rows.long() * (ncols + 1) + cols.long()
     if spmd is None:
         occupied = torch.zeros((S + 1) * (ncols + 1), dtype=torch.bool, device=dev)
-        occupied.index_fill_(0, flat, True)
-        occupied = occupied.view(S + 1, ncols + 1)[:S, :ncols]
+        occupied = fresh_index_fill(occupied, flat, True).view(S + 1, ncols + 1)[:S, :ncols]
         return occupied | ~unique[:, None]
     partial = torch.zeros((S + 1) * (ncols + 1), dtype=I32, device=dev)
     partial.index_add_(0, flat, torch.ones_like(flat, dtype=I32))
@@ -384,8 +383,7 @@ def fill_round(
     for j in range(k):
         if donor_cols is None:
             donor, found = _argmax_rows(masked)
-            masked = masked.clone()
-            masked.scatter_(1, donor.long()[:, None], NEG)
+            masked = torch.where(cols[None, :] == donor[:, None], NEG, masked)
         else:
             donor = donor_cols[j]
             found = donor_scores[j] > NEG / 2
@@ -416,10 +414,10 @@ def fill_round(
     pair_ok = move_dst_matrix(
         vs, ctx, vsnap, rv_safe, slot_valid, prior_mask, dst_brokers=cap_rows
     )[slot_idx, col]
-    pair_ok &= ~_partition_occupancy(
+    pair_ok = pair_ok & ~_partition_occupancy(
         state, vs.replica_partition[rv_safe], slot_valid, dst_brokers=cap_rows, spmd=spmd
     )[slot_idx, col]
-    pair_ok &= d_safe != vs.replica_broker[rv_safe]
+    pair_ok = pair_ok & (d_safe != vs.replica_broker[rv_safe])
     replica = torch.where(slot_valid & pair_ok, replica, -1)
     return MoveBatch(
         kind=KIND_REPLICA_MOVE,

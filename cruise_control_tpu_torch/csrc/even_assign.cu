@@ -31,6 +31,12 @@
 //    reduce with warp shuffles; above one warp, one shared-memory step (double-buffered, so
 //    one __syncthreads a partition) and a second shuffle round give every thread the
 //    winner.  One warp (up to 128 brokers) needs no barrier at all.
+//  * a stack of clusters (the solver's lane form: the JAX package vmaps the placement over
+//    its lanes) is one launch with one block a lane: block l reads and writes lane l's
+//    rows of every buffer (each buffer is lanes x its one-lane size, lane-major), so the
+//    lanes' serial chains run side by side on the SMs.  Every lane runs the same position
+//    pass; a lane whose replication factor is lower places nothing at the extra positions
+//    (its rf[p] <= pos), as in the JAX package, whose position loop has one static bound.
 // The caller allocates nothing for the kernel; it updates counts and column pos of chosen in
 // place, on the caller's stream.
 
@@ -60,6 +66,13 @@ even_assign_pass(int* __restrict__ counts, int* __restrict__ chosen, const int* 
                  const unsigned char* __restrict__ excluded, const int* __restrict__ rack,
                  const unsigned char* __restrict__ eligible, int partitions, int brokers,
                  int max_rf, int pos, int tile) {
+  const size_t cl = blockIdx.x;  // this block's cluster (lane) of the stack
+  counts += cl * brokers;
+  chosen += cl * partitions * max_rf;
+  rf += cl * partitions;
+  excluded += cl * partitions;
+  rack += cl * brokers;
+  eligible += cl * brokers;
   extern __shared__ int stage[];  // [tile] active flags, [tile][pos] brokers, [tile][pos] racks
   __shared__ unsigned long long red[2][2][32];  // [buffer][strict, relaxed][warp]
   int* s_active = stage;
@@ -144,9 +157,10 @@ even_assign_pass(int* __restrict__ counts, int* __restrict__ chosen, const int* 
 }  // namespace
 
 // Plain C entry point for ctypes: one array of int64 arguments -- counts, chosen, rf,
-// excluded, rack, eligible (device pointers: int32, int32 [partitions, max_rf], int32,
-// bool, int32, bool), partitions, brokers, max_rf, pos, stream.  Returns 0 or the CUDA
-// error of the launch.
+// excluded, rack, eligible (device pointers: int32 [lanes, brokers], int32 [lanes,
+// partitions, max_rf], int32 [lanes, partitions], bool [lanes, partitions], int32 [lanes,
+// brokers], bool [lanes, brokers]), partitions, brokers, max_rf, pos, stream, lanes (1 for
+// one cluster).  Returns 0 or the CUDA error of the launch.
 extern "C" int cc_even_assign(const long long* args) {
   int* counts = (int*)args[0];
   int* chosen = (int*)args[1];
@@ -157,7 +171,9 @@ extern "C" int cc_even_assign(const long long* args) {
   const int partitions = (int)args[6], brokers = (int)args[7];
   const int max_rf = (int)args[8], pos = (int)args[9];
   cudaStream_t st = (cudaStream_t)args[10];
-  if (partitions < 0 || brokers <= 0 || brokers > kMaxBrokers || pos < 0 || pos >= max_rf)
+  const int lanes = (int)args[11];
+  if (partitions < 0 || brokers <= 0 || brokers > kMaxBrokers || pos < 0 || pos >= max_rf ||
+      lanes <= 0 || lanes > 65535)
     return (int)cudaErrorInvalidValue;
   if (partitions == 0) return 0;
   int per = 4;
@@ -166,7 +182,7 @@ extern "C" int cc_even_assign(const long long* args) {
   const int tile = max(1, min(kMaxTile, kStageInts / (1 + 2 * pos)));
   const size_t smem = (size_t)tile * (1 + 2 * pos) * sizeof(int);
 #define CC_PASS(P)                                                                      \
-  even_assign_pass<P><<<1, threads, smem, st>>>(counts, chosen, rf, excluded, rack,      \
+  even_assign_pass<P><<<lanes, threads, smem, st>>>(counts, chosen, rf, excluded, rack,      \
                                                 eligible, partitions, brokers, max_rf, pos, \
                                                 tile)
   switch (per) {

@@ -27,8 +27,21 @@
 // analyzer/optimizer.py's phase_cond and the pass cycle's condition:
 //   a phase runs while (streak < windows) && (it < max_rounds);
 //   the pass cycle while (pass moves > 0) && (passes < max_passes).
-// Bound: none worth a roofline -- one thread, a few words of device memory, about 2 us a
-// round of launch latency inside the graph; what the graph removes is the host's wait.
+//
+// A stack of clusters (the lane form: the JAX package vmaps the goal step, whose batched
+// while loops run while ANY lane's condition holds and keep a finished lane's carry) runs
+// the same graph with `lanes` > 0 and a second int32 buffer `lane` of kLaneWords rows of
+// `lanes` words: each lane's phase carry (it, total, streak, windows), whether it runs the
+// next round (active), its rounds, moves, pass moves and passes, and whether its pass
+// cycle goes on (pass live).  The captured round reads a lane's carry and `active` and
+// writes the carry back (a lane that is not active keeps it); the control kernels compute
+// each lane's condition as above and set the WHILE node's condition to "any lane": a phase
+// runs while any active lane has streak < windows && it < max_rounds, the pass cycle while
+// any lane's pass moved something and its passes < max_passes.  The scalar words then count
+// the graph's own trips: it is the rounds the body ran in this phase (the longest lane's),
+// so the trip counts and the launch's control kernels keep their meaning.
+// Bound: none worth a roofline -- one thread, a few words of device memory a lane, about 2 us
+// a round of launch latency inside the graph; what the graph removes is the host's wait.
 // Conditional nodes need CUDA 12.3 or later in the runtime and in the driver:
 // cc_loop_versions reports both, and the Python side raises below that.
 //
@@ -46,12 +59,17 @@
 namespace {
 
 enum Slot { kIt = 0, kTotal, kStreak, kWindows, kRounds, kMoves, kPassMoves, kPasses, kCtlRuns, kTrips };
+enum LaneSlot { lIt = 0, lTotal, lStreak, lWindows, lActive, lRounds, lMoves, lPassMoves, lPasses, lPassLive,
+                kLaneWords };
 enum Op { kGoalInit = 0, kPassInit, kPhaseInit, kPhaseCond, kPhaseEnd, kPassEnd };
 
 constexpr int kMaxPhases = 16;
 
 __global__ void loop_ctl(int op, int* ctl, cudaGraphConditionalHandle handle, int phase,
-                         int limit, int nphases) {
+                         int limit, int nphases, int lanes, int* lane) {
+  // word w of lane l of a stack
+#define LW(w, l) lane[(w) * lanes + (l)]
+  unsigned any = 0;
   switch (op) {
     case kGoalInit:
       ctl[kRounds] = 0;
@@ -60,21 +78,50 @@ __global__ void loop_ctl(int op, int* ctl, cudaGraphConditionalHandle handle, in
       ctl[kPasses] = 0;
       ctl[kCtlRuns] = 0;
       for (int k = 0; k < nphases; ++k) ctl[kTrips + k] = 0;
+      for (int l = 0; l < lanes; ++l) {
+        LW(lRounds, l) = LW(lMoves, l) = LW(lPassMoves, l) = LW(lPasses, l) = 0;
+        LW(lPassLive, l) = 1;
+      }
       break;
     case kPassInit:
       ctl[kPassMoves] = 0;
+      for (int l = 0; l < lanes; ++l) LW(lPassMoves, l) = 0;
       break;
     case kPhaseInit:
       ctl[kIt] = 0;
       ctl[kTotal] = 0;
       ctl[kStreak] = 0;
       ctl[kWindows] = 1;
-      cudaGraphSetConditional(handle, limit > 0 ? 1u : 0u);
+      for (int l = 0; l < lanes; ++l) {
+        LW(lIt, l) = LW(lTotal, l) = LW(lStreak, l) = 0;
+        LW(lWindows, l) = 1;
+        LW(lActive, l) = LW(lPassLive, l) && limit > 0;
+        any |= LW(lActive, l);
+      }
+      cudaGraphSetConditional(handle, (lanes ? any : limit > 0) ? 1u : 0u);
       break;
     case kPhaseCond:
-      cudaGraphSetConditional(handle, ctl[kStreak] < ctl[kWindows] && ctl[kIt] < limit ? 1u : 0u);
+      if (lanes) {
+        ctl[kIt] += 1;  // the body's trips: the longest-running lane's rounds
+        for (int l = 0; l < lanes; ++l) {
+          LW(lActive, l) = LW(lActive, l) && LW(lStreak, l) < LW(lWindows, l) && LW(lIt, l) < limit;
+          any |= LW(lActive, l);
+        }
+        cudaGraphSetConditional(handle, any);
+      } else {
+        cudaGraphSetConditional(handle, ctl[kStreak] < ctl[kWindows] && ctl[kIt] < limit ? 1u : 0u);
+      }
       break;
     case kPhaseEnd:
+      if (lanes) {
+        ctl[kTotal] = 0;
+        for (int l = 0; l < lanes; ++l) {
+          LW(lRounds, l) += LW(lIt, l);
+          LW(lMoves, l) += LW(lTotal, l);
+          LW(lPassMoves, l) += LW(lTotal, l);
+          ctl[kTotal] += LW(lTotal, l);
+        }
+      }
       ctl[kRounds] += ctl[kIt];
       ctl[kMoves] += ctl[kTotal];
       ctl[kPassMoves] += ctl[kTotal];
@@ -82,9 +129,19 @@ __global__ void loop_ctl(int op, int* ctl, cudaGraphConditionalHandle handle, in
       break;
     case kPassEnd:
       ctl[kPasses] += 1;
-      cudaGraphSetConditional(handle, ctl[kPassMoves] > 0 && ctl[kPasses] < limit ? 1u : 0u);
+      if (lanes) {
+        for (int l = 0; l < lanes; ++l) {
+          LW(lPasses, l) += LW(lPassLive, l);
+          LW(lPassLive, l) = LW(lPassLive, l) && LW(lPassMoves, l) > 0 && LW(lPasses, l) < limit;
+          any |= LW(lPassLive, l);
+        }
+        cudaGraphSetConditional(handle, any);
+      } else {
+        cudaGraphSetConditional(handle, ctl[kPassMoves] > 0 && ctl[kPasses] < limit ? 1u : 0u);
+      }
       break;
   }
+#undef LW
   ctl[kCtlRuns] += 1;
 }
 
@@ -114,10 +171,15 @@ int add_count_ctl(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_
   return (int)cudaGraphAddKernelNode(node, graph, dep, dep ? 1 : 0, &p);
 }
 
+struct Lanes {
+  int count;  // 0: one cluster
+  int* words;
+};
+
 int add_ctl(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep, int op, int* ctl,
-            cudaGraphConditionalHandle handle, int phase, int limit, int nphases) {
+            cudaGraphConditionalHandle handle, int phase, int limit, int nphases, Lanes ln) {
   cudaKernelNodeParams p = {};
-  void* args[] = {&op, &ctl, &handle, &phase, &limit, &nphases};
+  void* args[] = {&op, &ctl, &handle, &phase, &limit, &nphases, &ln.count, &ln.words};
   p.func = (void*)loop_ctl;
   p.gridDim = dim3(1);
   p.blockDim = dim3(1);
@@ -154,12 +216,16 @@ extern "C" int cc_loop_versions(long long* out) {
 }
 
 // Build and instantiate one goal graph.  args: ctl (device int32 pointer), max_passes,
-// nphases, then per phase: its captured round (a cudaGraph_t, cloned into the body) and its
-// round cap.  out: the graph and its executable.
+// nphases, lanes (0: one cluster), lane (device int32 pointer of kLaneWords x lanes words, or
+// 0), then per phase: its captured round (a cudaGraph_t, cloned into the body) and its round
+// cap.  out: the graph and its executable.
 extern "C" int cc_loop_build(const long long* args, long long* out) {
   int* ctl = (int*)args[0];
   const int max_passes = (int)args[1], nphases = (int)args[2];
-  if (!ctl || nphases <= 0 || nphases > kMaxPhases || max_passes <= 0)
+  const Lanes ln = {(int)args[3], (int*)args[4]};
+  args += 2;  // the phases follow the lane arguments
+  if (!ctl || nphases <= 0 || nphases > kMaxPhases || max_passes <= 0 || ln.count < 0 ||
+      (ln.count > 0 && !ln.words))
     return (int)cudaErrorInvalidValue;
   cudaGraph_t graph = nullptr;
   int err = (int)cudaGraphCreate(&graph, 0);
@@ -167,11 +233,11 @@ extern "C" int cc_loop_build(const long long* args, long long* out) {
   cudaGraphNode_t init, pass_node, prev, node;
   cudaGraph_t pass_body = nullptr;
   cudaGraphConditionalHandle pass_handle;
-  err = add_ctl(&init, graph, nullptr, kGoalInit, ctl, 0, 0, 0, nphases);
+  err = add_ctl(&init, graph, nullptr, kGoalInit, ctl, 0, 0, 0, nphases, ln);
   if (!err)
     err = (int)cudaGraphConditionalHandleCreate(&pass_handle, graph, 1, cudaGraphCondAssignDefault);
   if (!err) err = add_while(&pass_node, graph, &init, pass_handle, &pass_body);
-  if (!err) err = add_ctl(&prev, pass_body, nullptr, kPassInit, ctl, 0, 0, 0, nphases);
+  if (!err) err = add_ctl(&prev, pass_body, nullptr, kPassInit, ctl, 0, 0, 0, nphases, ln);
   for (int k = 0; k < nphases && !err; ++k) {
     const cudaGraph_t round = (cudaGraph_t)args[3 + 2 * k];
     const int max_rounds = (int)args[4 + 2 * k];
@@ -179,13 +245,13 @@ extern "C" int cc_loop_build(const long long* args, long long* out) {
     cudaGraph_t body = nullptr;
     cudaGraphNode_t phase_init, loop, child, cond;
     err = (int)cudaGraphConditionalHandleCreate(&h, pass_body, 0, 0);
-    if (!err) err = add_ctl(&phase_init, pass_body, &prev, kPhaseInit, ctl, h, k, max_rounds, nphases);
+    if (!err) err = add_ctl(&phase_init, pass_body, &prev, kPhaseInit, ctl, h, k, max_rounds, nphases, ln);
     if (!err) err = add_while(&loop, pass_body, &phase_init, h, &body);
     if (!err) err = (int)cudaGraphAddChildGraphNode(&child, body, nullptr, 0, round);
-    if (!err) err = add_ctl(&cond, body, &child, kPhaseCond, ctl, h, k, max_rounds, nphases);
-    if (!err) err = add_ctl(&prev, pass_body, &loop, kPhaseEnd, ctl, 0, k, 0, nphases);
+    if (!err) err = add_ctl(&cond, body, &child, kPhaseCond, ctl, h, k, max_rounds, nphases, ln);
+    if (!err) err = add_ctl(&prev, pass_body, &loop, kPhaseEnd, ctl, 0, k, 0, nphases, ln);
   }
-  if (!err) err = add_ctl(&node, pass_body, &prev, kPassEnd, ctl, pass_handle, 0, max_passes, nphases);
+  if (!err) err = add_ctl(&node, pass_body, &prev, kPassEnd, ctl, pass_handle, 0, max_passes, nphases, ln);
   cudaGraphExec_t exec = nullptr;
   if (!err) err = (int)cudaGraphInstantiate(&exec, graph, 0);
   if (err) {

@@ -28,6 +28,7 @@ from cruise_control_tpu_torch.core.resources import (
 from cruise_control_tpu_torch.ops.index import lane_ids, scatter_set
 from cruise_control_tpu_torch.ops.segments import segment_sum as _segment_sum
 from cruise_control_tpu_torch.ops.segments import segment_sums as _segment_sums
+from cruise_control_tpu_torch.ops.segments import stacked_segment_sums
 
 I32 = torch.int32
 F32 = torch.float32
@@ -414,9 +415,7 @@ def lane_segment_sums(
     ``[S, num_segments, ...]``."""
     if lanes is None:
         return _segment_sums(columns, seg, num_segments)
-    flat = [c.reshape((-1,) + tuple(c.shape[2:])) for c in columns]
-    out = _segment_sums(flat, lane_ids(seg, num_segments), lanes * num_segments)
-    return [o.view((lanes, num_segments) + tuple(o.shape[1:])) for o in out]
+    return stacked_segment_sums(columns, seg, num_segments)
 
 
 def replication_factors(states: ClusterArrays) -> torch.Tensor:

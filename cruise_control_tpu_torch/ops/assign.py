@@ -12,7 +12,9 @@ JAX package runs each pass as one ``lax.scan`` over partitions
 launch of ``csrc/even_assign.cu`` (its note gives the design and the bound).
 
 :func:`even_assign` updates ``counts`` and column ``pos`` of ``chosen`` in
-place.  CPU tensors take :func:`even_assign_plain`, the same greedy as a
+place.  A stack of clusters (every buffer with a leading lane axis, the
+solver's lane form) is one launch with one block a lane; its plain version
+walks the lanes.  CPU tensors take :func:`even_assign_plain`, the same greedy as a
 Python loop over partitions; CUDA tensors launch the kernel or raise.  Each
 launch adds one to :data:`LAUNCHES` and reports to the profiler's census
 (each plain pass on the CPU too), with the work reckoned from the shape: two
@@ -44,7 +46,7 @@ LAUNCHES: Dict[str, int] = {"even_assign": 0}
 
 _MAX_BROKERS = 64 * 1024
 _LIB = None
-_PACK = struct.Struct("11q").pack
+_PACK = struct.Struct("12q").pack
 #: guards :data:`LAUNCHES` against host threads that launch at once
 _COUNT_LOCK = threading.Lock()
 
@@ -63,25 +65,32 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def _census(partitions: int, brokers: int, pos: int, wall_s: float, events=()) -> None:
+def _census(partitions: int, brokers: int, pos: int, wall_s: float, events=(), lanes: int = 1) -> None:
     """Report one pass to the profiler's census (the smoke's bound formula)."""
     def describe():
         nbytes = 8 * brokers + 4 * partitions * pos + 4 * partitions + 5 * partitions + 5 * brokers
-        return f"{partitions} partitions x {brokers} brokers, position {pos}", 2 * partitions * brokers, nbytes
+        where = f"{partitions} partitions x {brokers} brokers, position {pos}"
+        if lanes > 1:
+            where = f"{lanes} lanes of {where}"
+        return where, 2 * partitions * brokers * lanes, nbytes * lanes
 
-    PROFILER.on_call("even_assign", ("even_assign", partitions, brokers, pos), describe, wall_s, events)
+    key = ("even_assign", partitions, brokers, pos) + ((lanes,) if lanes > 1 else ())
+    PROFILER.on_call("even_assign", key, describe, wall_s, events)
 
 
 def _check(counts, chosen, pos, rf, excluded_part, broker_rack, eligible) -> None:
-    P, max_rf = chosen.shape
-    B = counts.shape[0]
+    P, max_rf = chosen.shape[-2:]
+    B = counts.shape[-1]
+    lead = tuple(chosen.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"even_assign: at most one lane axis, got chosen of shape {tuple(chosen.shape)}")
     for name, t, dtype, shape in (
-        ("counts", counts, torch.int32, (B,)),
-        ("chosen", chosen, torch.int32, (P, max_rf)),
-        ("rf", rf, torch.int32, (P,)),
-        ("excluded_part", excluded_part, torch.bool, (P,)),
-        ("broker_rack", broker_rack, torch.int32, (B,)),
-        ("eligible", eligible, torch.bool, (B,)),
+        ("counts", counts, torch.int32, lead + (B,)),
+        ("chosen", chosen, torch.int32, lead + (P, max_rf)),
+        ("rf", rf, torch.int32, lead + (P,)),
+        ("excluded_part", excluded_part, torch.bool, lead + (P,)),
+        ("broker_rack", broker_rack, torch.int32, lead + (B,)),
+        ("eligible", eligible, torch.bool, lead + (B,)),
     ):
         if t.dtype != dtype or tuple(t.shape) != shape or t.device != counts.device:
             raise ValueError(
@@ -101,7 +110,12 @@ def even_assign_plain(
     excluded_part: torch.Tensor, broker_rack: torch.Tensor, eligible: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version on CPU tensors: the greedy as a Python loop over
-    partitions, in place (numpy views share the tensors' memory)."""
+    partitions, in place (numpy views share the tensors' memory); a stack's
+    lanes one after another."""
+    if chosen.dim() == 3:
+        for i in range(chosen.shape[0]):
+            even_assign_plain(counts[i], chosen[i], pos, rf[i], excluded_part[i], broker_rack[i], eligible[i])
+        return counts, chosen
     cnt, ch = counts.numpy(), chosen.numpy()
     rack, el = broker_rack.numpy(), eligible.numpy()
     active = (rf.numpy() > pos) & ~excluded_part.numpy()
@@ -140,7 +154,8 @@ def even_assign_cuda(
     dev = counts.device
     if dev.type != "cuda":
         raise ValueError(f"even_assign_cuda takes CUDA tensors, got {dev}")
-    P, max_rf = chosen.shape
+    P, max_rf = chosen.shape[-2:]
+    lanes = chosen.shape[0] if chosen.dim() == 3 else 1
     t0 = time.perf_counter()
     mark = compile_mark() if _LIB is None else None   # the first call builds
     lib = _library()
@@ -148,14 +163,14 @@ def even_assign_cuda(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cc_even_assign(_PACK(
             counts.data_ptr(), chosen.data_ptr(), rf.data_ptr(), excluded_part.data_ptr(),
-            broker_rack.data_ptr(), eligible.data_ptr(), P, counts.shape[0], max_rf, pos, stream,
+            broker_rack.data_ptr(), eligible.data_ptr(), P, counts.shape[-1], max_rf, pos, stream, lanes,
         ))
     if err != 0:
         raise RuntimeError(f"even_assign kernel launch failed: CUDA error {err}")
     with _COUNT_LOCK:
         LAUNCHES["even_assign"] += 1
-    _census(P, counts.shape[0], pos, time.perf_counter() - t0,
-            compile_events_since(mark) if mark is not None else ())
+    _census(P, counts.shape[-1], pos, time.perf_counter() - t0,
+            compile_events_since(mark) if mark is not None else (), lanes)
     return counts, chosen
 
 
@@ -168,12 +183,14 @@ def even_assign(
     counts: i32[B] replicas already at this position per broker (updated);
     chosen: i32[P, maxRF] brokers picked so far, -1 unassigned (column ``pos``
     written); rf: i32[P] replicas per partition; excluded_part: bool[P];
-    broker_rack: i32[B]; eligible: bool[B] possible destinations."""
+    broker_rack: i32[B]; eligible: bool[B] possible destinations.  A stack
+    passes each with a leading lane axis ``[S, ...]``, all contiguous."""
     if counts.device.type == "cpu":
         _check(counts, chosen, pos, rf, excluded_part, broker_rack, eligible)
         t0 = time.perf_counter()
         out = even_assign_plain(counts, chosen, pos, rf, excluded_part, broker_rack, eligible)
-        _census(chosen.shape[0], counts.shape[0], pos, time.perf_counter() - t0)
+        _census(chosen.shape[-2], counts.shape[-1], pos, time.perf_counter() - t0,
+                lanes=chosen.shape[0] if chosen.dim() == 3 else 1)
         return out
     if counts.device.type == "cuda":
         return even_assign_cuda(counts, chosen, pos, rf, excluded_part, broker_rack, eligible)

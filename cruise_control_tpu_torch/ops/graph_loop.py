@@ -40,15 +40,21 @@ from cruise_control_tpu_torch.ops import _build
 #: since :func:`reset_launch_counts`: goal graphs launched (host calls), the
 #: control kernels they ran (counted on the device by the kernels themselves)
 #: and the work nodes of their rounds (kernels, memsets, copies), derived as
-#: each captured round's nodes times its fetched trip count; and the control
-#: kernels the graphs' layout implies (:func:`control_kernels`), which must
+#: each captured round's nodes times its fetched trip count, and the rounds
+#: the graphs ran (``round_trips``: a stack's round once for all its lanes);
+#: and the control kernels the graphs' layout implies (:func:`control_kernels`), which must
 #: equal the device's count.  The ``count_*`` and ``step_nodes`` keys count
 #: the same of the counted loops (:class:`CountedLoop`)
-LAUNCHES = {"graph_loop": 0, "loop_ctl": 0, "round_nodes": 0, "loop_ctl_by_layout": 0,
+LAUNCHES = {"graph_loop": 0, "loop_ctl": 0, "round_nodes": 0, "round_trips": 0, "loop_ctl_by_layout": 0,
             "count_loop": 0, "count_ctl": 0, "step_nodes": 0, "count_ctl_by_layout": 0}
 #: the ctl slots of ``csrc/graph_loop.cu`` (int32): the phase's carry, then the
 #: goal's, the control kernels run, then each phase's trip count
 IT, TOTAL, STREAK, WINDOWS, ROUNDS, MOVES, PASS_MOVES, PASSES, CTL_RUNS, TRIPS = range(10)
+#: a stack's lane words (rows of ``LANE_WORDS`` x lanes int32, ``csrc/graph_loop.cu``): each
+#: lane's phase carry, whether it runs the next round, its rounds, moves, pass
+#: moves, passes and whether its pass cycle goes on
+L_IT, L_TOTAL, L_STREAK, L_WINDOWS, L_ACTIVE, L_ROUNDS, L_MOVES, L_PASS_MOVES, L_PASSES, L_PASS_LIVE = range(10)
+LANE_WORDS = 10
 #: a counted loop's ctl slots (int32): the step index, the control kernels run
 STEP, COUNT_RUNS = range(2)
 MAX_PHASES = 16
@@ -199,17 +205,29 @@ class CapturedRound:
 class GoalGraph:
     """One goal's device program: its phases' captured rounds, each in a WHILE
     node, inside the pass cycle's WHILE node (``csrc/graph_loop.cu``).
-    ``ctl`` is the int32 control buffer the rounds were captured against."""
+    ``ctl`` is the int32 control buffer the rounds were captured against;
+    ``lane`` (a stack's ``[LANE_WORDS, S]`` int32 lane words, or None) makes
+    the conditions "any lane", each lane's own carry kept in its words."""
 
-    def __init__(self, ctl: torch.Tensor, phases: Sequence[Tuple[CapturedRound, int]], max_passes: int) -> None:
+    def __init__(
+        self, ctl: torch.Tensor, phases: Sequence[Tuple[CapturedRound, int]], max_passes: int,
+        lane: Optional[torch.Tensor] = None,
+    ) -> None:
         if not 0 < len(phases) <= MAX_PHASES:
             raise ValueError(f"a goal graph takes 1 to {MAX_PHASES} phases, got {len(phases)}")
         if ctl.dtype != torch.int32 or ctl.numel() < TRIPS + len(phases) or ctl.device.type != "cuda":
             raise ValueError(f"the goal graph's ctl must be a CUDA int32 buffer of {TRIPS} + phases slots")
+        if lane is not None and (
+            lane.dtype != torch.int32 or lane.dim() != 2 or lane.shape[0] != LANE_WORDS
+            or not lane.is_contiguous() or lane.device != ctl.device
+        ):
+            raise ValueError(f"the goal graph's lane words must be a contiguous int32 [{LANE_WORDS}, lanes] buffer")
         self.ctl = ctl
+        self.lane = lane
         self.phases = list(phases)
         self.max_passes = int(max_passes)
-        args = [ctl.data_ptr(), self.max_passes, len(phases)]
+        lanes = 0 if lane is None else int(lane.shape[1])
+        args = [ctl.data_ptr(), self.max_passes, len(phases), lanes, 0 if lane is None else lane.data_ptr()]
         for rnd, max_rounds in phases:
             args += [rnd.raw, int(max_rounds)]
         out = (ctypes.c_longlong * 2)()
@@ -238,6 +256,7 @@ class GoalGraph:
             LAUNCHES["loop_ctl"] += int(ctl_runs)
             LAUNCHES["loop_ctl_by_layout"] += control_kernels(passes, len(self.phases), trips)
             LAUNCHES["round_nodes"] += sum(rnd.work_nodes * int(n) for (rnd, _), n in zip(self.phases, trips))
+            LAUNCHES["round_trips"] += sum(int(n) for n in trips)
 
     def destroy(self) -> None:
         """Free the graph and its executable (the caller has waited for its

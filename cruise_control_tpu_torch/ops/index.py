@@ -8,6 +8,13 @@ sites through the functions here:
 * :func:`scatter_set` drops writes at indices ``>= n`` (JAX ``mode="drop"``;
   negative indices wrap first, as in JAX); PyTorch raises on the CPU and
   device-asserts on CUDA;
+* inside the solver's lane form (one lane of a stack lifted by
+  ``torch.func.vmap``, ``ops.segments.in_lanes``) a scatter into a fresh
+  buffer runs out of place, which vmap batches, and in place otherwise: every
+  such scatter goes through :func:`fresh_index_put`,
+  :func:`fresh_scatter_reduce` or :func:`fresh_index_fill`, which decide;
+  each lane's negative index wraps, and an out-of-range one drops, within
+  that lane;
 * :func:`scatter_last` resolves duplicate indices to the LAST write, the
   winner of the JAX CPU scatter, deterministically on every device;
 * :func:`segment_max` / :func:`segment_min` give empty segments the identity
@@ -32,7 +39,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from cruise_control_tpu_torch.ops import graph_loop
-from cruise_control_tpu_torch.ops.segments import segment_sums
+from cruise_control_tpu_torch.ops.segments import in_lanes, lane_ids, segment_sums
 
 _BLOCK = 16
 _WINDOW = 32
@@ -48,6 +55,50 @@ def _identity(dtype: torch.dtype, largest: bool):
     return info.max if largest else info.min
 
 
+def _out_of_place(buf: torch.Tensor, *writes) -> bool:
+    """Whether a write of ``writes`` into ``buf`` must run out of place: it
+    comes from one lane of a stack while ``buf`` is shared by the lanes (a
+    buffer made inside the lift has no lane axis), which vmap cannot write
+    in place."""
+    return in_lanes(*writes) and not in_lanes(buf)
+
+
+def fresh_index_put(buf: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """``buf[idx] = vals`` along dim 0 of a buffer the caller has just made
+    (nothing else holds it); returns the written buffer, ``buf`` itself
+    outside the lane form."""
+    if _out_of_place(buf, idx, vals):
+        return buf.index_put((idx,), vals)
+    return buf.index_put_((idx,), vals)
+
+
+def fresh_scatter_reduce(buf: torch.Tensor, idx: torch.Tensor, src: torch.Tensor, reduce: str) -> torch.Tensor:
+    """``buf.scatter_reduce_(0, idx, src, reduce, include_self=True)`` on a
+    buffer the caller has just made, as :func:`fresh_index_put`."""
+    if _out_of_place(buf, idx, src):
+        return buf.scatter_reduce(0, idx, src, reduce, include_self=True)
+    return buf.scatter_reduce_(0, idx, src, reduce, include_self=True)
+
+
+def fresh_index_fill(buf: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
+    """``buf.index_fill_(0, idx, value)`` on a buffer the caller has just
+    made, as :func:`fresh_index_put`."""
+    if _out_of_place(buf, idx):
+        return buf.index_fill(0, idx, value)
+    return buf.index_fill_(0, idx, value)
+
+
+def even_significand(s: torch.Tensor) -> torch.Tensor:
+    """bool: float64 ``s`` has an even significand (its last bit clear).  One
+    lane of a stack reads it by arithmetic -- ``|s|`` over its spacing is the
+    significand, an exact integer -- since vmap does not reinterpret a lane's
+    bits; both forms agree exactly on every finite value."""
+    if not in_lanes(s):
+        return torch.bitwise_and(s.view(torch.int64), 1) == 0
+    u = s.abs()
+    return torch.fmod(u / (torch.nextafter(u, torch.full_like(u, torch.inf)) - u), 2.0) == 0
+
+
 def _segment_reduce(data, seg, num_segments: int, reduce: str):
     S = int(num_segments)
     ids = seg.long()
@@ -56,18 +107,7 @@ def _segment_reduce(data, seg, num_segments: int, reduce: str):
     out = torch.full((S + 1,) + tuple(data.shape[1:]), fill, dtype=data.dtype, device=data.device)
     if data.dim() > 1:
         idx = idx.view((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
-    out.scatter_reduce_(0, idx, data, reduce, include_self=True)
-    return out[:S]
-
-
-def lane_ids(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """i32[S * n]: per-lane segment ids ``seg`` [S, n] flattened for one
-    segment reduction over a stack -- lane i's segment s becomes
-    ``i * num_segments + s``; ids outside ``[0, num_segments)`` become -1
-    (dropped), never another lane's segment."""
-    lane = torch.arange(seg.shape[0], dtype=torch.int32, device=seg.device)[:, None] * num_segments
-    ok = (seg >= 0) & (seg < num_segments)
-    return torch.where(ok, lane + seg, -1).reshape(-1)
+    return fresh_scatter_reduce(out, idx, data, reduce)[:S]
 
 
 def _lane_reduce(data, seg, num_segments: int, reduce: str, lanes: Optional[int]):
@@ -113,8 +153,8 @@ def scatter_set(target: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor
     vals = vals.expand(tuple(idx.shape) + tuple(target.shape[1:]))
     # dropped writes land in a sink row past the end (no host-side masking)
     out = torch.cat([target, target.new_zeros((1,) + tuple(target.shape[1:]))])
-    out.index_put_((torch.where(ok, safe, n),), vals)
-    return out[:n]
+    sink = torch.where(ok, safe, n)
+    return fresh_index_put(out, sink, vals)[:n]
 
 
 def scatter_last(target: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
@@ -125,8 +165,8 @@ def scatter_last(target: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) 
     safe, ok = _keep_mask(idx, n)
     pos = torch.arange(idx.shape[0], device=idx.device, dtype=torch.int64)
     last = torch.full((n + 1,), -1, dtype=torch.int64, device=idx.device)
-    last.scatter_reduce_(0, torch.where(ok, safe, n), pos, "amax", include_self=True)
-    last = last[:n]
+    sink = torch.where(ok, safe, n)
+    last = fresh_scatter_reduce(last, sink, pos, "amax")[:n]
     hit = last >= 0
     return torch.where(hit, values[last.clamp(min=0)].to(target.dtype), target)
 

@@ -27,6 +27,13 @@ a bool, uint8 or int32 column sums into int32 (a bool column counts its true
 rows).  :func:`segment_sum` is the one-tensor form with the JAX contract:
 integers keep their dtype and a bool column comes back as "any row".
 
+The solver's lane form lifts a round over a stack's lanes with
+``torch.func.vmap`` (``analyzer/lanes.py``).  A call made inside it
+(:func:`in_lanes`) goes through an operator whose batching rule makes every
+lane's call ONE call (:func:`stacked_segment_sums`: each lane's ids offset
+past the previous lanes' segments), so a lifted round launches what one
+lane's round launches.
+
 CPU tensors take the plain version; CUDA tensors launch a kernel or raise.
 Each host call that launches adds one to :data:`LAUNCHES` for its path, and
 the number of value tensors it carried to :data:`FIELDS`.  A call made while
@@ -51,6 +58,7 @@ import time
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
+from torch._C._functorch import is_batchedtensor
 
 from cruise_control_tpu_torch.obs.profiler import PROFILER
 from cruise_control_tpu_torch.obs.recorder import compile_events_since, compile_mark
@@ -328,7 +336,13 @@ def segment_sums(
     each.  float32 columns give float32 sums in row order; bool, uint8 and
     int32 columns give int32 sums (a bool column counts its true rows).  On
     the card one host call: the fixed-order path if any column is float, the
-    integer path otherwise."""
+    integer path otherwise.
+
+    Inside the solver's lane form (``torch.func.vmap`` of a round over a
+    stack, :func:`in_lanes`) the call goes through :func:`_lane_segment_sums`,
+    whose batching rule makes it ONE call for every lane."""
+    if in_lanes(segment_ids, *columns):
+        return list(_lane_segment_sums(list(columns), segment_ids, int(num_segments)))
     if segment_ids.device.type == "cpu":
         t0 = time.perf_counter()
         out = segment_sums_plain(columns, segment_ids, num_segments)
@@ -370,3 +384,57 @@ def segment_sum(
     if values.device.type == "cuda":
         return segment_sum_cuda(values, segment_ids, num_segments)
     raise ValueError(f"segment_sum: unsupported device {values.device}")
+
+
+# -- the lane form --------------------------------------------------------------------
+
+
+def in_lanes(*tensors) -> bool:
+    """Whether any of ``tensors`` is one lane of a stack lifted by
+    ``torch.func.vmap``: the solver's lane form, the counterpart of the JAX
+    package's ``jax.vmap`` of a goal step."""
+    return any(isinstance(t, torch.Tensor) and is_batchedtensor(t) for t in tensors)
+
+
+def lane_ids(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """i32[S * n]: per-lane segment ids ``seg`` [S, n] flattened for one
+    segment reduction over a stack -- lane i's segment s becomes
+    ``i * num_segments + s``; ids outside ``[0, num_segments)`` become -1
+    (dropped) in their own lane, before the offset, never another lane's
+    segment."""
+    lane = torch.arange(seg.shape[0], dtype=torch.int32, device=seg.device)[:, None] * num_segments
+    ok = (seg >= 0) & (seg < num_segments)
+    return torch.where(ok, lane + seg, -1).reshape(-1)
+
+
+@torch.library.custom_op("cruise_control_port::segment_sums", mutates_args=())
+def _lane_segment_sums(columns: List[torch.Tensor], segment_ids: torch.Tensor, num_segments: int) -> List[torch.Tensor]:
+    """:func:`segment_sums` as an operator, so that vmap can batch it (one lane's call)."""
+    return [t.clone() for t in segment_sums(columns, segment_ids, num_segments)]
+
+
+def stacked_segment_sums(
+    columns: Sequence[torch.Tensor], segment_ids: torch.Tensor, num_segments: int
+) -> List[torch.Tensor]:
+    """:func:`segment_sums` of every lane of ``[S, R, ...]`` columns under
+    ``[S, R]`` ids in ONE call: the rows flattened lane-major, each lane's
+    ids offset past the previous lanes' segments (:func:`lane_ids`), so each
+    lane's rows keep their order and its sums are those of its own call;
+    ``[S, num_segments, ...]`` each."""
+    L = segment_ids.shape[0]
+    flat = [c.reshape((-1,) + tuple(c.shape[2:])) for c in columns]
+    out = segment_sums(flat, lane_ids(segment_ids, num_segments), L * num_segments)
+    return [o.view((L, num_segments) + tuple(o.shape[1:])) for o in out]
+
+
+@_lane_segment_sums.register_vmap
+def _lane_segment_sums_rule(info, in_dims, columns, segment_ids, num_segments):
+    """The lanes' calls as ONE call of the kernels (:func:`stacked_segment_sums`)."""
+    L = info.batch_size
+
+    def lanes(t, d):
+        return t.movedim(d, 0) if d is not None else t.expand((L,) + tuple(t.shape))
+
+    cols = [lanes(c, d) for c, d in zip(columns, in_dims[0])]
+    out = stacked_segment_sums(cols, lanes(segment_ids, in_dims[1]), num_segments)
+    return out, [0] * len(out)

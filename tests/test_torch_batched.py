@@ -28,6 +28,7 @@ from cruise_control_tpu_torch import sim as PSIM
 from cruise_control_tpu_torch.analyzer import GoalOptimizer
 from cruise_control_tpu_torch.model import arrays as PA
 from tests.torch_port_helpers import assert_records_match, clear_records, port_ctx, port_state, to_np
+from tests.torch_port_helpers import one_intra_op_thread  # noqa: F401 (autouse: one thread)
 
 LIGHT = dict(mean_cpu=0.08, mean_disk=0.08, mean_nw_in=0.08, mean_nw_out=0.06)
 #: tests/test_sim.py's goal subset and hard goals

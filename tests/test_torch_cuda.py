@@ -437,7 +437,7 @@ def test_fleet_tick_on_the_card_equals_the_cpu_port(cuda_device):
     loads = SM.partition_loads(state, maps)
     sets = {}
     for where in (cuda_device, torch.device("cpu")):
-        fleet, attrs, _ = SM._fleet_tick(state, maps, loads, (1.1, 1.2, 1.3), where)
+        fleet, attrs, _, _ = SM._fleet_tick(state, maps, loads, (1.1, 1.2, 1.3), where)
         assert attrs["groups"] == 1 and attrs["published"] == 3
         sets[where.type] = [SM._set_key(fleet.tenant(f"t{i}").controller.standing) for i in range(3)]
     assert sets["cuda"] == sets["cpu"]
@@ -1001,3 +1001,102 @@ def test_lane_stacked_calls_equal_the_cpu_sequential_sum(cuda_device, lanes, cas
         one = PS.segment_sums([torch.from_numpy(c[i * R:(i + 1) * R]).to(cuda_device) for c in cols], d_lane, n)
         for a, b in zip(stacked, one):
             assert torch.equal(a[i * n:(i + 1) * n], b)
+
+
+# -- the lane form of the solve (a stack as one solve) ---------------------------------------
+
+
+def _solver_lanes(device):
+    """Three 10-broker lanes that end at different rounds: skewed, spread,
+    and skewed with broker 1 dead (offline replicas for the pre-phases)."""
+    from cruise_control_tpu_torch import synthetic as PSY
+    from cruise_control_tpu_torch.analyzer import GoalContext
+    from cruise_control_tpu_torch.model import arrays as PA
+
+    lanes = []
+    for seed in (1, 2, 3):
+        state, _ = PSY.generate(PSY.SyntheticSpec(
+            num_racks=5, num_brokers=10, num_topics=5, num_partitions=60, replication_factor=3, seed=seed,
+            mean_cpu=0.3, mean_disk=0.3, mean_nw_in=0.3, mean_nw_out=0.2, skew_brokers=0 if seed == 2 else 4,
+        ), device="cpu")
+        if seed == 3:
+            state = PA.set_broker_state(state, 1, alive=False)
+        lanes.append(state)
+    return lanes, GoalContext.build(5, 10, device=device)
+
+
+def _goal_rows(res):
+    return [(r.name, r.rounds, r.moves_applied, r.violations_before, r.violations_after) for r in res.goal_reports]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("goals,max_rounds", [
+    (tuple(range(16)), 2000), (tuple(range(16)), 3), ((22, 23, 0, 7), 2000),
+], ids=["defaults", "cap3", "assigner"])
+def test_batched_solve_is_one_graph_launch_a_goal_and_equals_each_lane(cuda_device, goals, max_rounds):
+    """A stack's batched solve on the card: one goal graph launch a goal for
+    the whole stack (and one for the offline pre-phases; the kafka-assigner
+    goal is a placement, no graph), every lane equal to its own solve on the
+    card, and the stack equal to the CPU port's batched solve."""
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.model import arrays as PA
+    from cruise_control_tpu_torch.ops import graph_loop as GL
+
+    lanes, ctx = _solver_lanes(cuda_device)
+    stack = PA.stack_arrays(lanes)
+    card = GoalOptimizer(goal_ids=goals, bucket_brokers=False, max_rounds_per_phase=max_rounds, device="cuda")
+    cpu = GoalOptimizer(goal_ids=goals, bucket_brokers=False, max_rounds_per_phase=max_rounds, device="cpu")
+    card.batched_optimize(stack, ctx)
+    GL.reset_launch_counts()
+    final, res = card.batched_optimize(stack, ctx)
+    graphs = sum(1 for g in goals if g != 22) + 1
+    assert GL.LAUNCHES["graph_loop"] == graphs
+    assert GL.LAUNCHES["loop_ctl"] == GL.LAUNCHES["loop_ctl_by_layout"] > 0
+    cfinal, cres = cpu.batched_optimize(stack, ctx.to("cpu"))
+    for f in ("replica_broker", "partition_leader", "replica_disk"):
+        assert torch.equal(getattr(final, f).cpu(), getattr(cfinal, f))
+    for i, lane in enumerate(lanes):
+        single, sres = card._optimize_core(lane.to("cuda"), ctx)
+        assert torch.equal(single.replica_broker.cpu(), final.replica_broker[i].cpu())
+        assert torch.equal(single.partition_leader.cpu(), final.partition_leader[i].cpu())
+        assert _goal_rows(sres) == _goal_rows(res.results[i]) == _goal_rows(cres.results[i])
+    assert len({r.total_moves for r in res.results}) > 1
+
+
+@pytest.mark.cuda
+def test_batched_incremental_on_the_card_equals_the_cpu_port(cuda_device):
+    from cruise_control_tpu_torch.analyzer import GoalOptimizer
+    from cruise_control_tpu_torch.model import arrays as PA
+    from cruise_control_tpu_torch.ops import graph_loop as GL
+
+    lanes, ctx = _solver_lanes(cuda_device)
+    stack = PA.stack_arrays(lanes)
+    card = GoalOptimizer(bucket_brokers=False, device="cuda")
+    GL.reset_launch_counts()
+    final, res = card.batched_incremental_optimize(stack, ctx, max_rounds=8)
+    assert GL.LAUNCHES["graph_loop"] == len(res.goals_run)
+    cfinal, cres = GoalOptimizer(bucket_brokers=False, device="cpu").batched_incremental_optimize(
+        stack, ctx.to("cpu"), max_rounds=8)
+    assert torch.equal(final.replica_broker.cpu(), cfinal.replica_broker)
+    assert [(r.total_moves, r.total_rounds, r.goals_run) for r in res.results] == [
+        (r.total_moves, r.total_rounds, r.goals_run) for r in cres.results]
+
+
+@pytest.mark.cuda
+def test_even_assign_lane_grid_is_one_launch_equal_to_its_plain_version(cuda_device):
+    gen = torch.Generator().manual_seed(3)
+    S, P, B, RF = 5, 900, 96, 3
+    counts = torch.randint(0, 3, (S, B), generator=gen, dtype=torch.int32)
+    rf = torch.randint(1, RF + 1, (S, P), generator=gen, dtype=torch.int32)
+    excl = torch.rand((S, P), generator=gen) < 0.05
+    rack = torch.randint(0, 7, (S, B), generator=gen, dtype=torch.int32)
+    el = torch.rand((S, B), generator=gen) < 0.9
+    cc, ch = counts.clone(), torch.full((S, P, RF), -1, dtype=torch.int32)
+    gc, gch = counts.cuda(), ch.clone().cuda()
+    PA.reset_launch_counts()
+    for pos in range(RF):
+        PA.even_assign(cc, ch, pos, rf, excl, rack, el)
+        PA.even_assign(gc, gch, pos, rf.cuda(), excl.cuda(), rack.cuda(), el.cuda())
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["even_assign"] == RF
+    assert torch.equal(gc.cpu(), cc) and torch.equal(gch.cpu(), ch)

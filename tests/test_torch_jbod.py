@@ -19,6 +19,7 @@ from cruise_control_tpu.analyzer import GoalContext as JGoalContext
 from cruise_control_tpu.analyzer import goals_base as JG
 from tests.torch_optimizer_parity import assert_same_solution, run_both
 from tests.torch_port_helpers import CONFIG2_SMALL, to_np
+from tests.torch_port_helpers import one_intra_op_thread  # noqa: F401 (autouse: one thread)
 
 #: capacityJBOD.json: two logdirs per broker, CPU 100, NW 100k, disk 1M in all
 JBOD_CAPACITY = dict(

@@ -21,6 +21,7 @@ from tests.torch_optimizer_parity import (
     synthetic_case,
 )
 from tests.torch_port_helpers import CONFIG1, port_ctx, port_state
+from tests.torch_port_helpers import one_intra_op_thread  # noqa: F401 (autouse: one thread)
 
 
 def test_config1_matches_jax():

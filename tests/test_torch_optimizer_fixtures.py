@@ -12,6 +12,7 @@ from tests.torch_optimizer_parity import (
     synthetic_case,
 )
 from tests.torch_port_helpers import CONFIG2_SMALL
+from tests.torch_port_helpers import one_intra_op_thread  # noqa: F401 (autouse: one thread)
 
 
 @pytest.mark.parametrize("name", ["unbalanced2", "rack_aware_satisfiable"])

@@ -51,6 +51,7 @@ from cruise_control_tpu_torch.parallel.mesh import REPLICA_FIELDS
 from cruise_control_tpu_torch.parallel.solver import ShardedGoalOptimizer
 from tests import torch_parallel_tasks as T
 from tests.torch_port_helpers import port_state
+from tests.torch_port_helpers import one_intra_op_thread  # noqa: F401 (autouse: one thread)
 
 try:  # jax >= 0.4.35 exports shard_map from jax.experimental; newer jax from jax
     from jax.experimental.shard_map import shard_map

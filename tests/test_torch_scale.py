@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from cruise_control_tpu_torch import bench_scale
+from tests.torch_port_helpers import one_intra_op_thread  # noqa: F401 (autouse: one thread)
 from tests.torch_scale_reference import jax_record
 
 #: the default subset at bucket 256 with the source window cut to 64 brokers
@@ -36,17 +37,6 @@ REFERENCES = {
     "config4_small": dict(config4=True, brokers=48, partitions=1500),
     "2500b": dict(config4=True, brokers=2500, partitions=250_000),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """The port's solves here are small, and the suite's workers share the
-    CPU: with one intra-op thread a solve takes its 3 s alone, where eight
-    threads a worker made it 96 s in a loaded run."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

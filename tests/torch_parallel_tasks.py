@@ -34,6 +34,13 @@ MESH8 = dict(
 )
 
 
+def _one_thread() -> None:
+    """A rank's solves on one intra-op thread: the ranks of a set and the
+    suite's other workers share the CPU, and torch's default of a thread a
+    core each oversubscribes it (config #2 on 4 ranks took 808 s in a loaded
+    tier-1 run against 229-249 s alone)."""
+    torch.set_num_threads(1)
+
 def uneven_goals():
     from cruise_control_tpu_torch.analyzer import goals_base as G
 
@@ -88,6 +95,7 @@ def solution(final, res, num_replicas: int) -> dict:
 def sharded_solve(mesh, spec, goal_kw, env=None):
     """One ShardedGoalOptimizer solve on this rank: the solution, whether the
     SPMD path ran, the rank's collectives and segment-sum host calls."""
+    _one_thread()
     from cruise_control_tpu_torch.ops import segments as SEG
     from cruise_control_tpu_torch.parallel import ShardedGoalOptimizer
     from cruise_control_tpu_torch.parallel.mesh import COLLECTIVES, reset_collective_counts
@@ -111,6 +119,7 @@ def solver_cases(mesh):
     """The fast tier's solver runs on one set of ranks: the uneven cluster on
     the SPMD path, the preferred-leader list on the gather path, and the
     uneven cluster again with the CC_TPU_SHARDED_SPMD=0 switch."""
+    _one_thread()
     out = dict(
         uneven=sharded_solve(mesh, UNEVEN, uneven_goals()),
         ple=sharded_solve(mesh, GATHER, ple_goals()),
@@ -121,6 +130,7 @@ def solver_cases(mesh):
 
 def mesh8_solve(mesh):
     """The gate's mesh8 workload: 16 default goals, heavy goals on."""
+    _one_thread()
     return sharded_solve(mesh, MESH8, dict(enable_heavy_goals=True))
 
 
@@ -128,6 +138,7 @@ def primitives(mesh, data):
     """The explicit primitives and the merges on this rank's block of each
     input of ``data`` (whole arrays, the same on every rank); each result
     whole (replicated results as they are, blocks gathered back)."""
+    _one_thread()
     from cruise_control_tpu_torch.ops.index import segment_min
     from cruise_control_tpu_torch.parallel import sharded as SH
     from cruise_control_tpu_torch.parallel.mesh import gather_state
@@ -212,6 +223,7 @@ def primitives(mesh, data):
 def swap_apply(mesh, spec, a: int, b: int):
     """A kept cross-rank swap of global replicas ``a`` and ``b`` through the
     sharded ``apply_moves``; the whole replica_broker / replica_disk after."""
+    _one_thread()
     from cruise_control_tpu_torch.analyzer.moves import KIND_SWAP, MoveBatch, apply_moves
     from cruise_control_tpu_torch.parallel.mesh import gather_state, shard_state
     from cruise_control_tpu_torch.parallel.spmd import ReplicaRows, SpmdInfo
@@ -240,6 +252,7 @@ def swap_apply(mesh, spec, a: int, b: int):
 def rack_goal_step_collectives(mesh):
     """The collectives of ONE RackAwareGoal goal step on the accounting
     cluster, and the step's rounds."""
+    _one_thread()
     from cruise_control_tpu_torch.analyzer import goals_base as G
     from cruise_control_tpu_torch.analyzer.goal_rounds import GOAL_ROUNDS
     from cruise_control_tpu_torch.analyzer.optimizer import HostSyncs, _goal_step_fn
@@ -269,6 +282,7 @@ def sweep_scenarios(factors):
 def sweep(mesh, spec, factors, goal_ids):
     """fast_sweep on the mesh and whole on this rank: both verdict lists and
     the sharded sweep's host syncs."""
+    _one_thread()
     from cruise_control_tpu_torch.sim import fast_sweep
 
     state, _, _ = case(spec)
@@ -320,6 +334,7 @@ def port_facade_classes():
 def facade_sweep(mesh, spec, goal_ids, hard_ids, window_ms, factors):
     """The port facade's fast sweep (``CruiseControl.simulate``) with and
     without the mesh, on the facade test's stack over ``spec``."""
+    _one_thread()
     from cruise_control_tpu_torch.sim import Scenario
 
     cc = facade_stack(port_facade_classes(), spec, goal_ids, hard_ids, window_ms, {"device": mesh.device})
@@ -355,6 +370,7 @@ def config2_fold_and_added_partials(mesh):
     """Config #2 (heavy goals on) sharded on this rank twice: as the solver
     is (the snapshot's sums fold over the ranks in row order) and with the
     snapshot's float sums merged as partials added rank 0 first."""
+    _one_thread()
     from chip_smoke import CONFIG2
 
     from cruise_control_tpu_torch.analyzer import context

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from cruise_control_tpu_torch.model.bridge import arrays_from_numpy, context_from_numpy
@@ -35,6 +36,20 @@ CONFIG2_SMALL = dict(
     replication_factor=3, distribution="exponential", skew_brokers=10,
     mean_cpu=0.25, mean_disk=0.2, mean_nw_in=0.15, mean_nw_out=0.15, seed=7,
 )
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """The port's solves of a test module on one intra-op thread (a module
+    that imports this fixture takes it): the suite's workers share the CPU,
+    and torch's default of a thread a core each oversubscribes it -- a 3 s
+    port solve took 96 s in a loaded run.  The port's results do not depend
+    on the thread count: its float sums run in a fixed order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def to_np(x):
