@@ -675,13 +675,24 @@ LADDER = (dict(brokers=2_500, partitions=250_000), dict(brokers=10_000, partitio
 LADDER_TOPICS, LADDER_RACKS, LADDER_DISKS = 2_000, 40, 2
 
 
+def ladder_placement(gen, partitions: int, brokers: int):
+    """Replica broker ids as ``bench_scale.workload`` places a ladder rung
+    (``synthetic.generate`` with ``skew_brokers = brokers // 4``): each
+    partition's RF 3 replicas on consecutive brokers of the first quarter."""
+    m = brokers // 4
+    base = torch.randint(0, m, (partitions,), generator=gen, dtype=torch.int32)
+    return ((base[:, None] + torch.arange(3, dtype=torch.int32)[None, :]) % m).reshape(-1)
+
+
 def _ladder_cases(gen):
     """The snapshot's kernel calls on the JBOD ladder (``analyzer/context.py``,
     ``model/arrays.disk_load``): K1 over every replica into the broker bucket
     (the load columns alone and the whole broker call) and into the logdirs
     (two a broker; padding the broker axis leaves them as they are); at config #4,
     K2's topic tables (bucket x topics = 32,768,000 segments) and rack counts
-    (partitions x racks = 40,000,000)."""
+    (partitions x racks = 40,000,000), and the broker call and the topic
+    tables again with the ladder's own skewed placement (every replica on
+    the first quarter of the brokers)."""
     from cruise_control_tpu_torch.model.arrays import broker_bucket
 
     cases = []
@@ -711,10 +722,17 @@ def _ladder_cases(gen):
         ]
         if rung is LADDER[-1]:
             BT, PR = B * LADDER_TOPICS, rung["partitions"] * LADDER_RACKS
+            skewed = ladder_placement(gen, rung["partitions"], rung["brokers"])
+            topic = torch.arange(rung["partitions"], dtype=torch.int32).repeat_interleave(3) % LADDER_TOPICS
             cases += [
                 (f"{tag}: snapshot topic call: 2 bool [{R}] -> S={BT}", "segment_sum_i32",
                  [bits(0.95), bits(0.33)], ids(BT), BT),
                 (f"{tag}: rack counts: bool [{R}] -> S={PR}", "segment_sum_i32", [bits(0.95)], ids(PR), PR),
+                (f"{tag}: skewed broker call: [{R},4] + 2 bool + 5 f32 -> S={B}", "segment_sum_f32",
+                 [f32(R, 4), bits(0.95), bits(0.33), f32(R), f32(R), f32(R), bits(0.05).float(),
+                  bits(0.05).float()], skewed, B),
+                (f"{tag}: skewed topic call: 2 bool [{R}] -> S={BT}", "segment_sum_i32",
+                 [bits(0.95), bits(0.33)], skewed * LADDER_TOPICS + topic, BT),
             ]
     return cases
 
@@ -772,9 +790,15 @@ def _rank_cases(gen, spec, ranks, counts=True):
     return cases
 
 
+#: each segment-sum path's kernels (``csrc/segment_sum.cu``), by name
+SEGMENT_KERNELS = {
+    "segment_sum_f32": ("group_count", "group_offsets", "group_scatter", "group_walk", "pack_rows",
+                        "radix_count", "radix_offsets", "radix_scatter", "seg_bounds", "gather_sorted"),
+    "segment_sum_i32": ("int_direct", "int_shared"),
+}
 SWEEP_CASE = "sweep replication factors: [64 x 30000] -> 64 x 10000 = 640000"
 #: what the kernels line gives of each case at another path's shapes
-SHAPE_KEYS = ("case", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
+SHAPE_KEYS = ("case", "route", "routes", "device_ms", "call_ms", "latency_ms", "plain_device_ms",
               "library_device_ms", "library_call_ms", "bound_ms", "bound_by")
 #: XLA's 32-row windows over one lane's 30,000 replicas
 SWEEP_WINDOWS = -(-30_000 // 32)
@@ -807,12 +831,62 @@ def sweep_ids(lanes: int = SIM_SCENARIOS):
     return (torch.arange(lanes, dtype=torch.int32)[:, None] * 10_000 + rp).reshape(-1)
 
 
+def _plan_of(SEG, path, rows, segments, columns, fields, dev, route=None):
+    if path == "segment_sum_f32":
+        return SEG.segment_sums_plan(rows, segments, dev, columns=columns, fields=fields, route=route)
+    return SEG.segment_counts_plan(rows, segments, dev, columns=columns, route=route)
+
+
+def _check_plan(SEG, label, path, plan, rows, segments, columns, fields):
+    """The route each path's plan takes for a call
+    (``ops.segments.digits_route``; the integer path's shared route where
+    every bin fits 57,344 ints and rows outnumber bins 4 to 1), and the
+    fixed-order blocks: one_pass takes them from the rows and the card (132+
+    from 100,000 rows), digits takes a block a 2,048 rows of 8 warps
+    whatever the segments."""
+    if path == "segment_sum_f32":
+        digits = SEG.digits_route(rows, segments, fields)
+        want = "digits" if digits else "one_pass"
+        ok = (plan["blocks"] == max(1, -(-rows // 2048)) and plan["warps"] == 8 if digits
+              else rows < 100_000 or plan["blocks"] >= 132)
+    else:
+        bins = columns * segments
+        want = "shared" if bins <= 57_344 and rows >= 4 * bins else "direct"
+        ok = True
+    check(plan["route"] == want and ok, f"{label}: the plan {plan}, want route {want}")
+
+
+def _other_routes(SEG, label, path, plan, fn, want, rows, segments, columns, fields, dev):
+    """Each route the plan does not take, as a function forcing it on the
+    same call where it can take it (checked bitwise equal to the plan's
+    route), else None."""
+    out = {}
+    for route in SEG.ROUTES[path]:
+        if route == plan["route"]:
+            continue
+        out[route] = None
+        if _plan_of(SEG, path, rows, segments, columns, fields, dev, route)["route"] is None:
+            continue
+
+        def forced(route=route):
+            with SEG.forced_route(path, route):
+                return fn()
+
+        got = forced()
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, want)), f"{label}: route {route} differs")
+        out[route] = forced
+    return out
+
+
 def phase_kernels(dev):
     """Every kernel path against its plain version at the solver's shapes:
     floats bitwise equal to the CPU's sequential sum, ints exact, two launches
     bitwise equal; then device time, call time and single-call latency of the
     kernel, the plain version and one ``index_add_`` call (a yardstick the
-    port never calls).  Returns the per-case records."""
+    port never calls), and the device and call time of the route the plan
+    does not take, where it can take the call.  Returns the per-case
+    records."""
     from cruise_control_tpu_torch.ops import segments as SEG
 
     gen = torch.Generator().manual_seed(0)
@@ -846,12 +920,21 @@ def phase_kernels(dev):
             lambda: SEG.segment_sums_plain(cols, ids, S),
             lambda: lib_out.index_add_(0, lib_ids, flat),
         ]
+        width = flat.shape[1]
+        plan = _plan_of(SEG, path, ids.numel(), S, width, len(cols), dev)
+        _check_plan(SEG, label, path, plan, ids.numel(), S, width, len(cols))
+        # the other route, timed in the same profiler session
+        others = _other_routes(SEG, label, path, plan, fns[0], a, ids.numel(), S, width, len(cols), dev)
+        timed_others = [r for r, fn in others.items() if fn is not None]
         # the ladder's calls read up to 3M rows: few reps
         reps = 10 if label.startswith(LADDER_CASE) else None
-        dev_ms, phases = device_ms(fns, calls=reps or 30)
+        dev_ms, phases = device_ms(fns + [others[r] for r in timed_others], calls=reps or 30)
         calls = [call_ms(fn, calls=reps or 200) for fn in fns]
         lat = latency_ms(fns[0], reps=reps or 30)
-        width = flat.shape[1]
+        routes = {plan["route"]: dict(device_ms=dev_ms[0], call_ms=calls[0])}
+        for r in others:
+            routes[r] = None if others[r] is None else dict(
+                device_ms=dev_ms[3 + timed_others.index(r)], call_ms=call_ms(others[r], calls=reps or 50))
         per_lane = {}
         lane_split = lane_stack(label)
         if lane_split:
@@ -892,7 +975,8 @@ def phase_kernels(dev):
         ops = ids.numel() * width
         t_bytes, t_ops = nbytes / H100_HBM_BYTES_PER_S, ops / H100_FP32_OPS_PER_S
         rec = dict(
-            case=label, path=path, fields=len(cols), columns=width, max_abs_err=err,
+            case=label, path=path, route=plan["route"], routes=routes, plan=plan,
+            fields=len(cols), columns=width, max_abs_err=err,
             bitwise_repeat=True, bitwise_vs_cpu_sequential=True,
             device_ms=dev_ms[0], call_ms=calls[0], latency_ms=lat,
             plain_device_ms=dev_ms[1], plain_call_ms=calls[1],
@@ -900,11 +984,6 @@ def phase_kernels(dev):
             bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
             device_ms_by_kernel=phases, **per_lane,
         )
-        if path == "segment_sum_f32":
-            # the fixed-order pass plan: blocks from the rows and the card
-            rec["plan"] = plan = SEG.segment_sums_plan(ids.numel(), S, dev)
-            check(ids.numel() < 100_000 or S < 1_024 or plan["blocks"] >= 132,
-                  f"{label}: the fixed-order plan launches {plan['blocks']} blocks")
         say("kernels", **rec)
         records.append(rec)
     return records
@@ -1864,11 +1943,11 @@ def phase_profile(dev):
         by_name[e.name] = (n + 1, t + e.device_time_total)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     ran = graphs["round_nodes"] + graphs["loop_ctl"] + len(outside)
-    # the kernels each segment-sum path enqueued in this solve, as far as the profiler saw them
+    # the kernels each segment-sum path enqueued in this solve, as far as the profiler saw
+    # them (the integer path's memsets are not told apart from other memsets)
     seg_kernels = {
         path: sum(n for name, (n, _) in by_name.items() if any(k in name for k in names))
-        for path, names in (("segment_sum_f32", ("group_count", "group_scatter", "group_walk")),
-                            ("segment_sum_i32", ("int_sums",)))
+        for path, names in SEGMENT_KERNELS.items()
     }
     ctl = [(n, t) for name, (n, t) in by_name.items() if "loop_ctl" in name]
     ctl_n, ctl_us = sum(n for n, _ in ctl), sum(t for _, t in ctl)
@@ -4186,6 +4265,7 @@ def _phases(dev, start, build_s, timed, walls, cpu_child, records) -> int:
         in_ranks = [r for r in records if r["path"] == path and r["case"].startswith(RANK_CASE)]
         kernels.append({
             "name": path, "route": "cuda", "source": KERNEL_SOURCES[path], "replaces": REPLACES[path],
+            "kernel_route": rec["route"], "kernel_routes": rec["routes"],
             "launches": launches[path], "host_calls": launches[path] - replayed[path],
             "replayed_calls_derived": replayed[path],
             "kernel_launches": profile_kernels[path], "kernel_launches_host_calls": profile_calls[path],

@@ -20,12 +20,17 @@ lane computes exactly what it computes alone:
 
 vmap's per-lane fallback (an operator without a batching rule, run lane
 after lane) is switched off while a lift runs, and restored after it: such
-an operator raises instead of quietly walking the lanes.
+an operator raises instead of quietly walking the lanes.  The flag is one
+for the whole process, and lifts run on several threads at once (the
+user-task pool's deep SIMULATEs, the fleet's re-optimize): a lock and a
+count of the lifts running keep it off until the last of them returns, and
+that one restores it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -41,6 +46,10 @@ I32 = torch.int32
 
 #: the state fields a round may write (``moves.apply_moves``)
 WRITTEN = ("replica_broker", "replica_disk", "partition_leader")
+
+#: guards the fallback flag: the lifts running, and the flag's value before the first
+_FALLBACK_LOCK = threading.Lock()
+_fallback = {"depth": 0, "was": True}
 
 
 def _tensor_fields(obj) -> Dict[str, torch.Tensor]:
@@ -61,8 +70,10 @@ def lift(fn: Callable, states: ClusterArrays, snap: Optional[Snapshot], *per_lan
     lane-form ``snap``, or None) as ONE lifted program: each output gains a
     leading lane axis.  ``per_lane`` tensors are split along their first
     axis, one element a lane.  vmap's per-lane fallback is off: an operator
-    without a batching rule raises.  The fallback's setting is restored on
-    return, so other ``vmap`` users in the process are not affected."""
+    without a batching rule raises.  The first lift in saves and clears the
+    process's fallback flag and the last one out restores it, so lifts on
+    other threads stay without the fallback and other ``vmap`` users in the
+    process are not affected once none runs."""
     state_t = _tensor_fields(states)
     snap_t = {} if snap is None else _tensor_fields(snap)
 
@@ -70,12 +81,18 @@ def lift(fn: Callable, states: ClusterArrays, snap: Optional[Snapshot], *per_lan
         return fn(_rebuild(states, state_t), None if snap is None else _rebuild(snap, snap_t), *args)
 
     functorch = torch._C._functorch
-    was = functorch._is_vmap_fallback_enabled()
-    functorch._set_vmap_fallback_enabled(False)
+    with _FALLBACK_LOCK:
+        if _fallback["depth"] == 0:
+            _fallback["was"] = functorch._is_vmap_fallback_enabled()
+            functorch._set_vmap_fallback_enabled(False)
+        _fallback["depth"] += 1
     try:
         return vmap(one)(state_t, snap_t, *per_lane)
     finally:
-        functorch._set_vmap_fallback_enabled(was)
+        with _FALLBACK_LOCK:
+            _fallback["depth"] -= 1
+            if _fallback["depth"] == 0:
+                functorch._set_vmap_fallback_enabled(_fallback["was"])
 
 
 def lane_round(

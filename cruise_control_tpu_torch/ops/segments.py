@@ -11,15 +11,23 @@ and the bound), with two paths, each one host call however many columns it
 carries:
 
 * ``segment_sum_f32``, the fixed-order path, for any call with a float32
-  column: a stable counting sort groups the rows by segment, then one warp per
+  column: a stable sort groups the rows by segment, then one warp per
   segment adds each column's rows in row order.  Every float sum is the
   left-to-right f32 sum -- bitwise the same on every launch and the same as
   the sequential CPU scatter-add of :func:`segment_sum_plain`.  The solver
   breaks ties by comparing float scores, so an atomic float sum, whose order
-  changes from run to run, could flip a tie.
-* ``segment_sum_i32``, for integer and bool columns only: each block owns a
-  range of segments and adds its rows with shared-memory int32 atomics, exact
-  in any order.
+  changes from run to run, could flip a tie.  Two routes
+  (:func:`segment_sums_plan`, :func:`digits_route`): ``one_pass``, a
+  counting sort on the segment; ``digits`` for large calls (from
+  :data:`DIGITS_ROWS` rows, above :data:`ONE_PASS_SEGMENTS` segments or of
+  3+ tensors) and above the 28,672 segments one_pass can hold, a stable
+  radix sort of (id, row) pairs in digits of at most 8 bits, whose passes
+  do not depend on the segment count.
+* ``segment_sum_i32``, for integer and bool columns only: the output is
+  zeroed, then blocks own row ranges and add each row's values with int32
+  atomics, exact in any order -- straight into the output (``direct``), or
+  through a private shared-memory histogram when every bin fits and rows
+  outnumber bins (``shared``; :func:`segment_counts_plan`).
 
 :func:`segment_sums` takes several value tensors under one id vector, so the
 snapshot's broker-keyed sums cost one call.  A float column sums in float32;
@@ -51,6 +59,7 @@ sums, each once.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import struct
 import threading
@@ -79,7 +88,19 @@ _FIELD_BYTES = {_F32: 4, _I32: 4, _U8: 1}
 _MAX_FIELDS = 16
 _MAX_COLS = 64
 _MAX_TILES = 264                  # blocks of a fixed-order pass (two an SM of an H100)
-_PASS_SEGMENTS = 28_672           # segments one fixed-order pass holds
+_PASS_SEGMENTS = 28_672           # segments the one_pass route can hold at all
+#: the fixed-order crossover (:func:`digits_route`): from ``DIGITS_ROWS``
+#: rows, the digits route above this many segments or for ``_PACK_FIELDS``
+#: fields or more
+ONE_PASS_SEGMENTS = 2_048
+DIGITS_ROWS = 400_000
+_BINS = 256                       # a radix digit's counters
+_RADIX_TILE = 2_048               # pairs a radix block takes
+_PACK_FIELDS = 3                  # fields from which the digits gather reads packed rows
+#: each path's routes, in the kernels' numbering from 1 (0: the plan's choice)
+ROUTES = {"segment_sum_f32": ("one_pass", "digits"), "segment_sum_i32": ("direct", "shared")}
+#: a route forced on every call of a path (:func:`forced_route`), else 0
+_FORCED = {"segment_sum_f32": 0, "segment_sum_i32": 0}
 _LIB = None
 _PACKERS: Dict[int, Callable[..., bytes]] = {}
 _SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -100,8 +121,9 @@ def _library() -> ctypes.CDLL:
         for fn in (lib.cc_segment_sums, lib.cc_segment_counts):
             fn.argtypes = [ctypes.c_char_p]   # the packed int64 arguments
             fn.restype = ctypes.c_int
-        lib.cc_segment_sums_plan.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_longlong)]
-        lib.cc_segment_sums_plan.restype = ctypes.c_int
+        for fn in (lib.cc_segment_sums_plan, lib.cc_segment_counts_plan):
+            fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_longlong)]
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -267,14 +289,41 @@ def _launch(lib, floats, ids, R, S, columns, spec, index) -> int:
     stream = torch._C._cuda_getCurrentRawStream(index)
     nfields = len(spec) // 4
     if not floats:
-        return lib.cc_segment_counts(_pack((ids.data_ptr(), R, S, stream, nfields, *spec)))
-    # every column in segment order, a pass's per-(block, segment) counts,
-    # each segment's first row and the offsets kernel's ticket
-    n = R * columns + (_MAX_TILES + 1) * min(S, _PASS_SEGMENTS) + 2
-    scratch = _scratch(index, stream, n)
+        force = _FORCED["segment_sum_i32"]
+        return lib.cc_segment_counts(_pack((ids.data_ptr(), R, S, stream, force, nfields, *spec)))
+    force = _FORCED["segment_sum_f32"]
+    scratch = _scratch(index, stream, scratch_ints(R, S, columns, nfields, force))
     return lib.cc_segment_sums(
-        _pack((ids.data_ptr(), R, S, stream, scratch.data_ptr(), scratch.numel(), nfields, *spec))
+        _pack((ids.data_ptr(), R, S, stream, scratch.data_ptr(), scratch.numel(), force, nfields, *spec))
     )
+
+
+def digits_route(rows: int, segments: int, fields: int) -> bool:
+    """Whether the fixed-order plan takes the digits route (as
+    ``cc_segment_sums`` decides): above the segments one_pass can hold
+    (``_PASS_SEGMENTS``), or from :data:`DIGITS_ROWS` rows above
+    :data:`ONE_PASS_SEGMENTS` segments or with ``_PACK_FIELDS`` fields or
+    more (packed rows).  Below that many rows the sort's kernels cost more
+    than the one_pass scatter's thinner warps."""
+    return segments > _PASS_SEGMENTS or (
+        rows >= DIGITS_ROWS and (segments > ONE_PASS_SEGMENTS or fields >= _PACK_FIELDS))
+
+
+def scratch_ints(rows: int, segments: int, columns: int, fields: int = 1, force: int = 0) -> int:
+    """The int32 scratch of a fixed-order call (``cc_segment_sums``' plan
+    gives the same).  one_pass: every column in segment order, the blocks'
+    per-segment counts, each segment's first row and the offsets kernel's
+    ticket; digits: two buffers of (key, row) pairs, the radix blocks'
+    digit counts (a block per ``_RADIX_TILE`` rows), the digit starts, the
+    ticket, each segment's first row, every column in segment order and,
+    for ``_PACK_FIELDS`` fields or more, every row's columns packed
+    together."""
+    if (force or (2 if digits_route(rows, segments, fields) else 1)) == 2:
+        tiles = max(1, -(-rows // _RADIX_TILE))
+        columns_kept = (2 if fields >= _PACK_FIELDS else 1) * rows * columns
+        return 4 * rows + _BINS * tiles + _BINS + 2 + segments + 1 + columns_kept
+    # (a one_pass call above _PASS_SEGMENTS is refused by the kernel: no larger buffer)
+    return rows * columns + (_MAX_TILES + 1) * min(segments, _PASS_SEGMENTS) + 2
 
 
 def _pack(values) -> bytes:
@@ -312,20 +361,58 @@ def _scratch(index: int, stream: int, n: int) -> torch.Tensor:
     return graph_loop.keep_alive(buf)
 
 
-def segment_sums_plan(rows: int, segments: int, device) -> Dict[str, int]:
-    """How the fixed-order path cuts a call of ``rows`` ids into ``segments``
-    on a card (``cc_segment_sums`` launches by the same plan): the passes over
-    the segment range, and the first pass's blocks, scatter warps a block and
-    rows a block."""
+def _plan(path: str, fn: str, keys, args, device, route):
     device = torch.device(device)
     if device.type != "cuda":
-        raise ValueError(f"the fixed-order plan is a card's, got {device}")
-    out = (ctypes.c_longlong * 4)()
+        raise ValueError(f"the segment-sum plans are a card's, got {device}")
+    force = ROUTES[path].index(route) + 1 if route else 0
+    out = (ctypes.c_longlong * len(keys))()
     with torch.cuda.device(device):
-        err = _library().cc_segment_sums_plan(_pack((int(rows), int(segments))), out)
+        err = getattr(_library(), fn)(_pack(tuple(int(a) for a in args) + (force,)), out)
     if err != 0:
         raise RuntimeError(f"segment-sum plan failed: CUDA error {err}")
-    return dict(zip(("passes", "blocks", "warps", "block_rows"), out))
+    plan = dict(zip(keys, out))
+    plan["route"] = ROUTES[path][plan["route"] - 1] if plan["route"] else None
+    return plan
+
+
+def segment_sums_plan(rows: int, segments: int, device, columns: int = 1, fields: int = 1,
+                      route=None) -> Dict[str, object]:
+    """How the fixed-order path takes a call of ``rows`` ids into
+    ``segments`` with ``columns`` value columns in ``fields`` tensors on a
+    card (``cc_segment_sums`` launches by the same plan): the route
+    (``digits`` where :func:`digits_route`, else ``one_pass``; ``route``
+    forces one, and the plan's route is None where it cannot take the
+    call), the radix digits (0 on one_pass), the blocks, the scatter
+    warps a block, the rows a block, the int32 scratch and whether the
+    gather reads packed rows."""
+    keys = ("route", "digits", "blocks", "warps", "block_rows", "scratch_ints", "packed")
+    return _plan("segment_sum_f32", "cc_segment_sums_plan", keys, (rows, segments, columns, fields), device, route)
+
+
+def segment_counts_plan(rows: int, segments: int, device, columns: int = 1, route=None) -> Dict[str, object]:
+    """How the integer path takes a call on a card (``cc_segment_counts``
+    launches by the same plan): the route (``shared`` where every (column,
+    segment) bin fits a block's shared memory and rows outnumber bins 4 to
+    1, else ``direct``; ``route`` forces one, None where it cannot take the
+    call) and the blocks."""
+    return _plan("segment_sum_i32", "cc_segment_counts_plan", ("route", "blocks"), (rows, segments, columns),
+                 device, route)
+
+
+@contextlib.contextmanager
+def forced_route(path: str, route: str):
+    """Every call on ``path`` takes ``route`` while the block runs -- to
+    measure a route where the plan takes the other; a call the route cannot
+    take raises.  Process-wide: for measurement, not for the solver."""
+    with _LAUNCH_LOCK:
+        code = ROUTES[path].index(route) + 1
+        was, _FORCED[path] = _FORCED[path], code
+    try:
+        yield
+    finally:
+        with _LAUNCH_LOCK:
+            _FORCED[path] = was
 
 
 def segment_sums(

@@ -160,23 +160,33 @@ def test_int_path_reads_bool_uint8_int32(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [28_672, 28_673, 57_345])
 def test_grouping_counters_either_side_of_the_shared_memory_switch(cuda_device, S):
-    """A fixed-order pass keeps its counters in shared memory, which holds
-    28,672 segments; above that the call makes one pass per chunk of the
-    segment range (two and three passes here)."""
+    """Segment counts around 28,672, the most the one_pass route's shared
+    memory can hold (one scatter warp a block there), and past it, where
+    even a small call takes the digits route."""
     rng = np.random.default_rng(S)
     seg = rng.integers(-2, S + 2, size=20_000).astype(np.int32)
     seg[:3000] = S - 1          # the last segment holds many rows
     vals = (rng.exponential(size=(20_000, 2)) * 1000).astype(np.float32)
+    assert PS.segment_sums_plan(20_000, S, cuda_device, columns=3, fields=2)["route"] == (
+        "one_pass" if S <= 28_672 else "digits")
     _card_vs_cpu([vals, rng.random(20_000) < 0.5], seg, S, cuda_device, "segment_sum_f32")
+
+
+def _digits_for(S):
+    """Radix digits of a digits-route call into ``S`` segments: the bits of
+    ``S`` itself (a dropped id's key), 8 at most a digit."""
+    return -(-int(S).bit_length() // 8)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,S", [(300_000, 1_024), (750_000, 4_096), (3_000_000, 16_384), (1_000_000, 28_673)])
 def test_fixed_order_path_at_thousands_of_segments(cuda_device, R, S):
     """K1 at the scale ladder's broker buckets (config #3, 2,500 brokers,
-    config #4) and one segment past a pass (two passes): the loads and a
-    counted bool under one id vector, bitwise the CPU's sequential sum, two
-    launches bitwise equal, and the pass plan spread over the card."""
+    config #4) and one segment past what one_pass could hold: the loads and
+    a counted bool under one id vector, bitwise the CPU's sequential sum, two
+    launches bitwise equal, and the plan (``digits_route``: one_pass at
+    300,000 rows into 1,024, the radix digits from 400,000 rows above
+    ``ONE_PASS_SEGMENTS``), spread over the card."""
     rng = np.random.default_rng(R + S)
     seg = rng.integers(-2, S + 2, size=R).astype(np.int32)
     seg[: R // 10] = S // 2          # one segment holds a tenth of the rows
@@ -193,21 +203,165 @@ def test_fixed_order_path_at_thousands_of_segments(cuda_device, R, S):
     for x, y, w in zip(a, b, want):
         assert torch.equal(x, y)
         np.testing.assert_array_equal(x.cpu().numpy(), w.numpy())
-    plan = PS.segment_sums_plan(R, S, cuda_device)
-    assert plan["passes"] == (2 if S > 28_672 else 1)
-    assert plan["blocks"] >= 132, plan
+    plan = PS.segment_sums_plan(R, S, cuda_device, columns=5, fields=2)
+    digits = PS.digits_route(R, S, 2)
+    assert digits == (S > 1_024)
+    assert plan["route"] == ("digits" if digits else "one_pass"), plan
+    assert plan["digits"] == (_digits_for(S) if digits else 0), plan
+    assert plan["blocks"] >= 132 and (not digits or plan["warps"] == 8), plan
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [1_024, 4_096, 16_384, 28_672])
-def test_fixed_order_plan_fills_the_card_from_100000_rows(cuda_device, S):
+@pytest.mark.parametrize("R,S", [(100_000, 1_024), (100_000, 16_384), (100_000, 28_672), (480_000, 4_096),
+                                 (480_000, 16_384), (480_000, 1_024)])
+def test_fixed_order_plan_fills_the_card_from_100000_rows(cuda_device, R, S):
     """The plan takes its blocks from the rows and the card, not from the
-    segment count: at least one a streaming multiprocessor from 100,000
-    rows, with fewer scatter warps a block as the segments grow."""
-    plan = PS.segment_sums_plan(100_000, S, cuda_device)
+    segment count: on one_pass at least one a streaming multiprocessor from
+    100,000 rows and fewer scatter warps a block as the segments grow; on
+    digits (from 400,000 rows above 2,048 segments or with 3+ fields) a block
+    a 2,048 rows and 8 warps whatever the segments, the gather reading
+    packed rows from 3 fields; the scratch is what the wrapper sizes."""
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert plan["passes"] == 1 and plan["blocks"] >= min(132, sms), plan
-    assert plan["warps"] == min(8, 57_344 // S) and plan["blocks"] * plan["block_rows"] >= 100_000
+    for fields in (1, 3):
+        digits = PS.digits_route(R, S, fields)
+        plan = PS.segment_sums_plan(R, S, cuda_device, columns=3, fields=fields)
+        assert plan["route"] == ("digits" if digits else "one_pass"), plan
+        assert plan["blocks"] == -(-R // 2048) if digits else plan["blocks"] >= min(132, sms), plan
+        assert plan["warps"] == (8 if digits else min(8, 57_344 // S)), plan
+        assert plan["blocks"] * plan["block_rows"] >= R
+        assert plan["packed"] == (digits and fields == 3)
+        assert plan["scratch_ints"] == PS.scratch_ints(R, S, 3, fields)
+        for code, route in enumerate(PS.ROUTES["segment_sum_f32"], 1):
+            forced = PS.segment_sums_plan(R, S, cuda_device, columns=3, fields=fields, route=route)
+            assert forced["route"] == route
+            assert forced["scratch_ints"] == PS.scratch_ints(R, S, 3, fields, code)
+
+
+def _ladder_replicas(partitions, brokers, rng):
+    """A JBOD ladder rung's replicas as ``bench_scale.workload`` skews them:
+    every partition's RF 3 replicas on consecutive brokers of the first
+    quarter (``skew_brokers = brokers // 4``), each replica on one of its
+    broker's two logdirs.  Returns (broker ids, logdir ids)."""
+    m = brokers // 4
+    base = rng.integers(0, m, size=partitions)
+    broker = ((base[:, None] + np.arange(3)[None, :]) % m).reshape(-1).astype(np.int32)
+    disk = (broker * 2 + rng.integers(0, 2, size=broker.size)).astype(np.int32)
+    return broker, disk
+
+
+def _twice_vs_cpu(cols, seg, S, dev, path):
+    """Two launches on ``path`` bitwise equal to each other and to the CPU's
+    plain version."""
+    got = [PS.segment_sums([torch.from_numpy(c).to(dev) for c in cols], torch.from_numpy(seg).to(dev), S)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    want = PS.segment_sums_plain([torch.from_numpy(c) for c in cols], torch.from_numpy(seg), S)
+    for a, b, w in zip(*got, want):
+        assert torch.equal(a, b)
+        assert a.dtype == w.dtype and a.shape == w.shape
+        np.testing.assert_array_equal(a.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["broker call", "logdirs", "one segment", "out of range", "sweep windows"])
+def test_fixed_order_digits_route_at_config4_rows(cuda_device, case):
+    """K1 at config #4's 3M replicas, ids skewed onto a quarter of the
+    segments as the ladder skews them: the snapshot's broker call into the
+    16,384-broker bucket, the logdirs (20,000), every row in one segment,
+    ids out of range on both sides, and 60,032 windows of 50 rows in one
+    call; bitwise the CPU's sequential sum, two launches equal."""
+    rng = np.random.default_rng(len(case))
+    broker, disk = _ladder_replicas(1_000_000, 10_000, rng)
+    R = broker.size
+
+    def f32(*shape):
+        return (rng.exponential(size=shape) * 1000).astype(np.float32)
+
+    def bits(p):
+        return rng.random(R) < p
+
+    if case == "broker call":
+        cols, seg, S = [f32(R, 4), bits(0.95), bits(0.33), f32(R), f32(R), f32(R),
+                        bits(0.05).astype(np.float32), bits(0.05).astype(np.float32)], broker, 16_384
+    elif case == "logdirs":
+        cols, seg, S = [f32(R)], disk, 20_000
+    elif case == "one segment":
+        cols, seg, S = [f32(R, 4)], np.full(R, 9_999, np.int32), 16_384
+    elif case == "out of range":
+        seg = broker.copy()
+        seg[::7] = -1 - broker[::7]
+        seg[3::7] = 16_384 + broker[3::7]
+        cols, S = [f32(R, 4), bits(0.5)], 16_384
+    else:
+        cols, seg, S = [f32(R, 4), f32(R)], (np.arange(R, dtype=np.int64) // 50).astype(np.int32), 60_032
+    assert PS.segment_sums_plan(R, S, cuda_device, columns=4, fields=len(cols))["route"] == "digits"
+    _twice_vs_cpu(cols, seg, S, cuda_device, "segment_sum_f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, 1_024, 2_048, 16_384, 28_672])
+def test_both_fixed_order_routes_give_the_same_bits(cuda_device, S):
+    """Where both routes can take a call, forcing either gives the same
+    bits: the CPU's sequential sum."""
+    rng = np.random.default_rng(S)
+    seg = rng.integers(-3, S + 3, size=200_000).astype(np.int32)
+    vals = (rng.exponential(size=(200_000, 4)) * 1000).astype(np.float32)
+    want = PS.segment_sums_plain([torch.from_numpy(vals)], torch.from_numpy(seg), S)[0]
+    for route in PS.ROUTES["segment_sum_f32"]:
+        with PS.forced_route("segment_sum_f32", route):
+            got = PS.segment_sums([torch.from_numpy(vals).to(cuda_device)], torch.from_numpy(seg).to(cuda_device), S)
+        np.testing.assert_array_equal(got[0].cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["topic tables", "rack counts", "lane stack"])
+def test_integer_path_at_config4_segments(cuda_device, case):
+    """K2 at config #4's 3M replicas on the skewed ladder placement: the
+    topic tables (16,384 x 2,000 = 32,768,000 segments, two bools) and the
+    rack counts (1M partitions x 40 racks = 40,000,000), and a lane-form
+    stack (16 lanes of config #2's topic tables in one call); exact against
+    the plain version, two launches equal, and the ids read once a row
+    (the plan's blocks come from the rows, not the segments)."""
+    rng = np.random.default_rng(len(case))
+    if case == "lane stack":
+        lanes, R, S = 16, 30_000, 12_800
+        x = rng.integers(0, S, size=R).astype(np.int32)
+        x[::997] = -1
+        seg = np.where(x >= 0, np.arange(lanes, dtype=np.int32)[:, None] * S + x, -1).reshape(-1)
+        cols, S = [rng.random(seg.size) < 0.95, rng.random(seg.size) < 0.33], lanes * S
+    else:
+        broker, _ = _ladder_replicas(1_000_000, 10_000, rng)
+        part = np.repeat(np.arange(1_000_000, dtype=np.int32), 3)
+        if case == "topic tables":
+            seg, S = broker * 2_000 + part % 2_000, 16_384 * 2_000
+            cols = [rng.random(seg.size) < 0.95, rng.random(seg.size) < 0.33]
+        else:
+            seg, S = part * 40 + broker % 40, 1_000_000 * 40
+            cols = [rng.random(seg.size) < 0.95]
+    plan = PS.segment_counts_plan(seg.size, S, cuda_device, columns=len(cols))
+    assert plan["route"] == "direct" and plan["blocks"] <= 8 * 132, plan
+    _twice_vs_cpu(cols, seg, S, cuda_device, "segment_sum_i32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S,cols", [(30_000, 128, 1), (30_000, 1_024, 1), (30_000, 12_800, 2), (7_500, 128, 1),
+                                      (1_920_000, 8_192, 1)])
+def test_both_integer_routes_give_the_same_counts(cuda_device, R, S, cols):
+    """Where every bin fits shared memory, the direct and the shared route
+    give the same exact counts; the plan takes shared only where rows
+    outnumber bins 4 to 1."""
+    rng = np.random.default_rng(R + S)
+    seg = rng.integers(-2, S + 2, size=R).astype(np.int32)
+    vals = [rng.integers(0, 3, size=R).astype(np.int32) for _ in range(cols)]
+    want = PS.segment_sums_plain([torch.from_numpy(v) for v in vals], torch.from_numpy(seg), S)
+    plan = PS.segment_counts_plan(R, S, cuda_device, columns=cols)
+    assert plan["route"] == ("shared" if R >= 4 * S * cols else "direct"), plan
+    for route in PS.ROUTES["segment_sum_i32"]:
+        with PS.forced_route("segment_sum_i32", route):
+            got = PS.segment_sums([torch.from_numpy(v).to(cuda_device) for v in vals],
+                                  torch.from_numpy(seg).to(cuda_device), S)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
 
 @pytest.mark.cuda

@@ -202,3 +202,49 @@ def test_snapshot_host_calls():
         PC._segment_sums, PI.segment_sums = real_ctx, real_idx
     B, T, P = state.num_brokers, state.num_topics, state.num_partitions
     assert calls == [(8, B), (1, P * state.num_racks), (3, 2), (3, 1), (2, B * T)]
+
+
+@pytest.mark.parametrize("rows,segments,columns,fields", [(30_000, 128, 11, 8), (300_000, 1_024, 4, 1),
+                                                          (300_000, 1_024, 11, 8), (480_000, 2_048, 11, 8),
+                                                          (3_000_000, 16_384, 11, 8), (3_000_000, 20_000, 1, 1),
+                                                          (100_000, 16_384, 4, 1), (5_000, 40_000, 2, 2),
+                                                          (1_920_000, 60_032, 5, 2), (0, 3, 1, 1)])
+def test_fixed_order_scratch_follows_the_route(rows, segments, columns, fields):
+    """The wrapper sizes the fixed-order scratch for the route the kernel's
+    plan takes: one_pass (the columns in segment order, the blocks' counts,
+    the starts, a ticket) up to 28,672 segments unless 400,000+ rows come with
+    more than ``ONE_PASS_SEGMENTS`` segments or 3+ fields, the digits
+    otherwise (two
+    buffers of (key, row) pairs, a block's digit counts a 2,048 rows, the
+    starts, the columns in segment order, and from 3 fields the rows'
+    columns packed); a forced route sizes its own."""
+    one_pass = rows * columns + 265 * min(segments, 28_672) + 2   # refused above 28,672
+    tiles = max(1, -(-rows // 2048))
+    digits = 4 * rows + 256 * tiles + 258 + segments + 1 + (2 if fields >= 3 else 1) * rows * columns
+    big = rows >= 400_000 and (segments > PS.ONE_PASS_SEGMENTS or fields >= 3)
+    want = digits if segments > 28_672 or big else one_pass
+    assert PS.scratch_ints(rows, segments, columns, fields) == want
+    assert PS.scratch_ints(rows, segments, columns, fields, 1) == one_pass
+    assert PS.scratch_ints(rows, segments, columns, fields, 2) == digits
+
+
+@pytest.mark.parametrize("path", sorted(PS.ROUTES))
+def test_forced_route_is_restored_and_checked(path):
+    assert PS._FORCED[path] == 0
+    first, second = PS.ROUTES[path]
+    with PS.forced_route(path, second):
+        assert PS._FORCED[path] == 2
+        with PS.forced_route(path, first):
+            assert PS._FORCED[path] == 1
+        assert PS._FORCED[path] == 2
+    assert PS._FORCED[path] == 0
+    with pytest.raises(ValueError):
+        with PS.forced_route(path, "no such route"):
+            pass
+    assert PS._FORCED[path] == 0
+
+
+def test_plans_are_a_cards():
+    for plan in (PS.segment_sums_plan, PS.segment_counts_plan):
+        with pytest.raises(ValueError, match="a card's"):
+            plan(30_000, 128, "cpu")
