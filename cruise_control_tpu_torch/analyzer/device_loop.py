@@ -7,8 +7,10 @@ static carry buffers (:class:`Slots`), and a goal's phases are nested in the
 WHILE nodes of one :class:`~cruise_control_tpu_torch.ops.graph_loop.GoalGraph`:
 the phase loop and the pass cycle run on the device, and the host waits once a
 solve, when it fetches the rounds, moves and trip counts with the solve's other
-scalars.  Every round runs the ops and kernels of the host driver's round in
-the same order, so placements, counts and float sums are bitwise the same.
+scalars.  Timing events right before and after each goal graph's launch give
+the launch's device time, read once that fetch has waited for the device.  Every
+round runs the ops and kernels of the host driver's round in the same order,
+so placements, counts and float sums are bitwise the same.
 
 What lives where:
 
@@ -166,22 +168,35 @@ class Slots:
             self.ctl[:GL.ROUNDS].copy_(words)
 
 
+def _timing_event(stream: torch.cuda.Stream) -> torch.cuda.Event:
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(stream)
+    return event
+
+
 @dataclasses.dataclass
 class GoalRun:
     """One launch of a goal graph: its rounds and moves (0-d device int32;
     ``[S]``, each lane's, for a stack), its passes and each phase's trip count
-    (``trips``, fetched with the solve's scalars) and the event recorded
-    after it."""
+    (``trips``, fetched with the solve's scalars), the event recorded after
+    it, and the timing events right before and after the graph launch, whose
+    interval is the launch's ``device_s`` once the fetch has brought the
+    trips back."""
 
     goal: GL.GoalGraph
     rounds: torch.Tensor
     moves: torch.Tensor
     trips: torch.Tensor
     done: torch.cuda.Event
+    start: torch.cuda.Event
+    end: torch.cuda.Event
+    device_s: Optional[float] = None
 
     def account(self, trips: Sequence[float]) -> None:
-        """``trips``: the fetched passes, control kernels run and phase trip counts."""
+        """``trips``: the fetched passes, control kernels run and phase trip
+        counts.  The fetch waited for the device, so the events have passed."""
         self.goal.account(int(trips[0]), int(trips[1]), [int(t) for t in trips[2:]])
+        self.device_s = self.start.elapsed_time(self.end) / 1e3
 
 
 @dataclasses.dataclass
@@ -279,7 +294,9 @@ class DeviceLoops:
         needs)``) on the current stream: ``(state after, GoalRun)``."""
         with self._turn() as turn:
             slots, goal = self._prepare(state, ctx, phases, enable_heavy, max_passes, max_rounds, name)
+            start = _timing_event(turn.stream)
             goal.launch(turn.stream)
+            end = _timing_event(turn.stream)
             out = slots.clone_out(state)
             counts = slots.ctl[GL.ROUNDS:GL.TRIPS + len(phases)].clone()
             if slots.lane is not None:
@@ -287,7 +304,7 @@ class DeviceLoops:
                 rounds, moves = per_lane[0], per_lane[1]
             else:
                 rounds, moves = counts[0], counts[1]
-        return out, GoalRun(goal, rounds, moves, counts[GL.PASSES - GL.ROUNDS:], turn.done)
+        return out, GoalRun(goal, rounds, moves, counts[GL.PASSES - GL.ROUNDS:], turn.done, start, end)
 
     def prepare(
         self, state: ClusterArrays, ctx: GoalContext, phases: Sequence[tuple], *, enable_heavy: bool,

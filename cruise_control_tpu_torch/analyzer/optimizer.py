@@ -32,6 +32,7 @@ The result reports the host waits as ``num_host_syncs``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -63,6 +64,7 @@ from cruise_control_tpu_torch.model import arrays as A
 from cruise_control_tpu_torch.model import stats as S
 from cruise_control_tpu_torch.model.arrays import ClusterArrays
 from cruise_control_tpu_torch.obs.profiler import PROFILER
+from cruise_control_tpu_torch.obs.recorder import SpanTree
 
 FAST_MODE_MAX_ROUNDS = 64
 #: cap on phase-cycle repetitions per goal; a pass that applies zero actions
@@ -111,6 +113,8 @@ class GoalReport:
     violations_after: float
     rounds: int
     moves_applied: int
+    #: on the device loop the goal graph's device time (in ``optimize``,
+    #: with ``profile_goals`` off), else the host's wall around the goal
     duration_s: float
 
     @property
@@ -335,22 +339,45 @@ class BatchedResult:
 
 
 class HostSyncs:
-    """Counts the points where the host waits on the device.  ``runs`` holds
-    the device-loop goals (``device_loop.GoalRun``) whose trip counts the next
-    :func:`host_fetch` brings back with its own values."""
+    """The host's side of one call.  ``count`` counts the points where the
+    host waits on the device and ``wait_s`` the host seconds it spent blocked
+    there.  ``runs`` holds the device-loop goals (``device_loop.GoalRun``)
+    whose trip counts the next :func:`host_fetch` brings back with its own
+    values, and ``launched`` every launch of the call, whose device time that
+    fetch resolves.  ``spans`` is the span tree of a call that writes a
+    flight record (``obs.recorder.SpanTree``), None elsewhere.  ``wait_s``
+    counts these explicit waits only: a host blocked inside a launch (a full
+    launch queue, a graph launch) counts as not waiting."""
 
-    def __init__(self) -> None:
+    def __init__(self, spans: Optional[SpanTree] = None) -> None:
         self.count = 0
+        self.wait_s = 0.0
         self.runs: list = []
+        self.launched: list = []
+        self.spans = spans
+
+    def span(self, name: str):
+        """A child span of the call's open span, when the call keeps a tree."""
+        return self.spans.span(name) if self.spans is not None else contextlib.nullcontext()
+
+    def add_run(self, run) -> None:
+        """A device-loop launch, its trip counts and device time to be fetched."""
+        self.runs.append(run)
+        self.launched.append(run)
 
     def tolist(self, t: torch.Tensor):
         self.count += 1
-        return t.tolist()
+        w0 = time.perf_counter()
+        out = t.tolist()
+        self.wait_s += time.perf_counter() - w0
+        return out
 
     def wait(self, event: torch.cuda.Event) -> None:
         """Wait for the device to reach ``event`` (one counted wait)."""
         self.count += 1
+        w0 = time.perf_counter()
         event.synchronize()
+        self.wait_s += time.perf_counter() - w0
 
     def settle(self) -> None:
         """Fetch the trip counts of the device-loop goals still open (one
@@ -363,7 +390,16 @@ class HostSyncs:
         if state.device.type == "cpu":
             return state
         self.count += 1
-        return state.to("cpu")
+        w0 = time.perf_counter()
+        out = state.to("cpu")
+        self.wait_s += time.perf_counter() - w0
+        return out
+
+
+def launched_device_s(runs) -> Optional[float]:
+    """The device seconds of device-loop launches whose times a fetch has
+    resolved; None for no launch (the host driver)."""
+    return sum(r.device_s for r in runs) if runs else None
 
 
 def _np_mask(ids: Tuple[int, ...]) -> np.ndarray:
@@ -494,30 +530,31 @@ def _goal_step_fn(
     ints, known from the phases' per-round reads.  A stack takes
     :func:`_goal_step_lanes`."""
     needs = _goal_needs(gid, prior_ids)
-    snap0 = take_snapshot(state, ctx, enable_heavy, needs, spmd)
-    before = G.violations_one(gid, state, ctx, snap0)
-    if A.lanes_of(state) is not None:
-        state, rounds, moves = _goal_step_lanes(
-            state, ctx, round_fns=round_fns, max_rounds=max_rounds, enable_heavy=enable_heavy,
-            prior_ids=prior_ids, admit_ids=admit_ids, needs=needs, syncs=syncs,
-        )
-    else:
-        rounds = moves = 0
-        pass_moves, passes = 1, 0
-        max_passes = _max_passes(round_fns)
-        while pass_moves > 0 and passes < max_passes:
-            pass_moves = 0
-            for fn in round_fns:
-                state, r, m = _phase_loop(
-                    state, ctx, round_fn=fn, max_rounds=max_rounds, enable_heavy=enable_heavy,
-                    prior_ids=prior_ids, admit_ids=admit_ids, needs=needs, syncs=syncs, spmd=spmd,
-                )
-                rounds += r
-                moves += m
-                pass_moves += m
-            passes += 1
-    snap1 = take_snapshot(state, ctx, enable_heavy, needs, spmd)
-    after = G.violations_one(gid, state, ctx, snap1)
+    with syncs.span("snapshot"):
+        before = G.violations_one(gid, state, ctx, take_snapshot(state, ctx, enable_heavy, needs, spmd))
+    with syncs.span("rounds"):
+        if A.lanes_of(state) is not None:
+            state, rounds, moves = _goal_step_lanes(
+                state, ctx, round_fns=round_fns, max_rounds=max_rounds, enable_heavy=enable_heavy,
+                prior_ids=prior_ids, admit_ids=admit_ids, needs=needs, syncs=syncs,
+            )
+        else:
+            rounds = moves = 0
+            pass_moves, passes = 1, 0
+            max_passes = _max_passes(round_fns)
+            while pass_moves > 0 and passes < max_passes:
+                pass_moves = 0
+                for fn in round_fns:
+                    state, r, m = _phase_loop(
+                        state, ctx, round_fn=fn, max_rounds=max_rounds, enable_heavy=enable_heavy,
+                        prior_ids=prior_ids, admit_ids=admit_ids, needs=needs, syncs=syncs, spmd=spmd,
+                    )
+                    rounds += r
+                    moves += m
+                    pass_moves += m
+                passes += 1
+    with syncs.span("snapshot"):
+        after = G.violations_one(gid, state, ctx, take_snapshot(state, ctx, enable_heavy, needs, spmd))
     return state, rounds, moves, before, after
 
 
@@ -612,13 +649,16 @@ def _goal_step_device(
     0-d device tensors; the launch's trip counts wait in ``syncs.runs`` for
     the solve's next :func:`host_fetch`."""
     needs = _goal_needs(gid, prior_ids)
-    before = G.violations_one(gid, state, ctx, take_snapshot(state, ctx, enable_heavy, needs))
-    state, run = loops.run(
-        state, ctx, _goal_phases(gid, round_fns, prior_ids, admit_ids), enable_heavy=enable_heavy, max_passes=_max_passes(round_fns),
-        max_rounds=max_rounds, name=G.GOAL_NAMES[gid],
-    )
-    syncs.runs.append(run)
-    after = G.violations_one(gid, state, ctx, take_snapshot(state, ctx, enable_heavy, needs))
+    with syncs.span("snapshot"):
+        before = G.violations_one(gid, state, ctx, take_snapshot(state, ctx, enable_heavy, needs))
+    with syncs.span("launch"):
+        state, run = loops.run(
+            state, ctx, _goal_phases(gid, round_fns, prior_ids, admit_ids), enable_heavy=enable_heavy,
+            max_passes=_max_passes(round_fns), max_rounds=max_rounds, name=G.GOAL_NAMES[gid],
+        )
+    syncs.add_run(run)
+    with syncs.span("snapshot"):
+        after = G.violations_one(gid, state, ctx, take_snapshot(state, ctx, enable_heavy, needs))
     return state, run.rounds, run.moves, before, after
 
 
@@ -809,7 +849,7 @@ class GoalOptimizer:
                 state, ctx, phases, enable_heavy=self.enable_heavy_goals, max_passes=1,
                 max_rounds=max_rounds, name="offline_repair",
             )
-            syncs.runs.append(run)
+            syncs.add_run(run)
             return state
         for fn, aids in ((offline_round, hard_in_list), (offline_round_relaxed, ())):
             if A.lanes_of(state) is not None:
@@ -900,27 +940,35 @@ class GoalOptimizer:
 
         Every run, an aborted one too, leaves an ``"optimize"`` flight record
         (``obs.recorder``): a ``setup`` span, one span per goal and a
-        ``finalize`` span, whose host-sync counts sum to ``num_host_syncs``."""
+        ``finalize`` span, whose host-sync counts sum to ``num_host_syncs``.
+        Their child spans: ``violations`` and ``offline_repair`` in the
+        setup; in each goal its ``snapshot`` before and after, and between
+        them ``launch`` on the device loop or ``rounds`` on the host driver;
+        ``violations``, ``fetch``, ``to_host`` and ``report`` in the
+        finalize."""
         from cruise_control_tpu_torch.core.sensors import PROPOSAL_COMPUTATION_TIMER, REGISTRY
         from cruise_control_tpu_torch.obs import recorder as obs
 
         trace_token = obs.start_trace("optimize")
         cost_mark = PROFILER.mark()
         t0 = time.monotonic()
-        syncs = HostSyncs()
+        syncs = HostSyncs(SpanTree("optimize", trace_token["t0"]))
+        tree = syncs.spans
         heavy = self.enable_heavy_goals
         spmd = self._spmd
         initial = state
-        viol0 = _violations_fn(state, ctx, heavy, self.goal_ids, spmd)
-        initial_whole = self._whole(initial)
-        stats_before = S.cluster_model_stats(initial_whole)
-
-        max_rounds = self._max_rounds(ctx)
-        state = self._offline_repair(state, ctx, max_rounds, syncs)
+        with tree.span("setup", "setup") as setup:
+            with tree.span("violations"):
+                viol0 = _violations_fn(state, ctx, heavy, self.goal_ids, spmd)
+            initial_whole = self._whole(initial)
+            stats_before = S.cluster_model_stats(initial_whole)
+            max_rounds = self._max_rounds(ctx)
+            with tree.span("offline_repair") as repair:
+                state = self._offline_repair(state, ctx, max_rounds, syncs)
         # flight-record accounting: the syncs before the goal loop are the
         # "setup" span, each goal's delta its own span
-        setup_syncs = syncs.count
-        setup_s = time.monotonic() - t0
+        setup.dispatches = syncs.count
+        repair_runs = list(syncs.launched)
 
         degraded = False
         raw: List[tuple] = []
@@ -935,159 +983,163 @@ class GoalOptimizer:
                     # stop the walk; goals already walked keep their reports
                     degraded = True
                     break
-                g0 = time.monotonic()
-                s0 = syncs.count
-                max_rf = _max_replication_factor(initial_whole, syncs) if gid == G.KAFKA_ASSIGNER_RACK else 1
-                state, rounds, moves, before, after, unassigned_t = self._run_goal(
-                    gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
-                )
-                if unassigned_t is not None:
-                    moves, unassigned = syncs.tolist(torch.stack([moves, unassigned_t]))
-                    if raise_on_hard_failure and unassigned > 0:
-                        raise OptimizationFailure(
-                            f"KafkaAssignerEvenRackAwareGoal: {unassigned} replica slot(s) have no "
-                            "eligible broker (fewer eligible alive brokers than the replication factor)"
-                        )
-                is_hard = gid in self.hard_ids
-                after_host = None
-                if profile_goals or (raise_on_hard_failure and is_hard):
-                    after_host, rounds, moves = host_fetch(syncs, [after, rounds, moves])
-                    after_host, rounds, moves = float(after_host), int(rounds), int(moves)
-                if raise_on_hard_failure and is_hard and after_host > 0:
-                    raise OptimizationFailure(
-                        f"{G.GOAL_NAMES[gid]} unsatisfied: {after_host:.0f} violations remain"
+                s0, n0 = syncs.count, len(syncs.launched)
+                with tree.span(G.GOAL_NAMES[gid], "goal") as span:
+                    max_rf = _max_replication_factor(initial_whole, syncs) if gid == G.KAFKA_ASSIGNER_RACK else 1
+                    state, rounds, moves, before, after, unassigned_t = self._run_goal(
+                        gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
                     )
-                dur = time.monotonic() - g0
-                raw.append((gid, before, after, rounds, moves, dur, syncs.count - s0))
+                    if unassigned_t is not None:
+                        moves, unassigned = syncs.tolist(torch.stack([moves, unassigned_t]))
+                        if raise_on_hard_failure and unassigned > 0:
+                            raise OptimizationFailure(
+                                f"KafkaAssignerEvenRackAwareGoal: {unassigned} replica slot(s) have no "
+                                "eligible broker (fewer eligible alive brokers than the replication factor)"
+                            )
+                    is_hard = gid in self.hard_ids
+                    after_host = None
+                    if profile_goals or (raise_on_hard_failure and is_hard):
+                        after_host, rounds, moves = host_fetch(syncs, [after, rounds, moves])
+                        after_host, rounds, moves = float(after_host), int(rounds), int(moves)
+                    if raise_on_hard_failure and is_hard and after_host > 0:
+                        raise OptimizationFailure(
+                            f"{G.GOAL_NAMES[gid]} unsatisfied: {after_host:.0f} violations remain"
+                        )
+                span.dispatches = syncs.count - s0
+                raw.append((gid, before, after, rounds, moves, span, syncs.launched[n0:]))
                 if profile_goals and on_goal_done is not None:
-                    on_goal_done(G.GOAL_NAMES[gid], rounds, moves, after_host, dur)
+                    on_goal_done(G.GOAL_NAMES[gid], rounds, moves, after_host, span.duration_s)
                 prior = prior + (gid,)
         except OptimizationFailure as e:
             syncs.settle()
             # the spans walked so far plus the refusing goal, so the span
             # syncs still sum to the reported total
+            span.kind, span.dispatches, span.attrs = "aborted", syncs.count - s0, {"error": str(e)}
             obs.finish_trace(
                 trace_token,
-                spans=[obs.Span("setup", "setup", setup_s, setup_syncs)]
-                + [obs.Span(G.GOAL_NAMES[g], "goal", d, n) for g, _, _, _, _, d, n in raw]
-                + [obs.Span(
-                    G.GOAL_NAMES[gid], "aborted", time.monotonic() - g0, syncs.count - s0,
-                    attrs={"error": str(e)},
-                )],
+                spans=tree.root.children,
                 attrs={"error": str(e), "num_dispatches": syncs.count, "num_host_syncs": syncs.count},
                 device=self.device,
             )
             raise
 
-        violN = _violations_fn(state, ctx, heavy, self.goal_ids, spmd)
-        # one bulk fetch of every per-goal scalar
-        viol0_h, violN_h, *per_goal = host_fetch(
-            syncs, [viol0, violN] + [x for _, b, a, r, m, _, _ in raw for x in (b, a, r, m)]
-        )
-
-        reports: List[GoalReport] = []
-        total_moves = 0
-        for i, (gid, _, _, _, _, dur, _) in enumerate(raw):
-            before, after, rounds, moves = per_goal[4 * i:4 * i + 4]
-            reports.append(
-                GoalReport(
-                    goal_id=gid,
-                    name=G.GOAL_NAMES[gid],
-                    is_hard=gid in self.hard_ids,
-                    violations_before=float(before),
-                    violations_after=float(after),
-                    rounds=int(rounds),
-                    moves_applied=int(moves),
-                    duration_s=dur,
+        with tree.span("finalize", "finalize") as fin:
+            with tree.span("violations"):
+                violN = _violations_fn(state, ctx, heavy, self.goal_ids, spmd)
+            # one bulk fetch of every per-goal scalar
+            with tree.span("fetch"):
+                viol0_h, violN_h, *per_goal = host_fetch(
+                    syncs, [viol0, violN] + [x for _, b, a, r, m, _, _ in raw for x in (b, a, r, m)]
                 )
-            )
-            total_moves += int(moves)
+            state = self._whole(state)
+            with tree.span("to_host"):
+                initial_h = syncs.state(initial_whole)
+                final_h = syncs.state(state)
+            with tree.span("report"):
+                reports: List[GoalReport] = []
+                total_moves = 0
+                for i, (gid, _, _, _, _, span, runs) in enumerate(raw):
+                    before, after, rounds, moves = per_goal[4 * i:4 * i + 4]
+                    # the launch's device time where the goal launched a graph
+                    # and nothing waited after it (the JAX package's stamped
+                    # bracket); the host's wall otherwise
+                    device_s = launched_device_s(runs)
+                    dur = device_s if device_s is not None and not profile_goals else span.duration_s
+                    reports.append(
+                        GoalReport(
+                            goal_id=gid,
+                            name=G.GOAL_NAMES[gid],
+                            is_hard=gid in self.hard_ids,
+                            violations_before=float(before),
+                            violations_after=float(after),
+                            rounds=int(rounds),
+                            moves_applied=int(moves),
+                            duration_s=dur,
+                        )
+                    )
+                    total_moves += int(moves)
 
-        names = G.GOAL_NAMES
-        violated_hard = [
-            names[g] for g in self.hard_ids if g in self.goal_ids and violN_h[g] > 0
-        ]
-        state = self._whole(state)
-        initial_h = syncs.state(initial_whole)
-        final_h = syncs.state(state)
-        provision = provision_verdict(final_h, ctx, violated_hard)
-        proposals: List[ExecutionProposal] = []
-        if maps is not None:
-            proposals = diff_proposals(initial_h, final_h, maps)
+                names = G.GOAL_NAMES
+                violated_hard = [
+                    names[g] for g in self.hard_ids if g in self.goal_ids and violN_h[g] > 0
+                ]
+                provision = provision_verdict(final_h, ctx, violated_hard)
+                proposals: List[ExecutionProposal] = []
+                if maps is not None:
+                    proposals = diff_proposals(initial_h, final_h, maps)
 
-        result = OptimizerResult(
-            goal_reports=reports,
-            violations_before={names[g]: float(viol0_h[g]) for g in self.goal_ids},
-            violations_after={names[g]: float(violN_h[g]) for g in self.goal_ids},
-            stats_before=stats_before,
-            stats_after=S.cluster_model_stats(state),
-            proposals=proposals,
-            provision=provision,
-            total_moves=total_moves,
-            duration_s=time.monotonic() - t0,
-            movement=movement_stats(initial_h, final_h),
-            num_host_syncs=syncs.count,
-            degraded=degraded,
-        )
-        REGISTRY.timer(PROPOSAL_COMPUTATION_TIMER).update(result.duration_s)
-        self._record_optimize(trace_token, cost_mark, result, raw, setup_s, setup_syncs, ctx, state)
+                result = OptimizerResult(
+                    goal_reports=reports,
+                    violations_before={names[g]: float(viol0_h[g]) for g in self.goal_ids},
+                    violations_after={names[g]: float(violN_h[g]) for g in self.goal_ids},
+                    stats_before=stats_before,
+                    stats_after=S.cluster_model_stats(state),
+                    proposals=proposals,
+                    provision=provision,
+                    total_moves=total_moves,
+                    duration_s=time.monotonic() - t0,
+                    movement=movement_stats(initial_h, final_h),
+                    num_host_syncs=syncs.count,
+                    degraded=degraded,
+                )
+                REGISTRY.timer(PROPOSAL_COMPUTATION_TIMER).update(result.duration_s)
+                repair.attrs["device_s"] = launched_device_s(repair_runs)
+                attrs = self._optimize_attrs(result, raw, syncs, cost_mark, ctx, state)
+        fin.dispatches = syncs.count - sum(s.dispatches for s in tree.root.children)
+        obs.finish_trace(trace_token, spans=tree.root.children, attrs=attrs, device=self.device)
         return state, result
 
-    def _record_optimize(
-        self, token: dict, cost_mark: int, result: OptimizerResult, raw: List[tuple], setup_s: float,
-        setup_syncs: int, ctx: GoalContext, state: ClusterArrays,
-    ) -> None:
-        """Close the ``"optimize"`` flight record with the JAX package's
-        attribute names; ``num_dispatches`` and the spans' ``dispatches``
-        carry host syncs, and ``cost`` the kernel calls since ``cost_mark``."""
+    def _optimize_attrs(
+        self, result: OptimizerResult, raw: List[tuple], syncs: HostSyncs, cost_mark, ctx: GoalContext,
+        state: ClusterArrays,
+    ) -> dict:
+        """The ``"optimize"`` flight record's attributes, with the JAX
+        package's names, and each goal span's; ``num_dispatches`` and the
+        spans' ``dispatches`` carry host syncs, and ``cost`` the kernel calls
+        since ``cost_mark``.  The port adds ``host_wait_s`` (the host's
+        blocked seconds), ``graph_device_s`` (the device time of the call's
+        graph launches) and each goal's ``device_s`` (its launch's; both None
+        on the host driver)."""
         from cruise_control_tpu_torch.obs import recorder as obs
 
-        spans = [obs.Span("setup", "setup", setup_s, setup_syncs)]
-        for rep, (*_, goal_syncs) in zip(result.goal_reports, raw):
-            spans.append(obs.Span(
-                rep.name, "goal", rep.duration_s, goal_syncs,
-                attrs={
-                    "violations_before": rep.violations_before,
-                    "violations_after": rep.violations_after,
-                    "moves": rep.moves_applied,
-                    "rounds": rep.rounds,
-                    "hard": rep.is_hard,
-                },
-            ))
-        goal_syncs = sum(t[6] for t in raw)
-        spans.append(obs.Span(
-            "finalize", "finalize",
-            max(result.duration_s - setup_s - sum(t[5] for t in raw), 0.0),
-            result.num_host_syncs - setup_syncs - goal_syncs,
-        ))
-        obs.finish_trace(
-            token,
-            spans=spans,
-            attrs={
-                "num_goals": len(result.goal_reports),
-                "num_dispatches": result.num_host_syncs,
-                "num_host_syncs": result.num_host_syncs,
-                "total_moves": result.total_moves,
-                "violated_hard_goals": result.violated_hard_goals,
-                "residual_hard_violations": result.residual_hard_violations,
-                "residual_soft_violations": result.residual_soft_violations,
-                "balancedness": result.balancedness_score,
-                "provision_status": result.provision.status,
-                "degraded": result.degraded,
-                # the JAX package's dispatch layout flags: on the device loop
-                # a goal is one launch; no device-side stamps
-                "fused_dispatch": self._device_loops() is not None,
-                "fast_mode": bool(ctx.fast_mode),
-                "stamps_supported": False,
-                "num_brokers": state.num_brokers,
-                "num_partitions": state.num_partitions,
-                "num_replicas": state.num_replicas,
-                "movement": dataclasses.asdict(result.movement),
-                "cost": PROFILER.cost_since(cost_mark),
-                **obs.mesh_metadata(self.device, self.mesh),
-            },
-            device=self.device,
-        )
+        for rep, (*_, span, runs) in zip(result.goal_reports, raw):
+            span.attrs = {
+                "violations_before": rep.violations_before,
+                "violations_after": rep.violations_after,
+                "moves": rep.moves_applied,
+                "rounds": rep.rounds,
+                "hard": rep.is_hard,
+                "device_s": launched_device_s(runs),
+            }
+        loop = self._device_loops() is not None
+        return {
+            "num_goals": len(result.goal_reports),
+            "num_dispatches": result.num_host_syncs,
+            "num_host_syncs": result.num_host_syncs,
+            "host_wait_s": syncs.wait_s,
+            "graph_device_s": launched_device_s(syncs.launched),
+            "total_moves": result.total_moves,
+            "violated_hard_goals": result.violated_hard_goals,
+            "residual_hard_violations": result.residual_hard_violations,
+            "residual_soft_violations": result.residual_soft_violations,
+            "balancedness": result.balancedness_score,
+            "provision_status": result.provision.status,
+            "degraded": result.degraded,
+            # the JAX package's dispatch layout flags: on the device loop a
+            # goal is one launch, timed on the device by CUDA events, and its
+            # report's duration is that device time (the stamped bracket); the
+            # goal span keeps the host's interval, which its children share,
+            # and carries the device time as ``device_s``
+            "fused_dispatch": loop,
+            "fast_mode": bool(ctx.fast_mode),
+            "stamps_supported": loop,
+            "num_brokers": state.num_brokers,
+            "num_partitions": state.num_partitions,
+            "num_replicas": state.num_replicas,
+            "movement": dataclasses.asdict(result.movement),
+            "cost": PROFILER.cost_since(cost_mark),
+            **obs.mesh_metadata(self.device, self.mesh),
+        }
 
     # -- many clusters and bounded re-solves ----------------------------------
     #
@@ -1128,110 +1180,117 @@ class GoalOptimizer:
         replication factor of position passes.  One ``"optimize"`` flight
         record with the JAX batched record's names: a ``setup`` span (the
         leading probe and the offline pre-phases), one span per goal (its wall
-        and host syncs for the whole stack) and a ``finalize`` span."""
+        and host syncs for the whole stack) and a ``finalize`` span, with the
+        child spans of :meth:`_optimize_core`'s record; the port adds
+        ``host_wait_s``, ``graph_device_s`` and each goal's ``device_s``."""
         from cruise_control_tpu_torch.core.sensors import PROPOSAL_COMPUTATION_TIMER, REGISTRY
         from cruise_control_tpu_torch.obs import recorder as obs
 
         token = obs.start_trace("optimize")
         cost_mark = PROFILER.mark()
         t0 = time.monotonic()
-        syncs = HostSyncs()
-        states, ctx = states.to(self.device), ctx.to(self.device)
-        self._check_lanes(states, ctx)
-        heavy = self.enable_heavy_goals
-        max_rounds = self._max_rounds(ctx)
-        max_rf = (
-            _max_replication_factor(states, syncs) if G.KAFKA_ASSIGNER_RACK in self.goal_ids else 1
-        )
-        viol0 = lane_violations(states, ctx, heavy, self.goal_ids)
-        state = self._offline_repair(states, ctx, max_rounds, syncs)
-        setup_s, setup_syncs = time.monotonic() - t0, syncs.count
+        syncs = HostSyncs(SpanTree("optimize", token["t0"]))
+        tree = syncs.spans
+        with tree.span("setup", "setup") as setup:
+            states, ctx = states.to(self.device), ctx.to(self.device)
+            self._check_lanes(states, ctx)
+            heavy = self.enable_heavy_goals
+            max_rounds = self._max_rounds(ctx)
+            max_rf = (
+                _max_replication_factor(states, syncs) if G.KAFKA_ASSIGNER_RACK in self.goal_ids else 1
+            )
+            with tree.span("violations"):
+                viol0 = lane_violations(states, ctx, heavy, self.goal_ids)
+            with tree.span("offline_repair") as repair:
+                state = self._offline_repair(states, ctx, max_rounds, syncs)
+        setup.dispatches = syncs.count
+        repair_runs = list(syncs.launched)
         raw: List[tuple] = []
         prior: Tuple[int, ...] = ()
         for gid in self.goal_ids:
-            g0, c0 = time.monotonic(), syncs.count
-            state, rounds, moves, before, after, _ = self._run_goal(
-                gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
-            )
-            raw.append((gid, rounds, moves, before, after, time.monotonic() - g0, syncs.count - c0))
+            c0, n0 = syncs.count, len(syncs.launched)
+            with tree.span(G.GOAL_NAMES[gid], "goal") as span:
+                state, rounds, moves, before, after, _ = self._run_goal(
+                    gid, state, ctx, prior=prior, max_rounds=max_rounds, max_rf=max_rf, syncs=syncs,
+                )
+            span.dispatches = syncs.count - c0
+            raw.append((gid, rounds, moves, before, after, span, syncs.launched[n0:]))
             prior = prior + (gid,)
         final = state
 
-        # one bulk fetch of every lane's scalars, then host copies of both stacks
-        viol0_h, violN_h, *per_goal = host_fetch(syncs, [
-            viol0, lane_violations(final, ctx, heavy, self.goal_ids),
-        ] + [x for r in raw for x in r[1:5]])
-        initial_h, final_h = syncs.state(states), syncs.state(final)
-        duration = time.monotonic() - t0
-        names = G.GOAL_NAMES
-        S = A.num_lanes(states)
+        with tree.span("finalize", "finalize") as fin:
+            with tree.span("violations"):
+                violN = lane_violations(final, ctx, heavy, self.goal_ids)
+            # one bulk fetch of every lane's scalars, then host copies of both stacks
+            with tree.span("fetch"):
+                viol0_h, violN_h, *per_goal = host_fetch(syncs, [viol0, violN] + [x for r in raw for x in r[1:5]])
+            with tree.span("to_host"):
+                initial_h, final_h = syncs.state(states), syncs.state(final)
+            with tree.span("report"):
+                duration = time.monotonic() - t0
+                names = G.GOAL_NAMES
+                S = A.num_lanes(states)
 
-        def lane_value(v, i):
-            return v if np.ndim(v) == 0 else v[i]
+                def lane_value(v, i):
+                    return v if np.ndim(v) == 0 else v[i]
 
-        results: List[OptimizerResult] = []
-        for i in range(S):
-            reports = []
-            for j, (gid, *_, wall, _) in enumerate(raw):
-                rounds, moves, before, after = (lane_value(v, i) for v in per_goal[4 * j:4 * j + 4])
-                reports.append(GoalReport(
-                    goal_id=gid, name=names[gid], is_hard=gid in self.hard_ids,
-                    violations_before=float(before), violations_after=float(after),
-                    rounds=int(rounds), moves_applied=int(moves), duration_s=wall,
-                ))
-            violated_hard = [
-                names[g] for g in self.hard_ids if g in self.goal_ids and float(violN_h[i, g]) > 0
-            ]
-            final_i = A.index_arrays(final_h, i)
-            results.append(OptimizerResult(
-                goal_reports=reports,
-                violations_before={names[g]: float(viol0_h[i, g]) for g in self.goal_ids},
-                violations_after={names[g]: float(violN_h[i, g]) for g in self.goal_ids},
-                stats_before={},
-                stats_after={},
-                proposals=[],
-                provision=provision_verdict(final_i, ctx, violated_hard),
-                total_moves=sum(r.moves_applied for r in reports),
-                duration_s=duration,
-                movement=movement_stats(A.index_arrays(initial_h, i), final_i),
-                num_host_syncs=syncs.count,
-            ))
-        REGISTRY.timer(PROPOSAL_COMPUTATION_TIMER).update(duration)
+                results: List[OptimizerResult] = []
+                for i in range(S):
+                    reports = []
+                    for j, (gid, *_, span, runs) in enumerate(raw):
+                        rounds, moves, before, after = (lane_value(v, i) for v in per_goal[4 * j:4 * j + 4])
+                        device_s = launched_device_s(runs)
+                        reports.append(GoalReport(
+                            goal_id=gid, name=names[gid], is_hard=gid in self.hard_ids,
+                            violations_before=float(before), violations_after=float(after),
+                            rounds=int(rounds), moves_applied=int(moves),
+                            duration_s=span.duration_s if device_s is None else device_s,
+                        ))
+                    violated_hard = [
+                        names[g] for g in self.hard_ids if g in self.goal_ids and float(violN_h[i, g]) > 0
+                    ]
+                    final_i = A.index_arrays(final_h, i)
+                    results.append(OptimizerResult(
+                        goal_reports=reports,
+                        violations_before={names[g]: float(viol0_h[i, g]) for g in self.goal_ids},
+                        violations_after={names[g]: float(violN_h[i, g]) for g in self.goal_ids},
+                        stats_before={},
+                        stats_after={},
+                        proposals=[],
+                        provision=provision_verdict(final_i, ctx, violated_hard),
+                        total_moves=sum(r.moves_applied for r in reports),
+                        duration_s=duration,
+                        movement=movement_stats(A.index_arrays(initial_h, i), final_i),
+                        num_host_syncs=syncs.count,
+                    ))
+                REGISTRY.timer(PROPOSAL_COMPUTATION_TIMER).update(duration)
 
-        spans = [obs.Span("setup", "setup", setup_s, setup_syncs)]
-        for j, (gid, *_, wall, goal_syncs) in enumerate(raw):
-            reps = [r.goal_reports[j] for r in results]
-            spans.append(obs.Span(
-                names[gid], "goal", wall, goal_syncs,
-                attrs={
-                    "moves": sum(r.moves_applied for r in reps),
-                    "lanes_unsatisfied": sum(1 for r in reps if r.violations_after > 0),
-                    "hard": gid in self.hard_ids,
-                },
-            ))
-        spans.append(obs.Span(
-            "finalize", "finalize",
-            max(duration - setup_s - sum(r[5] for r in raw), 0.0),
-            syncs.count - setup_syncs - sum(r[6] for r in raw),
-        ))
-        obs.finish_trace(
-            token,
-            spans=spans,
-            attrs={
-                "batched": True,
-                "batch_size": len(results),
-                "num_goals": len(self.goal_ids),
-                "num_dispatches": syncs.count,
-                # leaves are [S, ...]-stacked: the trailing axis is the shape
-                "num_brokers": int(states.broker_rack.shape[-1]),
-                "num_partitions": int(states.partition_topic.shape[-1]),
-                "num_replicas": int(states.replica_partition.shape[-1]),
-                "fast_mode": bool(ctx.fast_mode),
-                "cost": PROFILER.cost_since(cost_mark),
-                **obs.mesh_metadata(self.device),
-            },
-            device=self.device,
-        )
+                repair.attrs["device_s"] = launched_device_s(repair_runs)
+                for j, (gid, *_, span, runs) in enumerate(raw):
+                    reps = [r.goal_reports[j] for r in results]
+                    span.attrs = {
+                        "moves": sum(r.moves_applied for r in reps),
+                        "lanes_unsatisfied": sum(1 for r in reps if r.violations_after > 0),
+                        "hard": gid in self.hard_ids,
+                        "device_s": launched_device_s(runs),
+                    }
+                attrs = {
+                    "batched": True,
+                    "batch_size": len(results),
+                    "num_goals": len(self.goal_ids),
+                    "num_dispatches": syncs.count,
+                    "host_wait_s": syncs.wait_s,
+                    "graph_device_s": launched_device_s(syncs.launched),
+                    # leaves are [S, ...]-stacked: the trailing axis is the shape
+                    "num_brokers": int(states.broker_rack.shape[-1]),
+                    "num_partitions": int(states.partition_topic.shape[-1]),
+                    "num_replicas": int(states.replica_partition.shape[-1]),
+                    "fast_mode": bool(ctx.fast_mode),
+                    "cost": PROFILER.cost_since(cost_mark),
+                    **obs.mesh_metadata(self.device),
+                }
+        fin.dispatches = syncs.count - sum(s.dispatches for s in tree.root.children)
+        obs.finish_trace(token, spans=tree.root.children, attrs=attrs, device=self.device)
         return final, BatchedResult(
             results=results, batch_size=len(results), num_host_syncs=syncs.count,
             duration_s=duration,

@@ -35,7 +35,11 @@ kernels, and the census is kept by their wrappers (``ops/segments.py``,
 The launch counters of the wrappers (``LAUNCHES``) stay the count the smoke
 reads; the census is bookkeeping beside them.  :func:`profile_jit` and
 :meth:`DeviceProfiler.set_analysis` exist for parity with the JAX package's
-tests only: nothing in the port wraps a callable with them.
+tests only: nothing in the port wraps a callable with them, but the JAX
+telemetry test module, which ``tests/test_torch_telemetry.py`` runs against
+the port, imports ``profile_jit``, and its ``TestProfiler`` calls it.  The
+solver's own timing is the flight recorder's (``obs/recorder.py``: spans, the
+host's wait, the goal graphs' device time).
 ``CC_TPU_PROFILER=0`` disables the layer (memory gauges included).
 """
 

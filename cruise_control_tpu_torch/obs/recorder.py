@@ -22,6 +22,11 @@ and no JAX runtime:
   window it the same way;
 * the platform and device fields name the torch device the emitter ran on.
 
+A span has a start and the spans inside it (:class:`SpanTree` times them as
+the work runs), so a record is a tree and each span's self time is known; the
+top-level spans stay the JAX package's.  A sink the port wrote reads back in
+the JAX package without the starts and children.
+
 The port's span ``dispatches`` and the ``num_dispatches`` attribute count
 host syncs (the points where the host waits on the device), the port's
 counterpart of the JAX dispatch count; per trace they sum to the emitter's
@@ -33,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 import dataclasses
 import itertools
 import json
@@ -49,26 +55,96 @@ SCHEMA_VERSION = 1
 
 @dataclasses.dataclass
 class Span:
-    """One timed unit of work inside a trace (a goal, a phase, a fetch)."""
+    """One timed unit of work inside a trace (a goal, a phase, a fetch), with
+    the spans inside it.  ``start_s`` is the offset of its start from the
+    trace's start on the host's monotonic clock (None where the emitter kept
+    no start: records of other emitters and older sinks)."""
 
     name: str
-    kind: str                 # "goal" | "setup" | "finalize" | "phase" | ...
+    kind: str                 # "goal" | "setup" | "finalize" | "phase" | "step" | ...
     duration_s: float
     #: host syncs (the port's count where the JAX package counts dispatches)
-    #: during this span, 0 for host-only spans; per trace these sum to the
-    #: emitter's reported total
+    #: during this span, 0 for host-only spans; per trace the top-level spans'
+    #: counts sum to the emitter's reported total
     dispatches: int = 0
     attrs: Dict[str, object] = dataclasses.field(default_factory=dict)
+    start_s: Optional[float] = None
+    #: the spans inside this one, in the order they started
+    children: List["Span"] = dataclasses.field(default_factory=list)
+
+    @property
+    def self_s(self) -> float:
+        """The duration less the children's (a span's children run one after
+        another inside it)."""
+        return self.duration_s - sum(c.duration_s for c in self.children)
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        """The JAX package's span fields, plus ``start_s`` and ``children``
+        where the span has them (so a span without them reads the same in
+        both packages)."""
+        d = {
+            "name": self.name, "kind": self.kind, "duration_s": self.duration_s,
+            "dispatches": self.dispatches, "attrs": copy.deepcopy(self.attrs),
+        }
+        if self.start_s is not None:
+            d["start_s"] = self.start_s
+        if self.children:
+            d["children"] = [c.to_dict() for c in self.children]
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "Span":
         return cls(
             name=d["name"], kind=d["kind"], duration_s=d["duration_s"],
             dispatches=d.get("dispatches", 0), attrs=dict(d.get("attrs", {})),
+            start_s=d.get("start_s"), children=[cls.from_dict(c) for c in d.get("children", [])],
         )
+
+
+def _profiler_range(name: str):
+    """A profiler range on the host alone.  ``torch.profiler.record_function``
+    opens a user-scope range, which the profiler also draws on the device
+    timeline over the kernels the range launched (``gpu_user_annotation``
+    events of the CUDA type): a device trace would count a span as device
+    time.  This range has the function scope of an operator, and stays on the
+    host."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+class SpanTree:
+    """The spans of one trace as its work runs.  :meth:`span` times a block
+    as a child of the innermost span open around it; the trace's top-level
+    spans are the children of :attr:`root`.  Starts count from ``t0``, the
+    trace's start on the host's monotonic clock.
+
+    While a ``torch.profiler`` session runs, and only then, each span is also
+    a profiler range named ``cc/<parent kind>/<name>`` (``cc/goal/snapshot``),
+    so a device trace names the host's time by the program's spans.  Without
+    one a span costs two clock reads and a list append."""
+
+    def __init__(self, kind: str = "trace", t0: Optional[float] = None) -> None:
+        self.t0 = time.monotonic() if t0 is None else t0
+        self.root = Span(kind, kind, 0.0, start_s=0.0)
+        self._open = [self.root]
+
+    @contextlib.contextmanager
+    def span(self, name: str, kind: str = "step"):
+        """Time the block as a new child of the open span; yields the child."""
+        parent = self._open[-1]
+        s = Span(name, kind, 0.0, start_s=time.monotonic() - self.t0)
+        parent.children.append(s)
+        self._open.append(s)
+        rng = None
+        if torch.autograd._profiler_enabled():
+            rng = _profiler_range(f"cc/{parent.kind}/{name}")
+            rng.__enter__()
+        try:
+            yield s
+        finally:
+            if rng is not None:
+                rng.__exit__(None, None, None)
+            s.duration_s = time.monotonic() - self.t0 - s.start_s
+            self._open.pop()
 
 
 @dataclasses.dataclass

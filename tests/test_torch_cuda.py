@@ -1254,3 +1254,118 @@ def test_even_assign_lane_grid_is_one_launch_equal_to_its_plain_version(cuda_dev
     torch.cuda.synchronize()
     assert PA.LAUNCHES["even_assign"] == RF
     assert torch.equal(gc.cpu(), cc) and torch.equal(gch.cpu(), ch)
+
+
+# -- the solve's spans and its graphs' device time --------------------------------------
+
+
+def _warm_solve(kind):
+    """A solve of config2_small on the card (one state, or a stack of two),
+    run once to capture its graphs; returns a callable that solves again and
+    returns the call's result."""
+    import chip_smoke as SM
+    from cruise_control_tpu_torch.analyzer import GoalContext, GoalOptimizer
+    from cruise_control_tpu_torch.model import arrays as A
+    from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+
+    state, maps = generate(SyntheticSpec(**SM.CONFIG2_SMALL), device="cuda")
+    ctx = GoalContext.build(state.num_topics, state.num_brokers, device="cuda")
+    opt = GoalOptimizer(device="cuda")
+    if kind == "optimize":
+        def solve():
+            return opt.optimize(state, ctx, maps=maps)[1]
+    else:
+        stack = A.stack_arrays([state, state])
+
+        def solve():
+            return opt.batched_optimize(stack, ctx)[1]
+    solve()
+    return solve
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["optimize", "batched_optimize"])
+def test_goal_spans_carry_their_graph_launches_device_time(cuda_device, kind, monkeypatch):
+    """A warm solve's record: each goal span has the children ``snapshot``,
+    ``launch``, ``snapshot`` and its launch's device time from the program's
+    CUDA events; the launches' device times (the goals' and the offline
+    pre-phases') add up to ``graph_device_s``, within 5 % of CUDA events put
+    around ``GoalGraph.launch`` from outside; the call still makes 3 host
+    syncs (the bulk fetch and two host copies), and the host's wait lies
+    within the call.  ``optimize`` says ``stamps_supported``, and each goal
+    report's duration is its launch's device time."""
+    from cruise_control_tpu_torch.obs import RECORDER
+    from cruise_control_tpu_torch.ops import graph_loop as GL
+
+    solve = _warm_solve(kind)
+    windows = []
+    launch = GL.GoalGraph.launch
+
+    def timed(graph, stream):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        launch(graph, stream)
+        end.record(stream)
+        windows.append((start, end))
+
+    monkeypatch.setattr(GL.GoalGraph, "launch", timed)
+    RECORDER.clear()
+    result = solve()
+    torch.cuda.synchronize()
+    (trace,) = RECORDER.recent(5, kind="optimize")
+    outside = sum(a.elapsed_time(b) for a, b in windows) / 1e3
+    goals = [s for s in trace.spans if s.kind == "goal"]
+    assert goals and all([c.name for c in s.children] == ["snapshot", "launch", "snapshot"] for s in goals)
+    assert all(s.attrs["device_s"] > 0 for s in goals)
+    repair = trace.spans[0].children[1]
+    assert repair.name == "offline_repair" and repair.attrs["device_s"] > 0
+    total = trace.attrs["graph_device_s"]
+    assert sum(s.attrs["device_s"] for s in goals) + repair.attrs["device_s"] == pytest.approx(total, rel=1e-9)
+    assert len(windows) == len(goals) + 1 and abs(total - outside) <= 0.05 * outside
+    assert result.num_host_syncs == trace.total_dispatches == 3
+    assert 0.0 < trace.attrs["host_wait_s"] <= trace.duration_s
+    reports = result.goal_reports if kind == "optimize" else result.results[0].goal_reports
+    assert [r.duration_s for r in reports] == [s.attrs["device_s"] for s in goals]
+    if kind == "optimize":
+        assert trace.attrs["stamps_supported"] is True
+    else:
+        assert "stamps_supported" not in trace.attrs
+
+
+#: a warm solve under ``torch.profiler`` in a process of its own (a profiler
+#: session before a graph's capture made a profiled replay fault); prints the
+#: span ranges the profiler saw on the device and on the host
+PROFILED_SOLVE = """
+import json, torch, chip_smoke as SM
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from cruise_control_tpu_torch.analyzer import GoalContext, GoalOptimizer
+from cruise_control_tpu_torch.synthetic import SyntheticSpec, generate
+state, maps = generate(SyntheticSpec(**SM.CONFIG2_SMALL), device="cuda")
+ctx = GoalContext.build(state.num_topics, state.num_brokers, device="cuda")
+opt = GoalOptimizer(device="cuda")
+opt.optimize(state, ctx, maps=maps)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    opt.optimize(state, ctx, maps=maps)
+    torch.cuda.synchronize()
+ev = [(e.name(), e.device_type() == DeviceType.CUDA) for e in prof.profiler.kineto_results.events()]
+print(json.dumps({side: sorted({n for n, d in ev if d == dev and n.startswith("cc/")})
+                  for side, dev in (("device", True), ("host", False))}))
+"""
+
+
+@pytest.mark.cuda
+def test_a_profiled_solve_names_host_time_and_puts_no_span_on_the_device(cuda_device):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = subprocess.run([sys.executable, "-c", PROFILED_SOLVE], cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    assert seen["device"] == []
+    assert {"cc/optimize/setup", "cc/goal/snapshot", "cc/goal/launch", "cc/finalize/fetch",
+            "cc/finalize/to_host", "cc/finalize/report"} <= set(seen["host"])

@@ -276,6 +276,168 @@ class TestOptimizeTrace:
         assert trace.total_dispatches == trace.attrs["num_dispatches"] > 0
 
 
+# -- the span tree of a solve --------------------------------------------------------
+
+#: the child spans of each top-level span on the host driver (the CPU)
+CHILDREN = {
+    "setup": ["violations", "offline_repair"],
+    "goal": ["snapshot", "rounds", "snapshot"],
+    "finalize": ["violations", "fetch", "to_host", "report"],
+}
+
+
+@pytest.fixture(scope="module")
+def batched_trace():
+    from cruise_control_tpu_torch.analyzer import GoalContext, GoalOptimizer
+    from cruise_control_tpu_torch.analyzer import goals_base as G
+    from cruise_control_tpu_torch.model.arrays import stack_arrays
+    from tests.fixtures import service_test_goals, unbalanced2
+
+    jstate, _ = unbalanced2().to_arrays()
+    state = port_state(jstate)
+    ctx = GoalContext.build(state.num_topics, state.num_brokers, device="cpu")
+    goals = service_test_goals()
+    opt = GoalOptimizer(goal_ids=goals, hard_ids=tuple(g for g in goals if g in G.HARD_GOALS),
+                        enable_heavy_goals=False, device="cpu")
+    _, result = opt.batched_optimize(stack_arrays([state, state]), ctx)
+    return result, RECORDER.recent(1, kind="optimize")[0]
+
+
+@pytest.fixture(params=["optimize", "batched_optimize"])
+def solve_trace(request, traced_run, batched_trace):
+    """An optimize record read back from its JSONL sink, and a batched one
+    from the ring, with the host syncs the call reported."""
+    if request.param == "optimize":
+        result, path, _ = traced_run
+        return result.num_host_syncs, read_jsonl(path)[-1]
+    result, trace = batched_trace
+    return result.num_host_syncs, trace
+
+
+def _walk(span):
+    yield span
+    for c in span.children:
+        yield from _walk(c)
+
+
+class TestSolveSpans:
+    def test_top_level_spans_and_their_children(self, solve_trace):
+        syncs, trace = solve_trace
+        kinds = [s.kind for s in trace.spans]
+        assert kinds == ["setup"] + ["goal"] * (len(kinds) - 2) + ["finalize"] and len(kinds) > 2
+        assert trace.total_dispatches == trace.attrs["num_dispatches"] == syncs
+        for s in trace.spans:
+            assert [c.name for c in s.children] == CHILDREN[s.kind], s.name
+            assert all(not c.children for c in s.children)
+
+    def test_children_lie_inside_their_parents(self, solve_trace):
+        _, trace = solve_trace
+        eps = 1e-9
+        for top in trace.spans:
+            for s in _walk(top):
+                assert s.start_s is not None and s.duration_s >= 0.0
+                assert s.self_s >= -eps, s.name
+                for c in s.children:
+                    assert s.start_s <= c.start_s
+                    assert c.start_s + c.duration_s <= s.start_s + s.duration_s + eps, (s.name, c.name)
+        ends = [s.start_s + s.duration_s for s in trace.spans]
+        assert all(a <= b.start_s + eps for a, b in zip(ends, trace.spans[1:]))
+        assert ends[-1] <= trace.duration_s
+
+    def test_host_wait_and_device_time_on_the_host_driver(self, solve_trace):
+        _, trace = solve_trace
+        assert 0.0 <= trace.attrs["host_wait_s"] <= trace.duration_s
+        # no graph launched on the CPU: no device time, no stamps
+        assert trace.attrs["graph_device_s"] is None
+        assert all(s.attrs["device_s"] is None for s in trace.spans if s.kind == "goal")
+        assert trace.spans[0].children[1].attrs["device_s"] is None
+        assert trace.attrs.get("stamps_supported", False) is False
+
+
+def test_self_time_is_the_duration_less_what_the_children_cover():
+    parent = Span("p", "goal", 10.0, start_s=5.0, children=[
+        Span("a", "step", 2.0, start_s=6.0), Span("b", "step", 1.5, start_s=8.0),
+        Span("c", "step", 4.0, start_s=11.0),
+    ])
+    assert parent.self_s == pytest.approx(10.0 - 2.0 - 1.5 - 4.0)
+    assert Span("leaf", "step", 1.5, start_s=0.0).self_s == 1.5
+    assert Span("p", "goal", 3.0, children=[Span("a", "step", 1.0)]).self_s == 2.0
+
+
+def test_goal_reports_take_the_goal_spans_wall_on_the_host_driver(traced_run):
+    """No graph on the CPU: each goal's reported duration is its span's."""
+    result, path, _ = traced_run
+    goals = [s for s in read_jsonl(path)[-1].spans if s.kind == "goal"]
+    assert [r.duration_s for r in result.goal_reports] == [s.duration_s for s in goals]
+
+
+def test_span_tree_nests_in_order_and_names_profiler_ranges():
+    from torch.profiler import ProfilerActivity, profile
+
+    tree = R.SpanTree("optimize")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tree.span("setup", "setup") as setup:
+            with tree.span("violations"):
+                torch.ones(4).sum()
+        with tree.span("Goal", "goal"):
+            with tree.span("snapshot"):
+                pass
+    assert [s.name for s in tree.root.children] == ["setup", "Goal"]
+    assert [c.name for c in setup.children] == ["violations"]
+    assert tree.root.children[1].children[0].start_s >= setup.start_s + setup.duration_s
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert {"cc/optimize/setup", "cc/setup/violations", "cc/optimize/Goal", "cc/goal/snapshot"} <= names
+
+
+def test_host_syncs_time_their_waits():
+    from cruise_control_tpu_torch.analyzer.optimizer import HostSyncs
+
+    syncs = HostSyncs()
+    assert syncs.tolist(torch.arange(3)) == [0, 1, 2]
+    assert syncs.count == 1 and syncs.wait_s > 0.0
+    # a call that writes no record keeps no span tree
+    assert syncs.spans is None
+    with syncs.span("snapshot") as s:
+        assert s is None
+
+
+class TestSpanSinks:
+    def _tree_trace(self):
+        child = Span("snapshot", "step", 0.25, start_s=0.5)
+        goal = Span("RackAwareGoal", "goal", 1.0, 2, attrs={"moves": 3}, start_s=0.25,
+                    children=[child, Span("launch", "step", 0.5, start_s=0.75, children=[
+                        Span("inner", "step", 0.1, start_s=0.8)])])
+        trace = _sample_trace()
+        trace.spans = [Span("setup", "setup", 0.25, 1, start_s=0.0), goal]
+        return trace
+
+    def test_jsonl_round_trip_keeps_children(self, tmp_path):
+        path = str(tmp_path / "flight.jsonl")
+        orig = self._tree_trace()
+        FlightRecorder(jsonl_path=path).record(orig)
+        (got,) = read_jsonl(path)
+        assert got.to_dict() == orig.to_dict()
+        goal = got.spans[1]
+        assert [c.name for c in goal.children] == ["snapshot", "launch"]
+        assert goal.children[1].children[0].start_s == 0.8
+        assert goal.self_s == pytest.approx(0.25) and got.total_dispatches == 3
+
+    def test_a_span_without_start_or_children_still_loads(self):
+        old = {"name": "goal0", "kind": "goal", "duration_s": 0.5, "dispatches": 1, "attrs": {"moves": 0}}
+        span = Span.from_dict(old)
+        assert span.start_s is None and span.children == [] and span.self_s == 0.5
+        assert span.to_dict() == old
+        rec = TraceRecord.from_dict({**_sample_trace().to_dict(), "spans": [old]})
+        assert rec.spans[0].to_dict() == old and rec.total_dispatches == 1
+
+    def test_the_jax_package_reads_a_tree_without_its_children(self, tmp_path):
+        path = str(tmp_path / "flight.jsonl")
+        FlightRecorder(jsonl_path=path).record(self._tree_trace())
+        (got,) = JR.read_jsonl(path)
+        assert [s.name for s in got.spans] == ["setup", "RackAwareGoal"]
+        assert got.total_dispatches == 3
+
+
 # -- the executor record ------------------------------------------------------------
 
 
